@@ -22,9 +22,33 @@ and prints no result line):
    path must have launched the kernel.
 5. agreement: a small f32 model served on the card (kernel) and on the
    CPU (plain version) gives identical greedy tokens.
+3b. flash: the training path's three kernels (flash forward, dq, dkv)
+   against their plain versions on the card at Llama-3-8B attention
+   shapes (B 2, S 4096, H 32, KVH 8, D 128, causal) in bf16 and f32,
+   plus a ragged non-causal 77 x 140 case and a causal S 4000 case.
+   Prints the max error, the kernels', the plain versions' and the
+   library's (scaled_dot_product_attention forward, and its autograd
+   backward for dq + dkv) median times, and the card's lower bound.
+6. train: Llama-3-8B widths with the depth cut to 8 of 32 layers, bf16,
+   remat "save_attn": loss = cross_entropy(apply(params, tokens[:, :-1]),
+   tokens[:, 1:]), backward, AdamW(lr 3e-4, weight decay 0), on one
+   batch of 2 x 4096 tokens: 1 warm step, then 5 timed. Launch counts
+   are reset just before and read just after: every step launches the
+   forward, dq and dkv kernels exactly once per layer, the serve kernel
+   never. Losses finite, the last below the first.
+7. train agreement: a small f32 model (head_dim 128, GQA 2) trained for
+   2 steps on the card (kernels) and on the CPU (plain versions):
+   losses and every gradient agree.
 
-The second-to-last line is the card from nvidia-smi, the one before it
-the kernels' JSON record, and the last line {"ok": true, "device": ...}.
+Phases run in the order 1, 2, 3, 3b, 4, 5, 6, 7. The second-to-last
+line is the card from nvidia-smi, the one before it the kernels' JSON
+record, and the last line {"ok": true, "device": ...}.
+
+    python3 chip_smoke.py --profile-train
+
+runs phases 1 and 2, then one warm and one traced step of phase 6's
+train step under torch.profiler, and prints the device time by kernel
+family and the device's busy share of the traced step (no result line).
 """
 import json
 import statistics
@@ -69,7 +93,8 @@ def build():
     info = _build.build_all()
     for name, rec in info.items():
         ptxas = [ln.strip() for ln in rec["log"].splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if "registers" in ln or "spill" in ln
+                 or "entry function" in ln]
         print(f"build: {name} {rec['seconds']:.2f} s", flush=True)
         for ln in ptxas:
             print(f"  ptxas: {ln}")
@@ -227,6 +252,192 @@ def check_kernels() -> list:
     return records
 
 
+# -- phase 3b: the flash kernels against their plain versions -------------
+
+#: (kernel name, the TPU kernel it replaces)
+FLASH_KERNELS = (
+    ("flash_fwd", "ray_tpu/ops/flash_attention.py:66"),
+    ("flash_dq", "ray_tpu/ops/flash_attention.py:238"),
+    ("flash_dkv", "ray_tpu/ops/flash_attention.py:294"),
+)
+# kernel vs plain version, as |kernel - plain| <= atol + rtol * |plain|
+# with atol relative to the largest |plain| of the tensor (gradients span
+# orders of magnitude from one shape to the next):
+# f32: the same f32 products summed in other orders (the kernel tile by
+# tile with a streaming softmax, the plain version through cuBLAS) —
+# atol 1e-5 of the largest value, rtol 1e-4.
+# bf16: the products are exact in f32 and summed in f32, but both sides
+# round to bf16 (8 significant bits) at different points: the kernel
+# rounds the unnormalised per-tile p before p.V, the plain version the
+# normalised p; ds and the outputs round once each, from f32 values a few
+# ulps apart, so an entry can land one bf16 ulp (2^-7 of it) away, and
+# a sum over thousands of rounded terms drifts by up to 2^-8 of the
+# largest value. lse is f32 on both sides from exact products: f32 rule.
+FLASH_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2 ** -8, 2 ** -7)}
+TRAIN_LAYERS = 8        # of Llama-3-8B's 32: AdamW state must fit in 80 GB
+
+
+def _flash_inputs(b, sq, sk, h, kvh, d, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def mk(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+    return mk(b, sq, h, d), mk(b, sk, kvh, d), mk(b, sk, kvh, d), \
+        mk(b, sq, h, d)
+
+
+def _visible_pairs(b, sq, sk, h, causal) -> int:
+    """(query, key) pairs a query head sees, times B and H: query i sees
+    min(i + 1, Sk) keys under top-left causal masking, Sk otherwise."""
+    if not causal:
+        return b * h * sq * sk
+    n = min(sq, sk)
+    per_head = n * (n + 1) // 2 + max(0, sq - sk) * sk
+    return b * h * per_head
+
+
+def _flash_bounds(q, k, causal) -> dict:
+    """Least time per kernel: bytes moved once (q, k, v, dO and the
+    outputs in the input dtype, lse/delta f32) at the HBM rate against
+    4·D (forward), 6·D (dq) and 8·D (dkv) FLOPs per visible pair and
+    head at the dtype's peak. Returns {name: (ms, "bytes"|"operations")}."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    elt = q.element_size()
+    qb, kb, rows = b * sq * h * d * elt, b * sk * kvh * d * elt, b * h * sq * 4
+    nbytes = {"flash_fwd": 2 * qb + 2 * kb + rows,
+              "flash_dq": 3 * qb + 2 * kb + 2 * rows,
+              "flash_dkv": 2 * qb + 4 * kb + 2 * rows}
+    pairs = _visible_pairs(b, sq, sk, h, causal)
+    flops = {"flash_fwd": 4 * d * pairs, "flash_dq": 6 * d * pairs,
+             "flash_dkv": 8 * d * pairs}
+    out = {}
+    for name in nbytes:
+        t_bytes = nbytes[name] / HBM_BYTES_PER_S
+        t_ops = flops[name] / PEAK_FLOPS[q.dtype]
+        out[name] = (max(t_bytes, t_ops) * 1e3,
+                     "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def _close(label, got, want, dtype) -> float:
+    """Raise unless got is finite and within FLASH_TOL of want; returns
+    the max abs error."""
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"{label}: non-finite kernel output")
+    atol_rel, rtol = FLASH_TOL[torch.float32 if label.endswith("lse")
+                               else dtype]
+    err = (g - w).abs()
+    atol = atol_rel * float(w.abs().max())
+    if (err > atol + rtol * w.abs()).any():
+        raise AssertionError(f"{label}: |kernel - plain| above atol "
+                             f"{atol:.3g} + rtol {rtol}; max abs "
+                             f"{float(err.max()):.3g}")
+    return float(err.max())
+
+
+def _sdpa_calls(q, k, v, dout):
+    """scaled_dot_product_attention forward, and its autograd backward
+    (dq, dk and dv together), on the same inputs: the library yardstick,
+    timed only, never called by the port."""
+    import torch.nn.functional as F
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    out = fwd()
+    gt = dout.transpose(1, 2)
+    return fwd, lambda: torch.autograd.grad(out, (qt, kt, vt), gt,
+                                            retain_graph=True)
+
+
+def check_flash_kernels() -> dict:
+    """Phase 3b. Every case compares out, lse, dq, dk and dv with the
+    plain versions; the 8B causal case is also timed. Returns
+    {"max_abs_err": {kernel: err}, "timed": {dtype: {kernel: {...}}}}."""
+    from ray_tpu_torch.ops.flash_attention import (
+        delta_rows, flash_backward_reference, flash_dkv_kernel,
+        flash_dq_kernel, flash_forward_reference, flash_fwd_kernel,
+    )
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
+    cases = [("8b_causal", (2, 4096, 4096, 32, 8, 128), True),
+             ("ragged_full", (2, 77, 140, 32, 8, 128), False),
+             ("s4000_causal", (2, 4000, 4000, 32, 8, 128), True)]
+    max_err = {name: 0.0 for name, _ in FLASH_KERNELS}
+    timed = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        for seed, (case, shape, causal) in enumerate(cases):
+            q, k, v, dout = _flash_inputs(*shape, dtype, 10 + seed)
+            scale = shape[5] ** -0.5
+            out, lse = flash_fwd_kernel(q, k, v, causal, scale)
+            w_out, w_lse = flash_forward_reference(q, k, v, causal, scale)
+            delta = delta_rows(out, dout)
+            dq = flash_dq_kernel(q, k, v, dout, lse, delta, causal, scale)
+            dk, dv = flash_dkv_kernel(q, k, v, dout, lse, delta, causal,
+                                      scale)
+            w_dq, w_dk, w_dv = flash_backward_reference(
+                q, k, v, out, lse, dout, causal, scale)
+            torch.cuda.synchronize()
+            errs = {"flash_fwd": max(
+                        _close(f"{case} {dname} out", out, w_out, dtype),
+                        _close(f"{case} {dname} lse", lse, w_lse, dtype)),
+                    "flash_dq": _close(f"{case} {dname} dq", dq, w_dq,
+                                       dtype),
+                    "flash_dkv": max(
+                        _close(f"{case} {dname} dk", dk, w_dk, dtype),
+                        _close(f"{case} {dname} dv", dv, w_dv, dtype))}
+            del w_out, w_lse, w_dq, w_dk, w_dv
+            for name, e in errs.items():
+                max_err[name] = max(max_err[name], e)
+            rec = {"case": case, "dtype": dname, "shape": list(shape),
+                   "causal": causal, "max_abs_err": errs}
+            if case == "8b_causal":
+                rec["timed"] = timed[dname] = _time_flash(
+                    q, k, v, dout, out, lse, delta, causal, scale, flush)
+            print("flash: " + json.dumps(rec), flush=True)
+    return {"max_abs_err": max_err, "timed": timed}
+
+
+def _time_flash(q, k, v, dout, out, lse, delta, causal, scale, flush):
+    from ray_tpu_torch.ops.flash_attention import (
+        flash_backward_reference, flash_dkv_kernel, flash_dq_kernel,
+        flash_forward_reference, flash_fwd_kernel,
+    )
+    reps, trials = 5, 3          # tens of ms per call at this shape
+    ms = {"flash_fwd": _device_ms(
+              lambda: flash_fwd_kernel(q, k, v, causal, scale), flush,
+              reps, trials),
+          "flash_dq": _device_ms(
+              lambda: flash_dq_kernel(q, k, v, dout, lse, delta, causal,
+                                      scale), flush, reps, trials),
+          "flash_dkv": _device_ms(
+              lambda: flash_dkv_kernel(q, k, v, dout, lse, delta, causal,
+                                       scale), flush, reps, trials)}
+    plain_fwd = _device_ms(
+        lambda: flash_forward_reference(q, k, v, causal, scale), flush,
+        reps, trials)
+    plain_bwd = _device_ms(
+        lambda: flash_backward_reference(q, k, v, out, lse, dout, causal,
+                                         scale), flush, reps, trials)
+    lib_fwd, lib_bwd = _sdpa_calls(q, k, v, dout)
+    library_fwd = _device_ms(lib_fwd, flush, reps, trials)
+    library_bwd = _device_ms(lib_bwd, flush, reps, trials)
+    bounds = _flash_bounds(q, k, causal)
+    # the plain backward and the library's backward compute dq, dk and dv
+    # in one call: that one time stands beside both backward kernels
+    plain = {"flash_fwd": plain_fwd, "flash_dq": plain_bwd,
+             "flash_dkv": plain_bwd}
+    library = {"flash_fwd": library_fwd, "flash_dq": library_bwd,
+               "flash_dkv": library_bwd}
+    return {name: {"ms": ms[name], "plain_ms": plain[name],
+                   "library_ms": library[name], "bound_ms": bounds[name][0],
+                   "bound_by": bounds[name][1]} for name in ms}
+
+
 # -- phase 4: serve at full width ------------------------------------------
 
 def _requests(vocab: int, seed: int):
@@ -375,10 +586,235 @@ def agreement():
           f"card vs CPU", flush=True)
 
 
+# -- phase 6: train at full width, depth cut -------------------------------
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for key in sorted(tree) for x in _leaves(tree[key])]
+    return [tree]
+
+
+def _launch_counts() -> dict:
+    from ray_tpu_torch.ops.flash_attention import (
+        flash_dkv_kernel, flash_dq_kernel, flash_fwd_kernel,
+    )
+    from ray_tpu_torch.ops.ragged_paged_attention import \
+        ragged_paged_attention
+    return {"flash_fwd": flash_fwd_kernel.launches,
+            "flash_dq": flash_dq_kernel.launches,
+            "flash_dkv": flash_dkv_kernel.launches,
+            "ragged_paged_attention": ragged_paged_attention.launches}
+
+
+def _reset_launch_counts():
+    from ray_tpu_torch.ops.flash_attention import (
+        flash_dkv_kernel, flash_dq_kernel, flash_fwd_kernel,
+    )
+    from ray_tpu_torch.ops.ragged_paged_attention import \
+        ragged_paged_attention
+    for fn in (flash_fwd_kernel, flash_dq_kernel, flash_dkv_kernel,
+               ragged_paged_attention):
+        fn.launches = 0
+
+
+def _train_step_fn(params, cfg, tokens):
+    """The counterpart of bench.py's train step: loss, backward, AdamW
+    (lr 3e-4, no weight decay; its moments keep the params' dtype)."""
+    from ray_tpu_torch.models import llama
+    leaves = _leaves(params)
+    for t in leaves:
+        t.requires_grad_()
+    opt = torch.optim.AdamW(leaves, lr=3e-4, weight_decay=0.0)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = llama.cross_entropy_loss(
+            llama.apply(params, tokens[:, :-1], cfg), tokens[:, 1:])
+        loss.backward()
+        opt.step()
+        return loss.detach()
+    return step
+
+
+def train(model_cfg, device, batch: int, seq: int, steps: int = 5,
+          seed: int = 0) -> dict:
+    """Phase 6 (also rehearsed on the CPU at tiny size): 1 warm step and
+    ``steps`` timed steps on one batch of ``batch`` x ``seq`` tokens
+    (targets shifted from seq + 1 random tokens drawn from ``seed``).
+    Returns losses, launches per kernel, and the step figures."""
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    from ray_tpu_torch.models import llama
+    params = llama.init(model_cfg, seed=seed, device=device)
+    rng = np.random.RandomState(seed)
+    tokens = torch.as_tensor(rng.randint(0, model_cfg.vocab_size,
+                                         (batch, seq + 1)),
+                             dtype=torch.int64, device=device)
+    step = _train_step_fn(params, model_cfg, tokens)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()                 # main path starts here
+    losses, step_s, per_step = [], [], []
+    for i in range(1 + steps):
+        before = _launch_counts()
+        t0 = time.perf_counter()
+        losses.append(float(step()))
+        sync()
+        if i:
+            step_s.append(time.perf_counter() - t0)
+        after = _launch_counts()
+        per_step.append({n: after[n] - before[n] for n in after})
+    launches = _launch_counts()            # main path ends here
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train losses not finite or not falling: "
+                             f"{losses}")
+    want = {"flash_fwd": model_cfg.n_layers, "flash_dq": model_cfg.n_layers,
+            "flash_dkv": model_cfg.n_layers, "ragged_paged_attention": 0}
+    if cuda:
+        for i, got in enumerate(per_step):
+            if got != want:
+                raise AssertionError(f"step {i}: launches {got}, want "
+                                     f"{want} (forward not replayed)")
+    med = statistics.median(step_s)
+    tokens_per_step = batch * seq
+    out = {"layers": model_cfg.n_layers, "batch": batch, "seq": seq,
+           "losses": losses, "launches": launches,
+           "launches_per_step": per_step[-1], "step_ms": [s * 1e3
+                                                           for s in step_s],
+           "step_ms_median": med * 1e3,
+           "tokens_per_s": tokens_per_step / med}
+    if cuda:
+        out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out["model_flops_over_bf16_peak"] = (
+            model_cfg.flops_per_token(seq) * tokens_per_step / med
+            / PEAK_FLOPS[torch.bfloat16])
+    return out
+
+
+# -- phase 7: training agreement --------------------------------------------
+
+def train_agreement():
+    """The same small f32 model (head_dim 128, GQA 2, remat save_attn)
+    trained for 2 steps on the card (kernels) and on the CPU (plain
+    versions): each step's loss within 1e-5, and every gradient within
+    |card - cpu| <= 1e-4 * max|cpu| + 1e-3 * |cpu| (f32 sums in other
+    orders; the second step also starts from parameters that AdamW moved
+    by about +-lr wherever a gradient is near 0)."""
+    from ray_tpu_torch.models import llama
+    mc = llama.llama_tiny(vocab_size=512, dim=256, n_heads=2, n_kv_heads=1,
+                          mlp_dim=512, n_layers=2, max_seq_len=1024,
+                          remat=True, remat_policy="save_attn")
+    rng = np.random.RandomState(11)
+    tok = rng.randint(0, mc.vocab_size, (2, 161))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        params = llama.init(mc, seed=5, device="cpu")
+        if device == "cuda":
+            params = {k: ({n: t.cuda() for n, t in v.items()}
+                          if isinstance(v, dict) else v.cuda())
+                      for k, v in params.items()}
+        tokens = torch.as_tensor(tok, dtype=torch.int64, device=device)
+        step = _train_step_fn(params, mc, tokens)
+        leaves = _leaves(params)
+        losses, grads = [], []
+        for _ in range(2):
+            losses.append(float(step()))
+            grads.append([t.grad.detach().cpu() for t in leaves])
+        runs[device] = (losses, grads)
+    (lc, gc), (lp, gp) = runs["cuda"], runs["cpu"]
+    np.testing.assert_allclose(lc, lp, atol=1e-5, rtol=0)
+    worst = 0.0
+    for s, (a_list, b_list) in enumerate(zip(gc, gp)):
+        for a, b in zip(a_list, b_list):
+            err = (a - b).abs()
+            bound = 1e-4 * float(b.abs().max()) + 1e-3 * b.abs()
+            if (err > bound).any():
+                raise AssertionError(f"step {s}: gradient off by "
+                                     f"{float(err.max()):.3g}")
+            worst = max(worst, float((err / (b.abs().max() + 1e-30)).max()))
+    print(f"train agreement: losses card {lc} cpu {lp}; worst gradient "
+          f"error {worst:.3g} of its tensor's max", flush=True)
+
+
+# -- --profile-train: where a train step's device time goes ---------------
+
+_FAMILIES = (("flash_fwd", "flash_fwd_kernel"),
+             ("flash_dq", "flash_dq_kernel"),
+             ("flash_dkv", "flash_dkv_kernel"),
+             ("optimizer", "multi_tensor_apply"),
+             ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "sm90")),
+             ("softmax / log_softmax", "softmax"),
+             ("embedding / index", ("index", "embedding", "gather",
+                                    "scatter")),
+             ("reduce", "reduce"), ("elementwise", "elementwise"),
+             ("copy / fill", ("copy", "fill", "memset", "memcpy")))
+
+
+def _family(name: str) -> str:
+    low = name.lower()
+    for fam, keys in _FAMILIES:
+        if any(k in low for k in ((keys,) if isinstance(keys, str)
+                                  else keys)):
+            return fam
+    return "other"
+
+
+def profile_train():
+    """One warm and one traced step of phase 6 under torch.profiler:
+    device time by kernel family and the 15 largest kernels, the traced
+    step's wall time, and the device-busy share (kernel time / wall)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from ray_tpu_torch.models import llama
+    cfg = llama.llama3_8b(n_layers=TRAIN_LAYERS)
+    params = llama.init(cfg, seed=0, device="cuda")
+    tokens = torch.as_tensor(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (2, 4097)), dtype=torch.int64, device="cuda")
+    step = _train_step_fn(params, cfg, tokens)
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = {}
+    for ev in prof.events():
+        # device-side ranges of user annotations (Optimizer.step#...)
+        # span kernels already counted: skip them
+        if ev.device_type == DeviceType.CUDA and \
+                not getattr(ev, "is_user_annotation", False):
+            k = kernels.setdefault(ev.name, [0.0, 0])
+            k[0] += ev.time_range.elapsed_us() / 1e3      # us -> ms
+            k[1] += 1
+    busy = sum(t for t, _ in kernels.values())
+    if busy <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    fams = {}
+    for name, (t, n) in kernels.items():
+        f = fams.setdefault(_family(name), [0.0, 0])
+        f[0] += t
+        f[1] += n
+    print(f"profile: traced step wall {wall * 1e3:.1f} ms, kernel time "
+          f"{busy:.1f} ms, device busy share {busy / (wall * 1e3):.3f}",
+          flush=True)
+    for fam, (t, n) in sorted(fams.items(), key=lambda kv: -kv[1][0]):
+        print(f"profile family: {fam:24s} {t:9.2f} ms {t / busy:6.1%} "
+              f"{n:6d} launches")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
+    for name, (t, n) in top:
+        print(f"profile kernel: {t:9.2f} ms {n:5d}x {name[:110]}")
+
+
 def main():
     card = probe()
     build()
+    if "--profile-train" in sys.argv[1:]:
+        profile_train()
+        return 0
     records = check_kernels()
+    flash = check_flash_kernels()
     from ray_tpu_torch.models import llama
     res = serve(llama.llama3_8b(), "cuda", page_size=16, num_pages=1024,
                 max_pages_per_seq=64, chunk_size=128, prefill_rows=4,
@@ -388,6 +824,11 @@ def main():
         if n <= 0:
             raise AssertionError(f"kernel never launched in {name}")
     agreement()
+    torch.cuda.empty_cache()
+    tr = train(llama.llama3_8b(n_layers=TRAIN_LAYERS), "cuda",
+               batch=2, seq=4096)
+    print("train: " + json.dumps(tr), flush=True)
+    train_agreement()
     head = next(r for r in records
                 if r["family"] == "decode" and r["dtype"] == "bfloat16")
     kernels = [{
@@ -401,6 +842,19 @@ def main():
         "library_ms": head["library_ms"],
         "timed_at": "decode bf16 R=8 Q=1 H=32 KVH=8 D=128 page=16",
     }]
+    main_case = flash["timed"]["bfloat16"]
+    for name, replaces in FLASH_KERNELS:
+        t = main_case[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "ray_tpu_torch/ops/csrc/flash_attention.cu",
+            "replaces": replaces, "launches": tr["launches"][name],
+            "max_abs_err": flash["max_abs_err"][name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "timed_at": "causal bf16 B=2 S=4096 H=32 KVH=8 D=128",
+        })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

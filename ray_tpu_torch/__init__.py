@@ -1,10 +1,12 @@
-"""ray_tpu_torch — the PyTorch/CUDA port of ray_tpu's serving path.
+"""ray_tpu_torch — the PyTorch/CUDA port of ray_tpu's serving path and
+Llama training step.
 
 A second package beside ``ray_tpu``: the same Llama paged-KV serving
-engine, written in PyTorch for one NVIDIA H100, with the TPU's Pallas
-attention kernel replaced by a hand-written CUDA kernel for Hopper
-(``ops/csrc``). The package imports nothing of ``ray_tpu`` and never
-imports JAX; importing this top-level module loads nothing heavy.
+engine and dense training forward/backward, written in PyTorch for one
+NVIDIA H100, with the TPU's Pallas attention kernels replaced by
+hand-written CUDA kernels for Hopper (``ops/csrc``). The package
+imports nothing of ``ray_tpu`` and never imports JAX; importing this
+top-level module loads nothing heavy.
 
     from ray_tpu_torch.llm import (PagedEngineConfig,
                                    PagedInferenceEngine, SamplingParams)

@@ -1,1 +1,1 @@
-"""Models of the port (PyTorch): the Llama serving forwards."""
+"""Models of the port (PyTorch): the Llama serving and training forwards."""

@@ -22,17 +22,34 @@ being clamped into a live page. The engine's table-width rule keeps every
 write inside the table, with columns past a row's allocation naming the
 sink page.
 
-MoE, LoRA and the training/flash forward (``apply``) are not part of
-this module yet.
+Training runs ``apply`` (or ``apply_with_aux``) then
+``cross_entropy_loss``: the same layers without a cache, attention
+through ``ops.flash_attention`` (the Hopper forward, dq and dkv kernels
+on CUDA tensors, the plain versions on CPU tensors), each layer under
+``torch.utils.checkpoint`` when ``cfg.remat`` is set. With
+``remat_policy="save_attn"`` a selective-checkpoint policy keeps the
+flash op's outputs, so the backward recomputes the projections and MLP
+but never replays the attention forward.
+
+MoE and LoRA are not part of this module yet, nor the reference's
+dense-slot cached-decode forms (``apply_decode`` and its kin).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
+from ..ops.flash_attention import (
+    FLASH_FWD_OP, flash_attention, mha_reference,
+)
 from ..ops.ragged_paged_attention import (
     ragged_decode_attention, ragged_paged_attention,
 )
@@ -50,8 +67,12 @@ class LlamaConfig:
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
-    # training knobs of the reference config, kept so configs carry over
-    # field for field; the serving forwards here do not read them
+    # training knobs, read by apply: remat checkpoints each layer;
+    # "full" recomputes everything in the backward, "save_attn" keeps the
+    # flash op's out and lse so attention's forward is not replayed;
+    # use_flash=False runs mha_reference instead of flash_attention;
+    # attn_block_q/k reach flash_attention (where only the plain
+    # backward reads block_k). The serving forwards do not read them.
     remat: bool = True
     remat_policy: str = "save_attn"
     use_flash: bool = True
@@ -67,6 +88,25 @@ class LlamaConfig:
     @property
     def head_dim(self) -> int:
         return self.dim // self.n_heads
+
+    def flops_per_token(self, seq_len: int | None = None) -> float:
+        """Approximate training FLOPs/token (fwd+bwd ~ 6*params +
+        attention), as the reference counts them."""
+        attn = 12 * self.n_layers * self.dim * (seq_len or self.max_seq_len)
+        return 6 * self.num_params() + attn
+
+    def num_params(self) -> int:
+        d, v = self.dim, self.vocab_size
+        if self.moe_experts:
+            mlp = (3 * d * self.mlp_dim * self.moe_experts
+                   + d * self.moe_experts)                           # + router
+        else:
+            mlp = 3 * d * self.mlp_dim
+        per_layer = (
+            d * d + 2 * d * self.n_kv_heads * self.head_dim + d * d  # qkvo
+            + mlp                                                    # (swi)glu
+            + 2 * d)                                                 # norms
+        return v * d + self.n_layers * per_layer + d + d * v
 
 
 def llama3_8b(**kw) -> LlamaConfig:
@@ -97,7 +137,7 @@ def resolve_device(device) -> torch.device:
 def _dense_only(cfg: LlamaConfig):
     if cfg.moe_experts:
         raise NotImplementedError(
-            "ray_tpu_torch.models.llama serves dense configs only; "
+            "ray_tpu_torch.models.llama runs dense configs only; "
             "mixture-of-experts is not ported yet")
 
 
@@ -204,6 +244,25 @@ def _mlp_block(x, p, cfg: LlamaConfig):
     return x + (gate * (h @ p["w_up"])) @ p["w_down"]
 
 
+class _F32Logits(torch.autograd.Function):
+    """x2 [N, dim] @ w [dim, V] with f32 output from low-precision inputs
+    on the card, differentiable. Forward: one cuBLAS call with f32
+    accumulation and f32 output. Backward: the f32 gradient rounded to
+    w's dtype, then two low-precision products (x's gradient and w's in
+    their own dtype, as the reference's bf16 parameters get them)."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g = g.to(w.dtype)
+        return g @ w.t(), x2.t() @ g
+
+
 def _logits(x, lm_head):
     """x [..., dim] @ lm_head [dim, V] -> f32 logits [..., V].
 
@@ -216,7 +275,7 @@ def _logits(x, lm_head):
     if x2.dtype == torch.float32 and lm_head.dtype == torch.float32:
         out = x2 @ lm_head
     elif x2.is_cuda:
-        out = torch.mm(x2, lm_head, out_dtype=torch.float32)
+        out = _F32Logits.apply(x2, lm_head)
     else:
         out = x2.float() @ lm_head.float()
     return out.reshape(*lead, out.shape[-1])
@@ -224,6 +283,86 @@ def _logits(x, lm_head):
 
 def _layer_params(params: dict, layer: int) -> dict:
     return {k: v[layer] for k, v in params["layers"].items()}
+
+
+# ---------------------------------------------------------------------------
+# Training forward (no cache)
+# ---------------------------------------------------------------------------
+
+def _attention(q, k, v, cfg: LlamaConfig, causal: bool, attn_impl):
+    if attn_impl is not None:
+        return attn_impl(q, k, v)
+    if cfg.use_flash:
+        return flash_attention(q, k, v, causal, None, cfg.attn_block_q,
+                               cfg.attn_block_k)
+    return mha_reference(q, k, v, causal=causal)
+
+
+def _layer(x, p: dict, cfg: LlamaConfig, cos, sin, attn_impl):
+    """One transformer block in training mode (no KV cache). x [B,S,dim]."""
+    h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    b, s, _ = h.shape
+    q, k, v = _qkv(h, p, cfg, cos, sin)
+    attn = _attention(q, k, v, cfg, causal=True, attn_impl=attn_impl)
+    x = x + attn.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p["wo"]
+    return _mlp_block(x, p, cfg)
+
+
+def _save_flash_outputs(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``save_attn``: keep what the flash
+    op returns (out, lse), recompute everything else."""
+    if op == FLASH_FWD_OP:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_kwargs(cfg: LlamaConfig) -> dict:
+    kw = {"use_reentrant": False}
+    if cfg.remat_policy == "save_attn":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_flash_outputs)
+    return kw
+
+
+def apply(params: dict, tokens, cfg: LlamaConfig, attn_impl=None):
+    """Training/prefill forward: tokens [B, S] int -> logits [B, S, V] f32.
+
+    ``attn_impl(q, k, v)`` overrides attention. Runs on the device of
+    ``params`` (the card, for params made with the default device)."""
+    return apply_with_aux(params, tokens, cfg, attn_impl)[0]
+
+
+def apply_with_aux(params: dict, tokens, cfg: LlamaConfig, attn_impl=None):
+    """(logits, aux): aux is the MoE load-balance loss, 0.0 for the dense
+    configs this port runs (MoE raises NotImplementedError)."""
+    _dense_only(cfg)
+    x = params["embed"][tokens].to(cfg.dtype)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    cos, sin = rope_freqs(cfg, positions.expand(tokens.shape))
+    # one unbind per stacked weight: its backward stacks the per-layer
+    # gradients once, instead of a full-size zero tensor per layer
+    names = list(params["layers"])
+    per_layer = [params["layers"][n].unbind(0) for n in names]
+    remat = _remat_kwargs(cfg) if cfg.remat else None
+    for layer in range(cfg.n_layers):
+        p = {n: w[layer] for n, w in zip(names, per_layer)}
+        if remat is None:
+            x = _layer(x, p, cfg, cos, sin, attn_impl)
+        else:
+            x = checkpoint(_layer, x, p, cfg, cos, sin, attn_impl, **remat)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _logits(x, params["lm_head"]), aux
+
+
+def cross_entropy_loss(logits, targets, mask=None):
+    """Mean next-token NLL. logits [B,S,V] f32, targets [B,S] int."""
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
+    return nll.mean()
 
 
 # ---------------------------------------------------------------------------

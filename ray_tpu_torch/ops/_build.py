@@ -28,6 +28,7 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 #: library name -> its source under csrc/
 SOURCES = {
     "ragged_paged_attention": "ragged_paged_attention.cu",
+    "flash_attention": "flash_attention.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -125,3 +126,12 @@ def _bind(name: str, lib: ctypes.CDLL):
         lib.rpa_forward.argtypes = [I, P, P, P, P, P, P, P,
                                     I, I, I, I, I, I, I, F, P]
         lib.rpa_forward.restype = I
+    elif name == "flash_attention":
+        # dtype, q, k, v, then the outputs / backward operands, then
+        # B, Sq, Sk, H, KVH, D, causal, scale, stream
+        sizes = [I, I, I, I, I, I, I, F, P]
+        lib.flash_fwd.argtypes = [I, P, P, P, P, P] + sizes
+        lib.flash_dq.argtypes = [I, P, P, P, P, P, P, P] + sizes
+        lib.flash_dkv.argtypes = [I, P, P, P, P, P, P, P, P] + sizes
+        for fn in (lib.flash_fwd, lib.flash_dq, lib.flash_dkv):
+            fn.restype = I

@@ -1,20 +1,29 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: every test needs an NVIDIA GPU (and nvcc to build the
-kernel from ray_tpu_torch/ops/csrc) and skips on a machine without one.
+kernels from ray_tpu_torch/ops/csrc) and skips on a machine without one.
 On a GPU machine:
 
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py
 
-Tolerances, at real query positions only: f32 atol 2e-5 (both sides sum
-in f32 in different orders); bf16 atol 1e-2 + rtol 2^-7 (both compute in
-f32 and round the output to bf16, which can land one bf16 ulp — at most
-2^-7 of the value — apart).
+Ragged paged attention, at real query positions only: f32 atol 2e-5
+(both sides sum in f32 in different orders); bf16 atol 1e-2 + rtol 2^-7
+(both compute in f32 and round the output to bf16, which can land one
+bf16 ulp — at most 2^-7 of the value — apart).
+
+Flash forward, dq and dkv: |kernel - plain| <= atol * max|plain| +
+rtol * |plain| per tensor, with (atol, rtol) = (1e-5, 1e-4) for f32 and
+for lse, and (2^-8, 2^-7) for bf16 outputs (chip_smoke.FLASH_TOL states
+why).
 """
 import numpy as np
 import pytest
 import torch
 
+from ray_tpu_torch.ops.flash_attention import (
+    delta_rows, flash_attention, flash_backward_reference, flash_dkv_kernel,
+    flash_dq_kernel, flash_forward_reference, flash_fwd_kernel,
+)
 from ray_tpu_torch.ops.ragged_paged_attention import (
     ragged_decode_attention, ragged_paged_attention, ragged_paged_reference,
 )
@@ -123,3 +132,93 @@ def test_engine_on_card_matches_engine_on_cpu(cuda):
     a = PagedInferenceEngine(cfg, on_card, device=cuda).generate(prompts, sp)
     b = PagedInferenceEngine(cfg, params, device="cpu").generate(prompts, sp)
     assert [x["token_ids"] for x in a] == [x["token_ids"] for x in b]
+
+
+# -- flash attention (training path) ----------------------------------------
+
+FLASH_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2 ** -8, 2 ** -7)}
+
+
+def _flash_case(b, sq, sk, h, kvh, d, dtype, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=device).to(dtype)
+            for s in ((b, sq, h, d), (b, sk, kvh, d), (b, sk, kvh, d),
+                      (b, sq, h, d))]
+
+
+def _assert_flash_close(got, want, tol):
+    atol, rtol = tol
+    g, w = got.float(), want.float()
+    assert torch.isfinite(g).all()
+    bound = atol * w.abs().max() + rtol * w.abs()
+    assert ((g - w).abs() <= bound).all(), float((g - w).abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("groups", [1, 4])
+@pytest.mark.parametrize("sq,sk,causal", [(100, 100, True),
+                                          (77, 140, False),
+                                          (140, 77, True),
+                                          (130, 130, False)])
+def test_flash_kernels_match_plain_versions(cuda, dtype, d, groups, sq, sk,
+                                            causal):
+    """Forward (out, lse), dq and dkv on ragged lengths (no length is a
+    multiple of a tile), GQA 1 and 4, both head dims and dtypes."""
+    q, k, v, dout = _flash_case(2, sq, sk, 2 * groups, 2, d, dtype, cuda)
+    scale = d ** -0.5
+    out, lse = flash_fwd_kernel(q, k, v, causal, scale)
+    w_out, w_lse = flash_forward_reference(q, k, v, causal, scale)
+    delta = delta_rows(out, dout)
+    dq = flash_dq_kernel(q, k, v, dout, lse, delta, causal, scale)
+    dk, dv = flash_dkv_kernel(q, k, v, dout, lse, delta, causal, scale)
+    w_dq, w_dk, w_dv = flash_backward_reference(q, k, v, out, lse, dout,
+                                                causal, scale, 64)
+    torch.cuda.synchronize()
+    _assert_flash_close(lse, w_lse, FLASH_TOL[torch.float32])
+    for got, want in ((out, w_out), (dq, w_dq), (dk, w_dk), (dv, w_dv)):
+        assert got.dtype == dtype
+        _assert_flash_close(got, want, FLASH_TOL[dtype])
+
+
+def test_flash_op_launches_each_kernel_once_per_call(cuda):
+    """A forward and backward through flash_attention on CUDA tensors
+    launches the forward, dq and dkv kernels once each; the same call
+    on CPU tensors launches nothing and gives the same gradients."""
+    q, k, v, dout = _flash_case(1, 70, 70, 4, 2, 64, torch.float32, cuda)
+    counters = (flash_fwd_kernel, flash_dq_kernel, flash_dkv_kernel)
+    before = [f.launches for f in counters]
+    ts = [x.clone().requires_grad_() for x in (q, k, v)]
+    (flash_attention(*ts, True) * dout).sum().backward()
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1]
+    cpu = [x.cpu().requires_grad_() for x in (q, k, v)]
+    (flash_attention(*cpu, True) * dout.cpu()).sum().backward()
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1]
+    for a, b in zip(ts, cpu):
+        _assert_flash_close(a.grad.cpu(), b.grad, (1e-5, 1e-4))
+
+
+def test_flash_kernels_reject_what_they_do_not_take(cuda):
+    q, k, v, dout = _flash_case(1, 40, 40, 4, 2, 64, torch.float32, cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_fwd_kernel(q.half(), k.half(), v.half(), True, 0.1)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_fwd_kernel(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                         v[..., :32].contiguous(), True, 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_fwd_kernel(q.transpose(1, 2).contiguous().transpose(1, 2), k,
+                         v, True, 0.1)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flat = torch.zeros(q.numel() + 1, device=cuda)
+        flash_fwd_kernel(flat[1:].view(q.shape), k, v, True, 0.1)
+    with pytest.raises(ValueError, match="multiple of n_kv_heads"):
+        flash_fwd_kernel(q[:, :, :3].contiguous(), k, v, True, 0.1)
+    with pytest.raises(ValueError, match="on cpu"):
+        flash_fwd_kernel(q, k.cpu(), v, True, 0.1)
+    out, lse = flash_fwd_kernel(q, k, v, True, 0.1)
+    delta = delta_rows(out, dout)
+    with pytest.raises(ValueError, match="lse"):
+        flash_dq_kernel(q, k, v, dout, lse.transpose(1, 2), delta, True, 0.1)
+    with pytest.raises(ValueError, match="dout"):
+        flash_dkv_kernel(q, k, v, dout.bfloat16(), lse, delta, True, 0.1)

@@ -46,6 +46,7 @@ def test_port_modules_load_no_jax_and_no_ray_tpu():
     modules = set(lines["MODULES"].split(","))
     for want in ("ray_tpu_torch.ops.ragged_paged_attention",
                  "ray_tpu_torch.ops.paged_attention",
+                 "ray_tpu_torch.ops.flash_attention",
                  "ray_tpu_torch.ops._build", "ray_tpu_torch.models.llama",
                  "ray_tpu_torch.models.convert",
                  "ray_tpu_torch.llm.paged_engine",
