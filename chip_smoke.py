@@ -29,6 +29,10 @@ and prints no result line):
    Prints the max error, the kernels', the plain versions' and the
    library's (scaled_dot_product_attention forward, and its autograd
    backward for dq + dkv) median times, and the card's lower bound.
+   Then the forward kernel alone at the dense engine's prefill shapes
+   (B 1, causal, S = each bucket 32-1024, bf16), held against its plain
+   version and timed the same way; phase 4b fails if it prefills at a
+   shape not checked here.
 6. train: Llama-3-8B widths with the depth cut to 8 of 32 layers, bf16,
    remat "save_attn": loss = cross_entropy(apply(params, tokens[:, :-1]),
    tokens[:, 1:]), backward, AdamW(lr 3e-4, weight decay 0), on one
@@ -39,10 +43,30 @@ and prints no result line):
 7. train agreement: a small f32 model (head_dim 128, GQA 2) trained for
    2 steps on the card (kernels) and on the CPU (plain versions):
    losses and every gradient agree.
+3c. paged decode: the decode-only kernel (split-KV, two launches) on its
+   own entry point paged_decode_attention, whose path no model runs.
+   The launch count is reset, the entry point is called once per case
+   and dtype, and the count read: that is the kernel's path. Cases:
+   phase 3's decode shape plus a length-0 row, and one row with an
+   8,192-token context (512 pages); table tails name a NaN page and the
+   slots past each length in its last page are NaN. Each output is held
+   against the plain version and against the ragged kernel at q_len 1
+   (live rows; length-0 rows must be exactly 0) within phase 3's TOL,
+   its atol cut to 2^-7 of each row's largest value, and the kernel, the
+   plain version, the ragged kernel and scaled_dot_product_attention are
+   timed beside the card's bound.
+4b. dense serve: the paged engine freed, LLMPredictor (the dense-slot
+   InferenceEngine) at full Llama-3-8B width (32 layers, bf16, random
+   weights from seed 0, batch 8, max_seq_len 1024) answers one batch of
+   8 prompts, then its engine generates phase 4's requests. Launch counts
+   are reset just before and read just after: the flash forward kernel
+   runs once per layer per prefill, the paged kernels never.
+5b. dense agreement: phase 5's small f32 model through InferenceEngine on
+   the card and on the CPU gives identical greedy tokens.
 
-Phases run in the order 1, 2, 3, 3b, 4, 5, 6, 7. The second-to-last
-line is the card from nvidia-smi, the one before it the kernels' JSON
-record, and the last line {"ok": true, "device": ...}.
+Phases run in the order 1, 2, 3, 3c, 3b, 4, 4b, 5, 5b, 6, 7. The
+second-to-last line is the card from nvidia-smi, the one before it the
+kernels' JSON record, and the last line {"ok": true, "device": ...}.
 
     python3 chip_smoke.py --profile-train
 
@@ -50,6 +74,7 @@ runs phases 1 and 2, then one warm and one traced step of phase 6's
 train step under torch.profiler, and prints the device time by kernel
 family and the device's busy share of the traced step (no result line).
 """
+import gc
 import json
 import statistics
 import subprocess
@@ -252,6 +277,131 @@ def check_kernels() -> list:
     return records
 
 
+# -- phase 3c: the decode-only kernel on its own entry point --------------
+
+PAGED_DECODE = ("paged_decode_attention", "ray_tpu/ops/paged_attention.py:36")
+# Phase 3c holds B2 to phase 3's TOL with atol cut, row by row, to 2^-7 of
+# the row's largest |plain| where that is smaller. A row of n keys gives
+# outputs of about sqrt(e / n) (0.018 at 8,192 keys), where a flat 1e-2
+# would let a kernel that dropped one of the row's splits pass. Rounding
+# p to bf16 before p.V (relative 2^-8 per term, at random) moves an output
+# by about 2^-9 of the row's typical value, and two kernels that round at
+# different running maxima by about 2^-8: the largest of a row's 4,096
+# such differences stays several times below 2^-7 of the row's max.
+ROW_ATOL_REL = 2 ** -7
+
+
+def _paged_decode_case(case: str, dtype, seed: int):
+    """Phase 3c inputs at the 8B attention shape (H 32, KVH 8, D 128, page
+    16): "main" is phase 3's decode rows plus a row of length 0, "long"
+    one row of 8,192 tokens. Live pages are disjoint across rows; table
+    tails name an all-NaN page and the slots past each row's length in
+    its last live page are NaN too. Returns (q, k_pages, v_pages,
+    block_table, lengths)."""
+    H, KVH, D, PAGE, P = 32, 8, 128, 16, 1024
+    if case == "main":
+        lengths, maxp = [1, 17, 130, 256, 511, 640, 877, 1000, 0], 64
+    else:
+        lengths, maxp = [8192], 520
+    lengths = np.asarray(lengths, np.int64)
+    n_live = -(-lengths // PAGE)
+    poison = P - 1
+    ids = iter(np.random.RandomState(seed).permutation(np.arange(1, poison)))
+    bt = np.full((len(lengths), maxp), poison, np.int32)
+    for r, n in enumerate(n_live):
+        bt[r, :n] = [next(ids) for _ in range(n)]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((len(lengths), H, D), generator=g, device="cuda").to(dtype)
+    kp = torch.randn((P, PAGE, KVH, D), generator=g, device="cuda").to(dtype)
+    vp = torch.randn((P, PAGE, KVH, D), generator=g, device="cuda").to(dtype)
+    for t in (kp, vp):
+        t[poison] = float("nan")
+        for r, n in enumerate(lengths):
+            if n % PAGE:
+                t[int(bt[r, n // PAGE]), n % PAGE:] = float("nan")
+    as_t = lambda a: torch.as_tensor(a, dtype=torch.int32,  # noqa: E731
+                                     device="cuda")
+    return q, kp, vp, as_t(bt), as_t(lengths)
+
+
+def _as_ragged(args):
+    """Decode inputs in the ragged kernel's form (q_len 1 at position
+    length - 1; length-0 rows as padding), for its bound and for SDPA."""
+    q, kp, vp, bt, lengths = args
+    return (q[:, None].contiguous(), kp, vp, bt,
+            torch.clamp(lengths - 1, min=0), torch.clamp(lengths, max=1))
+
+
+def check_paged_decode() -> dict:
+    """Phase 3c. Returns {"launches": kernel launches of the path run,
+    "records": one per (case, dtype)}."""
+    from ray_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_reference,
+    )
+    from ray_tpu_torch.ops.ragged_paged_attention import \
+        ragged_decode_attention
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
+    cases = [(case, dtype, seed) for dtype in (torch.bfloat16, torch.float32)
+             for seed, case in enumerate(("main", "long"), start=20)]
+    inputs = [_paged_decode_case(case, dtype, seed)
+              for case, dtype, seed in cases]
+    torch.cuda.synchronize()
+    paged_decode_attention.launches = 0          # the path starts here
+    outs = [paged_decode_attention(*args) for args in inputs]
+    torch.cuda.synchronize()
+    launches = paged_decode_attention.launches   # the path ends here
+    if launches != len(cases):
+        raise AssertionError(f"paged_decode_attention launched {launches} "
+                             f"times for {len(cases)} calls")
+    records = []
+    for (case, dtype, _), args, got in zip(cases, inputs, outs):
+        label = f"paged decode {case} {str(dtype).split('.')[-1]}"
+        want = paged_decode_reference(*args)
+        ragged = ragged_decode_attention(*args)
+        torch.cuda.synchronize()
+        live = args[4] > 0
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{label}: non-finite output")
+        if got[~live].any():
+            raise AssertionError(f"{label}: a length-0 row is not 0")
+        atol, rtol = TOL[dtype]
+        g = got[live].float()
+        errs, worst = {}, {}
+        for name, w in (("plain", want), ("ragged", ragged)):
+            w = w[live].float()
+            errs[name] = float((g - w).abs().max())
+            row_atol = torch.clamp(
+                ROW_ATOL_REL * w.abs().amax(dim=(1, 2), keepdim=True),
+                max=atol)
+            limit = row_atol + rtol * w.abs()
+            worst[name] = float(((g - w).abs() / limit).max())
+            if worst[name] > 1:
+                raise AssertionError(f"{label}: |kernel - {name}| above "
+                                     f"min(atol {atol}, {ROW_ATOL_REL} x "
+                                     f"row max) + rtol {rtol}; max abs "
+                                     f"{errs[name]}")
+        rargs = _as_ragged(args)
+        lib = _sdpa_call(rargs)
+        rec = {"case": case, "dtype": str(dtype).split(".")[-1],
+               "shape": list(args[0].shape),
+               "lengths_max": int(args[4].max()),
+               "max_abs_err": errs["plain"],
+               "max_abs_err_vs_ragged": errs["ragged"],
+               "atol_rtol": TOL[dtype], "row_atol_rel": ROW_ATOL_REL,
+               "worst_err_over_limit": worst,
+               "ms": _device_ms(lambda: paged_decode_attention(*args), flush),
+               "plain_ms": _device_ms(lambda: paged_decode_reference(*args),
+                                      flush),
+               "ragged_ms": _device_ms(
+                   lambda: ragged_decode_attention(*args), flush),
+               "library_ms": _device_ms(lib, flush)}
+        rec["bound_ms"], rec["bound_by"] = _bound_ms(
+            rargs, args[4].cpu().numpy().astype(np.int64), dtype)
+        print("paged_decode: " + json.dumps(rec), flush=True)
+        records.append(rec)
+    return {"launches": launches, "records": records}
+
+
 # -- phase 3b: the flash kernels against their plain versions -------------
 
 #: (kernel name, the TPU kernel it replaces)
@@ -275,6 +425,8 @@ FLASH_KERNELS = (
 # largest value. lse is f32 on both sides from exact products: f32 rule.
 FLASH_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2 ** -8, 2 ** -7)}
 TRAIN_LAYERS = 8        # of Llama-3-8B's 32: AdamW state must fit in 80 GB
+# EngineConfig's prefill buckets at phase 4b's max_seq_len 1024
+SERVE_BUCKETS = (32, 64, 128, 256, 512, 1024)
 
 
 def _flash_inputs(b, sq, sk, h, kvh, d, dtype, seed):
@@ -399,7 +551,50 @@ def check_flash_kernels() -> dict:
                 rec["timed"] = timed[dname] = _time_flash(
                     q, k, v, dout, out, lse, delta, causal, scale, flush)
             print("flash: " + json.dumps(rec), flush=True)
-    return {"max_abs_err": max_err, "timed": timed}
+    serve = _check_flash_serve(flush)
+    max_err["flash_fwd"] = max([max_err["flash_fwd"]] +
+                               [r["max_abs_err"] for r in serve])
+    return {"max_abs_err": max_err, "timed": timed, "serve": serve}
+
+
+def _check_flash_serve(flush) -> list:
+    """Phase 3b at the dense engine's prefill shapes: the forward kernel at
+    B 1, causal, S = each prefill bucket of an 8B engine with max_seq_len
+    1024, H 32, KVH 8, D 128, bf16 (what InferenceEngine._prefill gives
+    it), out and lse against the plain version at FLASH_TOL, timed beside
+    the plain version, SDPA and the bound. One record per bucket."""
+    import torch.nn.functional as F
+    from ray_tpu_torch.ops.flash_attention import (flash_forward_reference,
+                                                   flash_fwd_kernel)
+    records = []
+    for s in SERVE_BUCKETS:
+        q, k, v, _ = _flash_inputs(1, s, s, 32, 8, 128, torch.bfloat16,
+                                   30 + s)
+        scale = 128 ** -0.5
+        out, lse = flash_fwd_kernel(q, k, v, True, scale)
+        w_out, w_lse = flash_forward_reference(q, k, v, True, scale)
+        torch.cuda.synchronize()
+        label = f"serve S {s} bfloat16"
+        err = max(_close(f"{label} out", out, w_out, torch.bfloat16),
+                  _close(f"{label} lse", lse, w_lse, torch.bfloat16))
+        del w_out, w_lse
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        bound_ms, bound_by = _flash_bounds(q, k, True)["flash_fwd"]
+        rec = {"case": f"serve_s{s}", "dtype": "bfloat16",
+               "shape": [1, s, s, 32, 8, 128], "causal": True,
+               "max_abs_err": err,
+               "ms": _device_ms(
+                   lambda: flash_fwd_kernel(q, k, v, True, scale), flush),
+               "plain_ms": _device_ms(
+                   lambda: flash_forward_reference(q, k, v, True, scale),
+                   flush),
+               "library_ms": _device_ms(
+                   lambda: F.scaled_dot_product_attention(
+                       qt, kt, vt, is_causal=True, enable_gqa=True), flush),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        print("flash serve: " + json.dumps(rec), flush=True)
+        records.append(rec)
+    return records
 
 
 def _time_flash(q, k, v, dout, out, lse, delta, causal, scale, flush):
@@ -586,6 +781,116 @@ def agreement():
           f"card vs CPU", flush=True)
 
 
+# -- phase 4b: the dense-slot engine at full width --------------------------
+
+def dense_serve(model_cfg, device, seed: int = 0, **engine_kw) -> dict:
+    """Phase 4b (also rehearsed on the CPU at tiny size): LLMPredictor
+    (its InferenceEngine builds random weights from ``seed``) answers one
+    batch of 8 prompts, then its engine generates phase 4's requests.
+    Returns the launches per kernel over both and the serving figures."""
+    from ray_tpu_torch.llm import EngineConfig, LLMPredictor
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    held_gib = torch.cuda.memory_allocated() / 2 ** 30 if cuda else None
+    t0 = time.perf_counter()
+    pred = LLMPredictor(EngineConfig(model_cfg, **engine_kw), device=device)
+    sync()
+    setup_s = time.perf_counter() - t0
+    rows = {"prompt": [f"request {i}: " + "the quick brown fox " * (3 * i)
+                       for i in range(8)], "id": list(range(8))}
+    prompts, sps = _requests(model_cfg.vocab_size, seed)
+    step_s = []                            # host clock per decode step
+    decode = pred.engine._decode
+    prefill = pred.engine._prefill
+    buckets = {}                           # prefill S -> dispatches
+
+    def counted_prefill(tokens, slot, true_len):
+        buckets[tokens.shape[1]] = buckets.get(tokens.shape[1], 0) + 1
+        return prefill(tokens, slot, true_len)
+    pred.engine._prefill = counted_prefill
+
+    def timed_decode(tokens, active):
+        t = time.perf_counter()
+        logits = decode(tokens, active)
+        sync()
+        step_s.append(time.perf_counter() - t)
+        return logits
+    pred.engine._decode = timed_decode
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()                 # main path starts here
+    t1 = time.perf_counter()
+    got = pred(rows)
+    sync()
+    batch_s = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    out = pred.engine.generate(prompts, sps)
+    sync()
+    gen_s = time.perf_counter() - t2
+    launches = _launch_counts()            # main path ends here
+    stats = dict(pred.engine.stats)
+    vocab = model_cfg.vocab_size
+    if got["id"] != rows["id"] or len(got["generated_ids"]) != 8 or \
+            got["num_generated_tokens"] != [len(t) for t in
+                                            got["generated_ids"]]:
+        raise AssertionError(f"bad predictor columns: {sorted(got)}")
+    for toks, sp in [(t, pred.sampling) for t in got["generated_ids"]] + \
+            [(r["token_ids"], sp) for r, sp in zip(out, sps)]:
+        if not toks or len(toks) > sp.max_tokens + 1 or \
+                not all(0 <= t < vocab for t in toks):
+            raise AssertionError(f"bad tokens: {toks}")
+    if cuda:
+        want = {"flash_fwd": model_cfg.n_layers * stats["prefill_dispatches"],
+                "flash_dq": 0, "flash_dkv": 0, "ragged_paged_attention": 0,
+                "paged_decode_attention": 0}
+        if launches != want or not stats["prefill_dispatches"]:
+            raise AssertionError(f"dense serve launches {launches}, want "
+                                 f"{want}")
+    n_out = sum(len(r["token_ids"]) for r in out)
+    ttft = sorted(r["ttft_s"] for r in out)
+    return {"launches": launches, "held_before_gib": held_gib,
+            "setup_s": setup_s, "predictor_batch_s": batch_s,
+            "predictor_tokens": sum(got["num_generated_tokens"]),
+            "generate_s": gen_s, "tokens_out": n_out,
+            "tokens_per_s": n_out / gen_s,
+            "ttft_median_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
+            "prompt_tokens": sum(len(p) for p in prompts),
+            "decode_step_ms_first": step_s[0] * 1e3,
+            "decode_step_ms_median": statistics.median(step_s) * 1e3,
+            "dispatches": stats, "prefill_buckets": buckets,
+            "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                             if cuda else None)}
+
+
+# -- phase 5b: dense-engine agreement ---------------------------------------
+
+def dense_agreement():
+    """Phase 5's small f32 model (head_dim 128, GQA 2) through the dense
+    InferenceEngine on the card (flash forward kernel in prefill) and on
+    the CPU (plain versions): greedy tokens identical."""
+    from ray_tpu_torch.llm import EngineConfig, InferenceEngine, SamplingParams
+    from ray_tpu_torch.models import llama
+    mc = llama.llama_tiny(vocab_size=512, dim=256, n_heads=2, n_kv_heads=1,
+                          mlp_dim=512, n_layers=2, max_seq_len=1024)
+    cpu_params = llama.init(mc, seed=3, device="cpu")
+    gpu_params = {k: ({n: t.cuda() for n, t in v.items()}
+                      if isinstance(v, dict) else v.cuda())
+                  for k, v in cpu_params.items()}
+    cfg = EngineConfig(model=mc, max_batch_size=3, max_seq_len=256)
+    rng = np.random.RandomState(9)
+    prompts = [[int(t) for t in rng.randint(0, 512, n)]
+               for n in (7, 40, 95, 150)]
+    sp = SamplingParams(max_tokens=12)
+    a = InferenceEngine(cfg, gpu_params, device="cuda").generate(prompts, sp)
+    b = InferenceEngine(cfg, cpu_params, device="cpu").generate(prompts, sp)
+    for x, y in zip(a, b):
+        if x["token_ids"] != y["token_ids"]:
+            raise AssertionError(f"dense card {x['token_ids']} != "
+                                 f"cpu {y['token_ids']}")
+    print(f"dense agreement: {len(prompts)} prompts, greedy tokens "
+          f"identical card vs CPU", flush=True)
+
+
 # -- phase 6: train at full width, depth cut -------------------------------
 
 def _leaves(tree) -> list:
@@ -594,26 +899,26 @@ def _leaves(tree) -> list:
     return [tree]
 
 
-def _launch_counts() -> dict:
+def _counted() -> dict:
+    """Every kernel wrapper of the port, by kernel name."""
     from ray_tpu_torch.ops.flash_attention import (
         flash_dkv_kernel, flash_dq_kernel, flash_fwd_kernel,
     )
+    from ray_tpu_torch.ops.paged_attention import paged_decode_attention
     from ray_tpu_torch.ops.ragged_paged_attention import \
         ragged_paged_attention
-    return {"flash_fwd": flash_fwd_kernel.launches,
-            "flash_dq": flash_dq_kernel.launches,
-            "flash_dkv": flash_dkv_kernel.launches,
-            "ragged_paged_attention": ragged_paged_attention.launches}
+    return {"flash_fwd": flash_fwd_kernel, "flash_dq": flash_dq_kernel,
+            "flash_dkv": flash_dkv_kernel,
+            "ragged_paged_attention": ragged_paged_attention,
+            "paged_decode_attention": paged_decode_attention}
+
+
+def _launch_counts() -> dict:
+    return {name: fn.launches for name, fn in _counted().items()}
 
 
 def _reset_launch_counts():
-    from ray_tpu_torch.ops.flash_attention import (
-        flash_dkv_kernel, flash_dq_kernel, flash_fwd_kernel,
-    )
-    from ray_tpu_torch.ops.ragged_paged_attention import \
-        ragged_paged_attention
-    for fn in (flash_fwd_kernel, flash_dq_kernel, flash_dkv_kernel,
-               ragged_paged_attention):
+    for fn in _counted().values():
         fn.launches = 0
 
 
@@ -669,7 +974,8 @@ def train(model_cfg, device, batch: int, seq: int, steps: int = 5,
         raise AssertionError(f"train losses not finite or not falling: "
                              f"{losses}")
     want = {"flash_fwd": model_cfg.n_layers, "flash_dq": model_cfg.n_layers,
-            "flash_dkv": model_cfg.n_layers, "ragged_paged_attention": 0}
+            "flash_dkv": model_cfg.n_layers, "ragged_paged_attention": 0,
+            "paged_decode_attention": 0}
     if cuda:
         for i, got in enumerate(per_step):
             if got != want:
@@ -814,6 +1120,7 @@ def main():
         profile_train()
         return 0
     records = check_kernels()
+    decode = check_paged_decode()
     flash = check_flash_kernels()
     from ray_tpu_torch.models import llama
     res = serve(llama.llama3_8b(), "cuda", page_size=16, num_pages=1024,
@@ -823,8 +1130,21 @@ def main():
     for name, n in res["launches_by_family"].items():
         if n <= 0:
             raise AssertionError(f"kernel never launched in {name}")
-    agreement()
+    # serve() and dense_serve() wrap an engine's own methods in closures
+    # stored on it: a reference cycle, so only the collector frees it
+    gc.collect()
     torch.cuda.empty_cache()
+    dense = dense_serve(llama.llama3_8b(), "cuda", max_batch_size=8,
+                        max_seq_len=1024)
+    print("dense serve: " + json.dumps(dense), flush=True)
+    if not set(dense["prefill_buckets"]) <= set(SERVE_BUCKETS):
+        raise AssertionError(f"dense prefill shapes "
+                             f"{sorted(dense['prefill_buckets'])} not all "
+                             f"checked in phase 3b {SERVE_BUCKETS}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    agreement()
+    dense_agreement()
     tr = train(llama.llama3_8b(n_layers=TRAIN_LAYERS), "cuda",
                batch=2, seq=4096)
     print("train: " + json.dumps(tr), flush=True)
@@ -842,6 +1162,19 @@ def main():
         "library_ms": head["library_ms"],
         "timed_at": "decode bf16 R=8 Q=1 H=32 KVH=8 D=128 page=16",
     }]
+    b2 = next(r for r in decode["records"]
+              if r["case"] == "main" and r["dtype"] == "bfloat16")
+    kernels.append({
+        "name": PAGED_DECODE[0], "route": "cuda",
+        "source": "ray_tpu_torch/ops/csrc/paged_attention.cu",
+        "replaces": PAGED_DECODE[1], "launches": decode["launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in decode["records"]),
+        "ms": b2["ms"], "plain_ms": b2["plain_ms"],
+        "bound_ms": b2["bound_ms"], "bound_by": b2["bound_by"],
+        "library_ms": b2["library_ms"],
+        "timed_at": "decode bf16 B=9 (lengths 0-1000) H=32 KVH=8 D=128 "
+                    "page=16",
+    })
     main_case = flash["timed"]["bfloat16"]
     for name, replaces in FLASH_KERNELS:
         t = main_case[name]
@@ -849,12 +1182,20 @@ def main():
             "name": name, "route": "cuda",
             "source": "ray_tpu_torch/ops/csrc/flash_attention.cu",
             "replaces": replaces, "launches": tr["launches"][name],
+            "launches_dense_serve": dense["launches"][name],
             "max_abs_err": flash["max_abs_err"][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             "timed_at": "causal bf16 B=2 S=4096 H=32 KVH=8 D=128",
         })
+        if name == "flash_fwd":
+            # the dense engine's prefill shapes, each held against the
+            # plain version in phase 3b
+            kernels[-1]["timed_dense_serve"] = [
+                {k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                                   "library_ms", "bound_ms", "bound_by")}
+                for r in flash["serve"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
-"""ray_tpu_torch — the PyTorch/CUDA port of ray_tpu's serving path and
-Llama training step.
+"""ray_tpu_torch — the PyTorch/CUDA port of ray_tpu's serving engines,
+batch inference and Llama training step.
 
 A second package beside ``ray_tpu``: the same Llama paged-KV serving
-engine and dense training forward/backward, written in PyTorch for one
-NVIDIA H100, with the TPU's Pallas attention kernels replaced by
-hand-written CUDA kernels for Hopper (``ops/csrc``). The package
+engine, dense-slot engine (behind ``LLMPredictor``) and dense training
+forward/backward, written in PyTorch for one NVIDIA H100, with every
+Pallas attention kernel of the TPU package replaced by a hand-written
+CUDA kernel for Hopper (``ops/csrc``). The package
 imports nothing of ``ray_tpu`` and never imports JAX; importing this
 top-level module loads nothing heavy.
 

@@ -31,8 +31,19 @@ on CUDA tensors, the plain versions on CPU tensors), each layer under
 flash op's outputs, so the backward recomputes the projections and MLP
 but never replays the attention forward.
 
-MoE and LoRA are not part of this module yet, nor the reference's
-dense-slot cached-decode forms (``apply_decode`` and its kin).
+The dense-slot cached-decode forms serve the dense engine
+(``llm/engine.py`` ``InferenceEngine``): ``init_slot_cache`` holds one
+``[n_layers, max_batch, max_len, KVH, D]`` K and V tensor with a length
+per slot; ``apply_with_kv`` (prefill, attention through
+``ops.flash_attention``: the Hopper forward kernel on CUDA tensors)
+returns every layer's K/V for seeding a slot; ``decode_batched`` advances
+every slot by one token at its own length. ``init_kv_cache`` /
+``apply_decode`` are the single-position form. Their writes go into the
+cache tensors IN PLACE (the reference returned updated copies), and their
+attention is a plain masked softmax over the whole cache, as in the
+reference (no Pallas kernel there).
+
+MoE and LoRA are not part of this module yet.
 """
 from __future__ import annotations
 
@@ -548,3 +559,141 @@ def verify_paged_rows(params: dict, tokens, caches: list[dict], bt_rows,
         out.append(_logits(x, params["lm_head"])[0])
     return torch.stack(out), caches
 
+
+# ---------------------------------------------------------------------------
+# Dense KV cache (slot-based; used by the dense-slot engine)
+# ---------------------------------------------------------------------------
+
+def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
+                  device="cuda") -> dict:
+    """One shared position for the whole batch: {'k','v': [L, B, max_len,
+    KVH, D] zeros, 'idx': 0} (``idx`` a host int, the next position)."""
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+            "idx": 0}
+
+
+def init_slot_cache(cfg: LlamaConfig, max_batch: int, max_len: int,
+                    device="cuda") -> dict:
+    """Per-slot KV cache: each batch row is an independent request with
+    its own length (unlike init_kv_cache's single shared position)."""
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, max_batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+            "lengths": torch.zeros((max_batch,), dtype=torch.int32,
+                                   device=dev)}
+
+
+def _cached_attention(q, ck, cv, q_pos, cfg: LlamaConfig):
+    """Plain attention over a dense cache: q [B, S, H, D] at positions
+    q_pos [B, S] attends keys k_pos <= q_pos of ck/cv [B, T, KVH, D]. The
+    mask also hides the cache tail not written yet (and the pad K/V a
+    prefill bucket left there): its positions exceed every query's. GQA
+    as a grouped einsum (no repeat of the cache); scores and softmax in
+    f32, probabilities rounded to the cache's dtype before p.V, as the
+    reference rounds them."""
+    b, s, h, d = q.shape
+    t, kvh = ck.shape[1], ck.shape[2]
+    qg = q.reshape(b, s, kvh, h // kvh, d).float()
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, ck.float())
+    scores = scores * (cfg.head_dim ** -0.5)
+    k_pos = torch.arange(t, device=q.device)
+    mask = k_pos[None, None, :] <= q_pos[:, :, None]            # [B, S, T]
+    scores = torch.where(mask[:, None, None], scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(cv.dtype)
+    return torch.einsum("bkgst,btkd->bskgd", probs, cv).reshape(b, s, h, d)
+
+
+def _cached_layer(x, p: dict, cfg: LlamaConfig, cos, sin, ck, cv, q_pos):
+    """One block over a dense cache (the reference's ``_layer`` cache
+    branch): writes this step's K/V into ck/cv [B, T, KVH, D] in place at
+    q_pos [B, S], then attends the cache prefix."""
+    h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    b, s, _ = h.shape
+    q, k, v = _qkv(h, p, cfg, cos, sin)
+    rows = torch.arange(b, device=x.device)[:, None]
+    ck[rows, q_pos] = k.to(ck.dtype)
+    cv[rows, q_pos] = v.to(cv.dtype)
+    attn = _cached_attention(q, ck, cv, q_pos, cfg)
+    x = x + attn.reshape(b, s, -1) @ p["wo"]
+    return _mlp_block(x, p, cfg)
+
+
+def apply_decode(params: dict, tokens, cache: dict, cfg: LlamaConfig):
+    """Incremental forward with KV cache: tokens [B, S_step] appended at
+    cache['idx']. Returns (logits [B, S_step, V] f32, cache with idx
+    advanced); the K/V tensors are written in place. A step that would
+    run past the cache's end raises (the reference clamped the write)."""
+    _dense_only(cfg)
+    b, s = tokens.shape
+    idx = int(cache["idx"])
+    x = params["embed"][tokens].to(cfg.dtype)
+    positions = (idx + torch.arange(s, device=tokens.device)).expand(b, s)
+    cos, sin = rope_freqs(cfg, positions)
+    for layer in range(cfg.n_layers):
+        x = _cached_layer(x, _layer_params(params, layer), cfg, cos, sin,
+                          cache["k"][layer], cache["v"][layer], positions)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _logits(x, params["lm_head"]), {"k": cache["k"],
+                                           "v": cache["v"], "idx": idx + s}
+
+
+def _hidden_with_kv(params: dict, tokens, cfg: LlamaConfig):
+    """apply_with_kv up to the final norm: (hidden [B, S, dim], ks, vs)."""
+    _dense_only(cfg)
+    b, s = tokens.shape
+    x = params["embed"][tokens].to(cfg.dtype)
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    cos, sin = rope_freqs(cfg, positions)
+    ks, vs = [], []
+    for layer in range(cfg.n_layers):
+        p = _layer_params(params, layer)
+        h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+        q, k, v = _qkv(h, p, cfg, cos, sin)
+        attn = _attention(q, k, v, cfg, causal=True, attn_impl=None)
+        x = x + attn.reshape(b, s, -1) @ p["wo"]
+        x = _mlp_block(x, p, cfg)
+        ks.append(k)
+        vs.append(v)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, torch.stack(ks), torch.stack(vs)
+
+
+def apply_with_kv(params: dict, tokens, cfg: LlamaConfig):
+    """Prefill forward returning per-layer rope'd K/V for cache seeding:
+    tokens [B, S] -> (logits [B, S, V] f32, k/v [L, B, S, KVH, D])."""
+    hidden, ks, vs = _hidden_with_kv(params, tokens, cfg)
+    return _logits(hidden, params["lm_head"]), ks, vs
+
+
+def prefill_with_kv(params: dict, tokens, last: int, cfg: LlamaConfig):
+    """apply_with_kv for a right-padded prompt: only position ``last``
+    (the last real token) goes through the lm_head. Returns (logits
+    [B, V] f32, ks, vs)."""
+    hidden, ks, vs = _hidden_with_kv(params, tokens, cfg)
+    return _logits(hidden[:, last], params["lm_head"]), ks, vs
+
+
+def decode_batched(params: dict, tokens, cache: dict, cfg: LlamaConfig):
+    """One decode step for a batch of independent slots.
+
+    tokens [B, 1], the next token per slot; slot b writes its K/V at
+    position cache['lengths'][b] (in place; every slot writes, inactive
+    ones too, so the caller keeps lengths <= max_len - 1) and attends
+    positions <= it. Returns (logits [B, V] f32, cache with lengths + 1).
+    Inactive slots may carry any token; the caller masks their outputs.
+    """
+    _dense_only(cfg)
+    lengths = cache["lengths"]
+    x = params["embed"][tokens].to(cfg.dtype)                 # [B, 1, D]
+    positions = lengths[:, None]                              # [B, 1]
+    cos, sin = rope_freqs(cfg, positions)
+    for layer in range(cfg.n_layers):
+        x = _cached_layer(x, _layer_params(params, layer), cfg, cos, sin,
+                          cache["k"][layer], cache["v"][layer], positions)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _logits(x, params["lm_head"])[:, 0], {
+        "k": cache["k"], "v": cache["v"], "lengths": lengths + 1}

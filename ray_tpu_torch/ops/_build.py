@@ -29,6 +29,7 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = {
     "ragged_paged_attention": "ragged_paged_attention.cu",
     "flash_attention": "flash_attention.cu",
+    "paged_attention": "paged_attention.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -135,3 +136,10 @@ def _bind(name: str, lib: ctypes.CDLL):
         lib.flash_dkv.argtypes = [I, P, P, P, P, P, P, P, P] + sizes
         for fn in (lib.flash_fwd, lib.flash_dq, lib.flash_dkv):
             fn.restype = I
+    elif name == "paged_attention":
+        # dtype, q, k_pages, v_pages, block_table, lengths, part_o,
+        # part_ml, out, B, H, KVH, D, page, max_pages, n_splits, scale,
+        # stream
+        lib.pda_forward.argtypes = [I, P, P, P, P, P, P, P, P,
+                                    I, I, I, I, I, I, I, F, P]
+        lib.pda_forward.restype = I

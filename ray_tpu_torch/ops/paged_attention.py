@@ -1,19 +1,38 @@
-"""Paged decode attention: the masking constant of the paged family and
-the plain decode version (counterpart of ``ray_tpu/ops/paged_attention.py``).
+"""Paged decode attention (counterpart of ``ray_tpu/ops/paged_attention.py``):
+the masking constant of the paged family, the plain decode version, and
+the decode-only op ``paged_decode_attention``.
 
-The TPU package's decode-only Pallas kernel (``_paged_decode_kernel``)
-is not ported yet: the serving engine routes decode through the ragged
-kernel at q_len=1 (``ragged_paged_attention.ragged_decode_attention``),
-and this module keeps the plain decode version as its equivalence
-baseline.
+``paged_decode_attention`` dispatches on the device of its inputs: CPU
+tensors go to the plain PyTorch version ``paged_decode_reference``; CUDA
+tensors go to the hand-written Hopper kernel (``csrc/paged_attention.cu``,
+a split-KV decode in two launches replacing the TPU's Pallas
+``_paged_decode_kernel``), or the call raises. There is no fallback from
+the card to the plain version. ``paged_decode_attention.launches`` counts
+calls that launched the kernel (one per call: both passes).
+
+No model path calls this op: the serving engines run decode through the
+ragged kernel at q_len 1 (``ragged_paged_attention.ragged_decode_attention``),
+as the reference does; this op is its own entry point and B1's decode
+equivalence baseline.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 # one masking constant for the whole paged family; a finite value keeps
 # exp(s - m) at exactly 0 for masked keys (−inf would give inf − inf)
 NEG_INF = -1e30
+
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL_HEAD_DIMS = (64, 128)
+# query heads per pass-1 block, one per warp (kRows in
+# csrc/paged_attention.cu)
+_KERNEL_ROWS = 4
+# pass-1 blocks to aim for, per SM: enough 16-byte loads in flight to
+# approach the HBM rate with the kernel's 128-thread blocks
+_BLOCKS_PER_SM = 4
 
 
 def paged_decode_reference(q, k_pages, v_pages, block_table, lengths,
@@ -45,3 +64,115 @@ def paged_decode_reference(q, k_pages, v_pages, block_table, lengths,
     v = torch.where(live[:, :, None, None], v, 0.0)
     out = torch.einsum("bhgk,bkhd->bhgd", w, v)
     return out.reshape(b, h, d).to(q.dtype)
+
+
+def _check_kernel_inputs(q, k_pages, v_pages, block_table, lengths):
+    """Raise on anything the CUDA kernel does not take."""
+    dev = q.device
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
+                    ("block_table", block_table), ("lengths", lengths)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+    if q.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"kernel takes float32 or bfloat16, got {q.dtype}")
+    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise ValueError("q, k_pages and v_pages must share one dtype")
+    for name, t in (("block_table", block_table), ("lengths", lengths)):
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32, got {t.dtype}")
+    if q.dim() != 3 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
+        raise ValueError("q must be [B, H, D] and k/v pages "
+                         "[P, page, KVH, D] of one shape")
+    b, h, d = q.shape
+    kvh = k_pages.shape[2]
+    if d not in _KERNEL_HEAD_DIMS or k_pages.shape[3] != d:
+        raise ValueError(f"kernel takes head_dim in {_KERNEL_HEAD_DIMS}, "
+                         f"got q {d}, pages {k_pages.shape[3]}")
+    if h % kvh:
+        raise ValueError(f"n_heads {h} is not a multiple of n_kv_heads {kvh}")
+    if block_table.dim() != 2 or block_table.shape[0] != b or \
+            lengths.shape != (b,):
+        raise ValueError("block_table [B, max_pages] and lengths [B] must "
+                         "match q's B")
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
+                    ("block_table", block_table), ("lengths", lengths)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel "
+                             f"moves K/V rows as 16-byte vectors)")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _num_splits(batch: int, n_heads: int, n_kv_heads: int, max_pages: int,
+                sms: int) -> int:
+    """Splits of each row's live pages for pass 1: enough that batch x
+    kv heads x row tiles x splits give about _BLOCKS_PER_SM blocks per
+    SM, and no more than the table has pages (a split never cuts a
+    page). The kernel sizes each split from the call's longest live
+    length, on the device."""
+    row_tiles = -(-(n_heads // n_kv_heads) // _KERNEL_ROWS)
+    blocks = max(1, batch * n_kv_heads * row_tiles)
+    want = -(-_BLOCKS_PER_SM * sms // blocks)
+    return max(1, min(max_pages, want))
+
+
+def _launch_kernel(q, k_pages, v_pages, block_table, lengths, scale: float):
+    from . import _build
+    _check_kernel_inputs(q, k_pages, v_pages, block_table, lengths)
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    lib = _build.load("paged_attention")
+    b, h, d = q.shape
+    _, page_size, kvh, _ = k_pages.shape
+    max_pages = block_table.shape[1]
+    splits = _num_splits(b, h, kvh, max_pages,
+                         _sm_count(q.device.index or 0))
+    part_o = torch.empty((b, splits, h, d), dtype=torch.float32,
+                         device=q.device)
+    part_ml = torch.empty((b, splits, h, 2), dtype=torch.float32,
+                          device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.pda_forward(
+        _KERNEL_DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
+        v_pages.data_ptr(), block_table.data_ptr(), lengths.data_ptr(),
+        part_o.data_ptr(), part_ml.data_ptr(), out.data_ptr(), b, h, kvh, d,
+        page_size, max_pages, splits, float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"paged_decode_attention kernel launch failed: "
+                           f"CUDA error {err}")
+    paged_decode_attention.launches += 1
+    return out
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_table, lengths, *,
+                           scale: float | None = None):
+    """q [B, H, D]; k_pages/v_pages [P, page, KVH, D];
+    block_table [B, max_pages] int32 (physical page per logical page);
+    lengths [B] int32 (tokens already in cache INCLUDING the current
+    step's — attend over positions < length; 0 gives a zero row).
+    Returns [B, H, D] in q.dtype.
+
+    CPU tensors run the plain version; CUDA tensors launch the Hopper
+    kernel (float32/bfloat16, head_dim 64 or 128, contiguous) or raise.
+    """
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return paged_decode_reference(q, k_pages, v_pages, block_table,
+                                      lengths, scale=scale)
+    if q.device.type == "cuda":
+        return _launch_kernel(q, k_pages, v_pages, block_table, lengths,
+                              scale)
+    raise ValueError(f"paged_decode_attention: no kernel for device "
+                     f"{q.device}")
+
+
+#: kernel launches since the last reset (CPU calls do not count)
+paged_decode_attention.launches = 0

@@ -11,6 +11,10 @@ Ragged paged attention, at real query positions only: f32 atol 2e-5
 (both compute in f32 and round the output to bf16, which can land one
 bf16 ulp — at most 2^-7 of the value — apart).
 
+Decode-only paged attention (split-KV): the same tolerances as the
+ragged kernel, against its plain version and against the ragged kernel
+at q_len 1 on rows of length >= 1; rows of length 0 are exactly 0.
+
 Flash forward, dq and dkv: |kernel - plain| <= atol * max|plain| +
 rtol * |plain| per tensor, with (atol, rtol) = (1e-5, 1e-4) for f32 and
 for lse, and (2^-8, 2^-7) for bf16 outputs (chip_smoke.FLASH_TOL states
@@ -23,6 +27,9 @@ import torch
 from ray_tpu_torch.ops.flash_attention import (
     delta_rows, flash_attention, flash_backward_reference, flash_dkv_kernel,
     flash_dq_kernel, flash_forward_reference, flash_fwd_kernel,
+)
+from ray_tpu_torch.ops.paged_attention import (
+    paged_decode_attention, paged_decode_reference,
 )
 from ray_tpu_torch.ops.ragged_paged_attention import (
     ragged_decode_attention, ragged_paged_attention, ragged_paged_reference,
@@ -131,6 +138,122 @@ def test_engine_on_card_matches_engine_on_cpu(cuda):
     sp = SamplingParams(max_tokens=8)
     a = PagedInferenceEngine(cfg, on_card, device=cuda).generate(prompts, sp)
     b = PagedInferenceEngine(cfg, params, device="cpu").generate(prompts, sp)
+    assert [x["token_ids"] for x in a] == [x["token_ids"] for x in b]
+
+
+# -- decode-only paged attention (split-KV) ---------------------------------
+
+def _decode_case(dtype, d, groups, page, device, lengths, maxp, seed=0):
+    """Disjoint live pages per row; table tails name an all-NaN page, and
+    every slot past a row's length inside its last live page is NaN."""
+    rng = np.random.RandomState(seed)
+    kvh = 2
+    lengths = np.asarray(lengths, np.int32)
+    n_live = -(-lengths // page)
+    P = int(n_live.sum()) + 2
+    dead = P - 1
+    ids = iter(rng.permutation(np.arange(1, P - 1)))
+    bt = np.full((len(lengths), maxp), dead, np.int32)
+    for r, n in enumerate(n_live):
+        bt[r, :n] = [next(ids) for _ in range(n)]
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((len(lengths), kvh * groups, d), generator=g,
+                    device=device).to(dtype)
+    kp = torch.randn((P, page, kvh, d), generator=g, device=device).to(dtype)
+    vp = torch.randn((P, page, kvh, d), generator=g, device=device).to(dtype)
+    for t in (kp, vp):
+        t[dead] = float("nan")
+        for r, n in enumerate(lengths):
+            if n % page:
+                t[bt[r, n // page], n % page:] = float("nan")
+    as_t = lambda a: torch.as_tensor(a, device=device)   # noqa: E731
+    return q, kp, vp, as_t(bt), as_t(lengths)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("groups,page", [(1, 8), (4, 8), (2, 16), (4, 16),
+                                         (20, 16)])
+@pytest.mark.parametrize("lengths,maxp", [
+    ((0, 1, 16, 35, 128), 16),         # empty, one key, page edges, full
+    ((1000, 3, 517), 130),             # long rows: many splits
+    ((4096,), 520)])                   # one row: splits across the SMs
+def test_paged_decode_kernel_matches_plain_and_ragged(cuda, dtype, d,
+                                                      groups, page, lengths,
+                                                      maxp):
+    """B2 against its plain version and B1 at q_len 1 (both given the
+    same lengths); NaN table tails and NaN tail slots never reach the
+    output, and rows of length 0 are exactly 0. The kernel takes one
+    query head per warp, four per row tile: groups 1 and 2 leave warps
+    idle, groups 20 spans five row tiles."""
+    args = _decode_case(dtype, d, groups, page, cuda, lengths, maxp)
+    got = paged_decode_attention(*args)
+    want = paged_decode_reference(*args)
+    ragged = ragged_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == args[0].shape
+    live = args[4] > 0
+    assert torch.isfinite(got).all()
+    assert not got[~live].any()
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               **TOL[dtype])
+    torch.testing.assert_close(got[live].float(), ragged[live].float(),
+                               **TOL[dtype])
+
+
+def test_paged_decode_launch_count(cuda):
+    """One launch per call on CUDA tensors (both passes), none on CPU
+    tensors."""
+    args = _decode_case(torch.float32, 128, 4, 16, cuda, (5, 40), 4)
+    before = paged_decode_attention.launches
+    got = paged_decode_attention(*args)
+    assert paged_decode_attention.launches == before + 1
+    cpu = paged_decode_attention(*(t.cpu() for t in args))
+    assert paged_decode_attention.launches == before + 1
+    torch.testing.assert_close(got.cpu(), cpu, atol=2e-5, rtol=0)
+
+
+def test_paged_decode_kernel_rejects_what_it_does_not_take(cuda):
+    q, kp, vp, bt, ln = _decode_case(torch.float32, 64, 2, 8, cuda,
+                                     (3, 9), 4)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        paged_decode_attention(q.half(), kp.half(), vp.half(), bt, ln)
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_decode_attention(q[..., :32].contiguous(),
+                               kp[..., :32].contiguous(),
+                               vp[..., :32].contiguous(), bt, ln)
+    with pytest.raises(ValueError, match="contiguous"):
+        paged_decode_attention(q.transpose(0, 1).contiguous().transpose(0, 1),
+                               kp, vp, bt, ln)
+    with pytest.raises(ValueError, match="int32"):
+        paged_decode_attention(q, kp, vp, bt, ln.long())
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flat = torch.zeros(kp.numel() + 1, device=cuda)
+        paged_decode_attention(q, flat[1:].view(kp.shape), vp, bt, ln)
+    with pytest.raises(ValueError, match="multiple of n_kv_heads"):
+        paged_decode_attention(q[:, :3].contiguous(), kp, vp, bt, ln)
+    with pytest.raises(ValueError, match="on cpu"):
+        paged_decode_attention(q, kp, vp, bt.cpu(), ln)
+    with pytest.raises(ValueError, match="match q's B"):
+        paged_decode_attention(q, kp, vp, bt, ln[:1].contiguous())
+
+
+def test_dense_engine_on_card_matches_engine_on_cpu(cuda):
+    """The dense-slot engine (prefill through the flash forward kernel)
+    on the card and on the CPU gives the same greedy tokens."""
+    from ray_tpu_torch.llm import EngineConfig, InferenceEngine, SamplingParams
+    from ray_tpu_torch.models import llama
+    mc = llama.llama_tiny(vocab_size=300, dim=256, n_heads=4, n_kv_heads=2,
+                          mlp_dim=512, max_seq_len=512)
+    params = llama.init(mc, seed=1, device="cpu")
+    on_card = {k: ({n: t.to(cuda) for n, t in v.items()}
+                   if isinstance(v, dict) else v.to(cuda))
+               for k, v in params.items()}
+    cfg = EngineConfig(model=mc, max_batch_size=2, max_seq_len=128)
+    prompts = [[3, 4, 5], list(range(40, 90)), list(range(7, 30))]
+    sp = SamplingParams(max_tokens=8)
+    a = InferenceEngine(cfg, on_card, device=cuda).generate(prompts, sp)
+    b = InferenceEngine(cfg, params, device="cpu").generate(prompts, sp)
     assert [x["token_ids"] for x in a] == [x["token_ids"] for x in b]
 
 

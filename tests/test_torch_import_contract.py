@@ -50,7 +50,8 @@ def test_port_modules_load_no_jax_and_no_ray_tpu():
                  "ray_tpu_torch.ops._build", "ray_tpu_torch.models.llama",
                  "ray_tpu_torch.models.convert",
                  "ray_tpu_torch.llm.paged_engine",
-                 "ray_tpu_torch.llm.engine", "ray_tpu_torch.llm.chainstats",
+                 "ray_tpu_torch.llm.engine", "ray_tpu_torch.llm.batch",
+                 "ray_tpu_torch.llm.chainstats",
                  "ray_tpu_torch.llm.tokenizer"):
         assert want in modules, (want, sorted(modules))
     assert lines["BANNED"] == "", lines["BANNED"]
@@ -99,7 +100,9 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
 def test_default_device_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("this machine has a GPU: the defaults run there")
-    from ray_tpu_torch.llm import PagedEngineConfig, PagedInferenceEngine
+    from ray_tpu_torch.llm import (EngineConfig, InferenceEngine,
+                                   LLMPredictor, PagedEngineConfig,
+                                   PagedInferenceEngine)
     from ray_tpu_torch.models import llama
     cfg = llama.llama_tiny()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -107,7 +110,16 @@ def test_default_device_entry_points_raise_without_a_card():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         llama.init_paged_cache(cfg, 4, 8)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
+        llama.init_slot_cache(cfg, 2, 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         PagedInferenceEngine(PagedEngineConfig(model=cfg))
     params = llama.init(cfg, 0, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         PagedInferenceEngine(PagedEngineConfig(model=cfg), params=params)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        InferenceEngine(EngineConfig(model=cfg), params=params)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LLMPredictor(EngineConfig(model=cfg))
+    # device="cpu" runs the plain versions
+    InferenceEngine(EngineConfig(model=cfg), params=params, device="cpu")
+    LLMPredictor(EngineConfig(model=cfg), device="cpu")
