@@ -9,6 +9,11 @@ and prints no result line):
    limit; TF32 off for f32 matrix products and convolutions.
 2. build: compiles every CUDA kernel from the sources in the checkout
    (one nvcc per source, all started together) and prints the time.
+   Then each flash kernel's registers and spill bytes (ptxas -v), its
+   dynamic shared memory per block, and its HMMA (tensor-core), LDGSTS
+   (cp.async) and LDSM (ldmatrix) instruction counts in the built SASS
+   (cuobjdump): the bf16 dq and dkv kernels must have all three and no
+   spills.
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes the serving path gives it (Llama-3-8B attention: H=32,
    KVH=8, D=128, page 16) for decode, prefill and verify, in bf16 and
@@ -25,7 +30,9 @@ and prints no result line):
 3b. flash: the training path's three kernels (flash forward, dq, dkv)
    against their plain versions on the card at Llama-3-8B attention
    shapes (B 2, S 4096, H 32, KVH 8, D 128, causal) in bf16 and f32,
-   plus a ragged non-causal 77 x 140 case and a causal S 4000 case.
+   plus a ragged non-causal 77 x 140 case, a causal S 4000 case and a
+   causal D 64, G 1 case with Sq 1000 < Sk 1800. At the 8B shape in
+   bf16, a second launch of dq and dkv must give the same bits.
    Prints the max error, the kernels', the plain versions' and the
    library's (scaled_dot_product_attention forward, and its autograd
    backward for dq + dkv) median times, and the card's lower bound.
@@ -76,6 +83,8 @@ family and the device's busy share of the traced step (no result line).
 """
 import gc
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -123,6 +132,76 @@ def build():
         print(f"build: {name} {rec['seconds']:.2f} s", flush=True)
         for ln in ptxas:
             print(f"  ptxas: {ln}")
+    return info
+
+
+# mangled flash kernel name -> (kernel, dtype, head_dim)
+_FLASH_SYMBOL = re.compile(
+    r"(flash_(?:fwd|dq|dkv)_kernel(?:_mma)?)I(f|13__nv_bfloat16)?Li(\d+)E")
+
+
+def _flash_symbol(mangled: str):
+    m = _FLASH_SYMBOL.search(mangled)
+    if m is None:
+        return None
+    dtype = "float32" if m.group(2) == "f" else "bfloat16"
+    return m.group(1), dtype, int(m.group(3))
+
+
+def check_flash_build(build_info) -> dict:
+    """Phase 2, the flash library: each kernel's registers and spill bytes
+    (ptxas -v), dynamic shared memory per block (flash_smem_bytes) and
+    its count of tensor-core (HMMA), asynchronous-copy (LDGSTS) and
+    ldmatrix (LDSM) instructions in the built SASS (cuobjdump). Raises
+    unless the bf16 dq and dkv kernels use all three and spill nothing.
+    Returns {"kernel dtype D": record}."""
+    from ray_tpu_torch.ops import _build
+    report = {}
+    for mangled, rec in _build.ptxas_kernels(
+            build_info["flash_attention"]["log"]).items():
+        sym = _flash_symbol(mangled)
+        if sym is not None:
+            report[sym] = dict(rec)
+    lib = _build.load("flash_attention")
+    which = {"fwd": 0, "dq": 1, "dkv": 2}
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
+                             "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass",
+                           _build._lib_path("flash_attention")],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    cur = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            sym = _flash_symbol(m.group(1))
+            cur = report.setdefault(sym, {}) if sym else None
+            continue
+        if cur is not None:
+            for op in ("HMMA", "LDGSTS", "LDSM"):
+                if re.search(rf"\b{op}\b", line):
+                    cur[op] = cur.get(op, 0) + 1
+    out = {}
+    for (kernel, dtype, d), rec in sorted(report.items()):
+        part = kernel.split("_")[1]
+        rec["smem_bytes"] = lib.flash_smem_bytes(
+            which[part], 1 if dtype == "bfloat16" else 0, d)
+        for op in ("HMMA", "LDGSTS", "LDSM"):
+            rec.setdefault(op, 0)
+        label = f"{kernel} {dtype} D{d}"
+        out[label] = rec
+        print("flash build: " + json.dumps({"kernel": label, **rec}),
+              flush=True)
+        if dtype == "bfloat16" and part in ("dq", "dkv"):
+            if not kernel.endswith("_mma") or rec["HMMA"] == 0 or \
+                    rec["LDGSTS"] == 0 or rec.get("spill_stores", 1) or \
+                    rec.get("spill_loads", 1):
+                raise AssertionError(f"{label}: want tensor cores, cp.async "
+                                     f"and no spills, got {rec}")
+    if not any(k.startswith("flash_dq_kernel_mma") for k in out) or \
+            not any(k.startswith("flash_dkv_kernel_mma") for k in out):
+        raise AssertionError(f"bf16 dq/dkv kernels not built: {sorted(out)}")
+    return out
 
 
 # -- phase 3: each kernel against its plain version ------------------------
@@ -517,7 +596,9 @@ def check_flash_kernels() -> dict:
     flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
     cases = [("8b_causal", (2, 4096, 4096, 32, 8, 128), True),
              ("ragged_full", (2, 77, 140, 32, 8, 128), False),
-             ("s4000_causal", (2, 4000, 4000, 32, 8, 128), True)]
+             ("s4000_causal", (2, 4000, 4000, 32, 8, 128), True),
+             # the D 64 kernels, one query head per kv head, Sq < Sk
+             ("d64_g1_causal", (2, 1000, 1800, 16, 16, 64), True)]
     max_err = {name: 0.0 for name, _ in FLASH_KERNELS}
     timed = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -547,6 +628,20 @@ def check_flash_kernels() -> dict:
                 max_err[name] = max(max_err[name], e)
             rec = {"case": case, "dtype": dname, "shape": list(shape),
                    "causal": causal, "max_abs_err": errs}
+            if case == "8b_causal" and dtype == torch.bfloat16:
+                # no atomics: a second launch of each gives the same bits
+                again = (flash_dq_kernel(q, k, v, dout, lse, delta, causal,
+                                         scale),
+                         *flash_dkv_kernel(q, k, v, dout, lse, delta, causal,
+                                           scale))
+                torch.cuda.synchronize()
+                for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                      again):
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"{case} {dname} {name}: two "
+                                             f"launches differ")
+                rec["bitwise_repeat"] = True
+                del again
             if case == "8b_causal":
                 rec["timed"] = timed[dname] = _time_flash(
                     q, k, v, dout, out, lse, delta, causal, scale, flush)
@@ -1115,10 +1210,11 @@ def profile_train():
 
 def main():
     card = probe()
-    build()
+    build_info = build()
     if "--profile-train" in sys.argv[1:]:
         profile_train()
         return 0
+    flash_build = check_flash_build(build_info)
     records = check_kernels()
     decode = check_paged_decode()
     flash = check_flash_kernels()
@@ -1189,6 +1285,12 @@ def main():
             "library_ms": t["library_ms"],
             "timed_at": "causal bf16 B=2 S=4096 H=32 KVH=8 D=128",
         })
+        # the bf16 D 128 build of the kernel that was timed
+        sym = "flash_fwd_kernel" if name == "flash_fwd" else \
+            f"{name}_kernel_mma"
+        built = flash_build[f"{sym} bfloat16 D128"]
+        kernels[-1].update({k: built.get(k) for k in (
+            "registers", "spill_stores", "smem_bytes", "HMMA", "LDGSTS")})
         if name == "flash_fwd":
             # the dense engine's prefill shapes, each held against the
             # plain version in phase 3b

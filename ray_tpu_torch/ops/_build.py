@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -82,16 +83,56 @@ def _start(name: str):
 def _finish(name: str, started, t0: float) -> dict:
     """Wait for a build _start began; returns {"seconds": wall time since
     t0 (0.0 when it was already built), "log": nvcc's output, with
-    ptxas's register/shared-memory report}."""
+    ptxas's register/shared-memory report (kept beside the library, so
+    an earlier build's log is returned too)}."""
     if started is None:
-        return {"seconds": 0.0, "log": ""}
+        log_path = _lib_path(name) + ".log"
+        log = ""
+        if os.path.isfile(log_path):
+            with open(log_path) as f:
+                log = f.read()
+        return {"seconds": 0.0, "log": log}
     proc, tmp, out = started
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {SOURCES[name]} "
                            f"(exit {proc.returncode}):\n{log}")
+    with open(f"{tmp}.log", "w") as f:
+        f.write(log)
+    os.replace(f"{tmp}.log", out + ".log")
     os.replace(tmp, out)
     return {"seconds": time.perf_counter() - t0, "log": log}
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_USED = re.compile(r"Used (\d+) registers")
+_SMEM = re.compile(r"(\d+) bytes smem")
+
+
+def ptxas_kernels(log: str) -> dict:
+    """ptxas's -v report per kernel: {mangled name: {"registers",
+    "spill_stores", "spill_loads", "stack", "static_smem"}} (bytes; the
+    kernels' dynamic shared memory is not in the report)."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = _SPILL.search(line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = _USED.search(line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            s = _SMEM.search(line)
+            cur["static_smem"] = int(s.group(1)) if s else 0
+    return out
 
 
 def build_all() -> dict:
@@ -136,6 +177,9 @@ def _bind(name: str, lib: ctypes.CDLL):
         lib.flash_dkv.argtypes = [I, P, P, P, P, P, P, P, P] + sizes
         for fn in (lib.flash_fwd, lib.flash_dq, lib.flash_dkv):
             fn.restype = I
+        # kernel (0 forward, 1 dq, 2 dkv), dtype, D -> dynamic smem bytes
+        lib.flash_smem_bytes.argtypes = [I, I, I]
+        lib.flash_smem_bytes.restype = I
     elif name == "paged_attention":
         # dtype, q, k_pages, v_pages, block_table, lengths, part_o,
         # part_ml, out, B, H, KVH, D, page, max_pages, n_splits, scale,

@@ -25,29 +25,61 @@
 // (read with strides, never transposed); lse, delta [B, H, Sq] f32.
 // Query head h reads kv head h / (H / KVH): no K/V repeat.
 //
-// What bounds it on this card: at the Llama-3-8B training shape (causal,
-// S 4096, D 128) the work is about 4 D (forward), 6 D (dq) and 8 D (dkv)
-// FLOPs per visible (query, key) pair per head against a few bytes per
-// pair, far above the H100's ~295 FLOP/B ridge: operations bound it.
+// What bounds them on this card: at the Llama-3-8B training shape (causal,
+// S 4096, D 128) the work is about 4 D (forward), 6 D (dq: q.k, dO.v,
+// ds.K) and 8 D (dkv: k.q, v.dO, p^T.dO, ds^T.Q) FLOPs per visible
+// (query, key) pair per head against a few bytes per pair, far above the
+// H100's ~295 FLOP/B ridge: operations bound all three, so in bf16 only
+// the tensor cores (989 TFLOP/s) can bring them near their bound.
 //
-// What this first design does about that, and what it does not do yet:
+// Shared by all three kernels:
 //   * one block owns a (b, h, 64-query tile) for the forward and for dq
 //     and loops over key tiles itself; one block owns a (b, kv head,
 //     64-key tile) for dkv and loops over the q tiles AND the G query
 //     heads of its kv head, so dk/dv come out per kv head with their f32
 //     accumulators in registers (no [B, Sk, H, D] buffers, no group sum);
-//     dq and dkv stay two passes, so dq is deterministic (no atomics);
+//     dq and dkv stay two passes, so both are deterministic (no atomics);
 //   * causal: the key loop (forward, dq) stops at the tile's last query,
 //     and the q loop (dkv) starts at the tile holding the first key, so
 //     fully masked tiles are never visited;
 //   * ragged lengths: the last tile is bound-checked (zero-staged rows,
-//     masked scores); there are no padding copies;
-//   * tiles are staged once in shared memory as f32 (row stride D + 1
-//     words, so the lanes of a warp that read different rows hit
-//     different banks); every product runs on CUDA cores in f32 with
-//     register tiles of 4 x 4 (scores) and 4 x D/NX (accumulators).
-// Not done yet (later work): tensor-core products (mma.sync / wgmma),
-// TMA or cp.async staging with double buffering, a fused backward.
+//     masked scores); there are no padding copies.
+//
+// bf16 dq and dkv (flash_dq_kernel_mma, flash_dkv_kernel_mma): tensor
+// cores and asynchronous copies.
+//   * every product is mma.sync.m16n8k16 (bf16 in, f32 accumulate) with
+//     operands read from shared memory by ldmatrix; the operands reduced
+//     over their row index (K in ds.K, dO in p^T.dO, Q in ds^T.Q) by
+//     ldmatrix.trans, so nothing is transposed in memory. mma.sync and not
+//     wgmma: a warp owns 16 rows of S / dP and rewrites their f32
+//     accumulator fragment in registers as the bf16 A fragment of the next
+//     product (ds for dq; p^T and ds^T for dkv), which the m16n8k16
+//     layouts make a pure register repack; that bf16 conversion is the
+//     reference's .astype, so p and ds round where they round there;
+//   * Q, K, V and dO stay bf16 in shared memory, rows padded by 16 bytes
+//     so that the 8 row addresses of an ldmatrix phase fall in 8 distinct
+//     bank groups; they arrive by 16-byte cp.async.cg, rows past Sq / Sk
+//     zero-filled through the src-size operand (never read), lse / delta
+//     by 4-byte cp.async.ca; the next K/V tile (dq) or Q/dO/lse/delta
+//     tile (dkv) is copied while the current one computes (two buffers);
+//   * dq: 4 warps x 16 queries, 64-key tiles; dkv: 4 warps x 16 keys,
+//     32-query tiles (its dk and dv accumulators are 2 x D / 2 f32
+//     registers a thread: 64-query tiles would spill at D 128); only
+//     tiles that cross the diagonal or a ragged edge are masked;
+//   * causal work differs by up to 64x between blocks: the tile index is
+//     the grid's slowest dimension, dq walks it from the last query tile
+//     and dkv from the first key tile, so the heaviest blocks start first.
+// The f32 instantiation (dtype 0) keeps CUDA-core kernels (flash_dq_kernel,
+// flash_dkv_kernel): tensor cores in f32 would mean TF32, three decimal
+// digits, far from the f32 reference. The forward (flash_fwd_kernel, both
+// dtypes) is still the first design: f32 tiles in shared memory (row
+// stride D + 1 words), every product on CUDA cores from 4 x 4 register
+// tiles.
+// Not done yet (later work): the forward on tensor cores; wgmma with TMA
+// and mbarriers instead of mma.sync with cp.async (a warpgroup-wide
+// product needs its accumulator rewritten through shared memory or the
+// wgmma register-A form); a fused backward (dq by atomics or a split
+// reduction).
 //
 // C interface (bound with ctypes, see ray_tpu_torch/ops/_build.py): each
 // entry point returns cudaGetLastError() after its launch (or the error
@@ -58,10 +90,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr float kNegInf = -1e30f;  // NEG_INF of ray_tpu/ops/flash_attention.py
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
+
+using bf16 = __nv_bfloat16;
 
 template <typename T>
 struct Elem;
@@ -302,7 +339,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// dq: grid (ceil(Sq / BQ), H, B)
+// f32 dq on CUDA cores: grid (ceil(Sq / BQ), H, B)
 // ---------------------------------------------------------------------------
 
 template <int D>
@@ -395,7 +432,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// dkv: grid (ceil(Sk / BK), KVH, B)
+// f32 dkv on CUDA cores: grid (ceil(Sk / BK), KVH, B)
 // ---------------------------------------------------------------------------
 
 template <int D>
@@ -517,6 +554,422 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 backward on tensor cores: PTX helpers
+// ---------------------------------------------------------------------------
+//
+// mma.m16n8k16 fragments, lane = 4 g + t (g = lane / 4, t = lane % 4):
+//   A (16 x 16, 4 regs of 2 bf16): a0 (row g, cols 2t, 2t+1), a1 (row g+8,
+//     same cols), a2 (row g, cols 2t+8, 2t+9), a3 (row g+8, cols 2t+8..);
+//   B (16 x 8, 2 regs): b0 (rows 2t, 2t+1 of col g), b1 (rows 2t+8, 2t+9);
+//   C (16 x 8 f32): c0, c1 (row g, cols 2t, 2t+1), c2, c3 (row g+8).
+// So the C fragments of two neighbouring 8-column tiles, packed to bf16
+// pairs, are exactly the A fragment of a 16-deep step over those columns.
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; zero-filled (nothing read) when !valid
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+// 4 bytes global -> shared; zero-filled when !valid
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// four 8 x 8 bf16 matrices; lane l gives the address of row l % 8 of
+// matrix l / 8, and r[i] receives matrix i's (row g, cols 2t, 2t+1)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// the same, each matrix transposed: r[i] receives (rows 2t, 2t+1; col g)
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a . b (16 x 16 bf16 times 16 x 8 bf16, f32 accumulate)
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 rounded to bf16 (the reference's .astype), lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Copy ROWS rows of D bf16 (row r at src + r * stride) into dst with row
+// stride LDS elements by 16-byte cp.async; rows >= valid are zero-filled
+// and their source is never read (valid >= 1: row 0 stands in as the
+// address).
+template <int D, int ROWS, int NT, int LDS>
+__device__ __forceinline__ void cp_rows(bf16* dst, const bf16* src,
+                                        size_t stride, int valid) {
+  constexpr int VPR = D / 8;  // 16-byte chunks per row
+  static_assert(ROWS * VPR % NT == 0, "tile split");
+#pragma unroll
+  for (int it = 0; it < ROWS * VPR / NT; ++it) {
+    const int idx = threadIdx.x + it * NT;
+    const int r = idx / VPR, c = idx - r * VPR;
+    const bool ok = r < valid;
+    cp_async16(smem_addr(dst + r * LDS + c * 8),
+               src + (ok ? (size_t)r * stride : 0) + c * 8, ok);
+  }
+}
+
+// acc[n] (n < 2 * NP, 8-column tiles) = A rows [16 x D] . B rows^T, B rows
+// [16 NP x D]: S = Q K^T style, both operands with rows along D. a_s and
+// b_s point at the first row; rows have stride LDS elements.
+template <int D, int NP, int LDS>
+__device__ __forceinline__ void mma_abt(float (&acc)[2 * NP][4],
+                                        const bf16* a_s, const bf16* b_s,
+                                        int lane) {
+#pragma unroll
+  for (int n = 0; n < 2 * NP; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const uint32_t a_base = smem_addr(a_s + (lane % 16) * LDS + (lane / 16) * 8);
+  const uint32_t b_base = smem_addr(
+      b_s + ((lane % 8) + (lane / 16) * 8) * LDS + ((lane / 8) % 2) * 8);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    ldsm_x4(a, a_base + kk * 32);
+#pragma unroll
+    for (int np = 0; np < NP; ++np) {
+      uint32_t b[4];
+      ldsm_x4(b, b_base + (np * 16 * LDS + kk * 16) * 2);
+      mma_bf16(acc[2 * np], a, b[0], b[1]);
+      mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// acc[n] (n < D / 8) += A . B with A the bf16 fragments a[m] of a
+// [16 x 16 KM] tile and B rows [16 KM x D] in shared memory (b_s at the
+// first row, stride LDS): dq += ds K, dv += p^T dO, dk += ds^T Q.
+template <int D, int KM, int LDS>
+__device__ __forceinline__ void mma_ab(float (&acc)[D / 8][4],
+                                       const uint32_t (&a)[KM][4],
+                                       const bf16* b_s, int lane) {
+  const uint32_t b_base = smem_addr(
+      b_s + ((lane % 8) + ((lane / 8) % 2) * 8) * LDS + (lane / 16) * 8);
+#pragma unroll
+  for (int m = 0; m < KM; ++m)
+#pragma unroll
+    for (int np = 0; np < D / 16; ++np) {
+      uint32_t b[4];
+      ldsm_x4_t(b, b_base + (m * 16 * LDS + np * 16) * 2);
+      mma_bf16(acc[2 * np], a[m], b[0], b[1]);
+      mma_bf16(acc[2 * np + 1], a[m], b[2], b[3]);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 dq on tensor cores: grid (H, B, ceil(Sq / BQ)), last q tile first
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct DqMmaCfg {
+  static constexpr int NW = 4, NT = 32 * NW;
+  static constexpr int BQ = 16 * NW;  // 64 queries, 16 per warp
+  static constexpr int BK = 64;       // keys per tile
+  static constexpr int LDS = D + 8;   // row stride in elements (+16 bytes)
+  // q, dO once; K and V twice (double buffer)
+  static constexpr int kSmemBytes = (2 * BQ + 4 * BK) * LDS * 2;
+};
+
+template <int D>
+__global__ void __launch_bounds__(DqMmaCfg<D>::NT)
+flash_dq_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v,
+                    const bf16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dq,
+                    int Sq, int Sk, int H, int KVH, int causal, float scale) {
+  using C = DqMmaCfg<D>;
+  constexpr int BQ = C::BQ, BK = C::BK, LDS = C::LDS, NT = C::NT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LDS]
+  bf16* do_s = q_s + BQ * LDS;                     // [BQ][LDS]
+  bf16* k_s = do_s + BQ * LDS;                     // [2][BK][LDS]
+  bf16* v_s = k_s + 2 * BK * LDS;                  // [2][BK][LDS]
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
+  const int kvh = h / (H / KVH);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const size_t q_stride = (size_t)H * D, kv_stride = (size_t)KVH * D;
+  const size_t q_off = (((size_t)b * Sq + q0) * H + h) * D;
+  const bf16* k_base = k + ((size_t)b * Sk * KVH + kvh) * D;
+  const bf16* v_base = v + ((size_t)b * Sk * KVH + kvh) * D;
+  const int q_rows = min(BQ, Sq - q0);
+  const int n_keys = causal ? min(Sk, q0 + q_rows) : Sk;
+  const int n_tiles = (n_keys + BK - 1) / BK;
+
+  cp_rows<D, BQ, NT, LDS>(q_s, q + q_off, q_stride, q_rows);
+  cp_rows<D, BQ, NT, LDS>(do_s, dout + q_off, q_stride, q_rows);
+  if (n_tiles > 0) {
+    cp_rows<D, BK, NT, LDS>(k_s, k_base, kv_stride, min(BK, Sk));
+    cp_rows<D, BK, NT, LDS>(v_s, v_base, kv_stride, min(BK, Sk));
+  }
+  cp_async_commit();
+
+  // this thread's rows: warp * 16 + g and + 8
+  const int row0 = q0 + warp * 16;
+  int q_pos[2];
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    q_pos[i] = row0 + g + 8 * i;
+    const size_t r = ((size_t)b * H + h) * Sq + q_pos[i];
+    lse2[i] = q_pos[i] < Sq ? lse[r] * kLog2e : 0.f;
+    dlt[i] = q_pos[i] < Sq ? delta[r] : 0.f;
+  }
+  const float scale2 = scale * kLog2e;
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int kb = it * BK;
+    if (it + 1 < n_tiles) {  // the next tile lands while this one computes
+      const int nb = kb + BK, nxt = (it + 1) % 2;
+      cp_rows<D, BK, NT, LDS>(k_s + nxt * BK * LDS, k_base + nb * kv_stride,
+                              kv_stride, min(BK, Sk - nb));
+      cp_rows<D, BK, NT, LDS>(v_s + nxt * BK * LDS, v_base + nb * kv_stride,
+                              kv_stride, min(BK, Sk - nb));
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* ks = k_s + (it % 2) * BK * LDS;
+    const bf16* vs = v_s + (it % 2) * BK * LDS;
+
+    float s[BK / 8][4], dp[BK / 8][4];
+    mma_abt<D, BK / 16, LDS>(s, q_s + warp * 16 * LDS, ks, lane);
+    mma_abt<D, BK / 16, LDS>(dp, do_s + warp * 16 * LDS, vs, lane);
+
+    // only tiles across the diagonal or past Sk need the mask
+    const bool edge = kb + BK > Sk || (causal && kb + BK - 1 > row0);
+    uint32_t ds[BK / 16][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float x[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int e = 2 * i + c;
+          const int k_pos = kb + j * 8 + 2 * t + c;
+          float p = exp2f(fmaf(s[j][e], scale2, -lse2[i]));
+          if (edge && !(k_pos < Sk && (!causal || k_pos <= q_pos[i])))
+            p = 0.f;
+          x[c] = p * (dp[j][e] - dlt[i]) * scale;
+        }
+        ds[j / 2][(j % 2) * 2 + i] = pack_bf16(x[0], x[1]);
+      }
+    mma_ab<D, BK / 16, LDS>(acc, ds, ks, lane);
+    __syncthreads();  // this buffer is refilled two tiles on
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (q_pos[i] >= Sq) continue;
+    bf16* o = dq + (((size_t)b * Sq + q_pos[i]) * H + h) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(o + n * 8) =
+          pack_bf16(acc[n][2 * i], acc[n][2 * i + 1]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 dkv on tensor cores: grid (KVH, B, ceil(Sk / BK)), first k tile first
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct DkvMmaCfg {
+  static constexpr int NW = 4, NT = 32 * NW;
+  static constexpr int BK = 16 * NW;  // 64 keys, 16 per warp
+  static constexpr int BQ = 32;       // queries per tile
+  static constexpr int LDS = D + 8;
+  // K, V once; Q, dO twice (double buffer); then lse, delta twice, f32
+  static constexpr int kRowsBytes = (2 * BK + 4 * BQ) * LDS * 2;
+  static constexpr int kSmemBytes = kRowsBytes + 4 * BQ * 4;
+};
+
+template <int D>
+__global__ void __launch_bounds__(DkvMmaCfg<D>::NT)
+flash_dkv_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v,
+                     const bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int Sq, int Sk, int H, int KVH,
+                     int causal, float scale) {
+  using C = DkvMmaCfg<D>;
+  constexpr int BQ = C::BQ, BK = C::BK, LDS = C::LDS, NT = C::NT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // [BK][LDS]
+  bf16* v_s = k_s + BK * LDS;                      // [BK][LDS]
+  bf16* q_s = v_s + BK * LDS;                      // [2][BQ][LDS]
+  bf16* do_s = q_s + 2 * BQ * LDS;                 // [2][BQ][LDS]
+  float* lse_s = reinterpret_cast<float*>(smem_raw + C::kRowsBytes);  // [2][BQ]
+  float* delta_s = lse_s + 2 * BQ;                                    // [2][BQ]
+
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * BK;
+  const int G = H / KVH;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const size_t q_stride = (size_t)H * D, kv_stride = (size_t)KVH * D;
+  const size_t kv_off = (((size_t)b * Sk + k0) * KVH + kvh) * D;
+  const int k_rows = min(BK, Sk - k0);
+  // causal: queries before the tile's first key never see it
+  const int qt_first = causal ? k0 / BQ : 0;
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  const int per_head = max(0, n_qt - qt_first);
+  const int n_tiles = G * per_head;  // (head, q tile), head-major
+
+  // stage the (head, q tile) number i into buffer i % 2
+  auto stage = [&](int i) {
+    const int h = kvh * G + i / per_head;
+    const int q0 = (qt_first + i % per_head) * BQ;
+    const int q_rows = min(BQ, Sq - q0);
+    const size_t q_off = (((size_t)b * Sq + q0) * H + h) * D;
+    const int buf = i % 2;
+    cp_rows<D, BQ, NT, LDS>(q_s + buf * BQ * LDS, q + q_off, q_stride,
+                            q_rows);
+    cp_rows<D, BQ, NT, LDS>(do_s + buf * BQ * LDS, dout + q_off, q_stride,
+                            q_rows);
+    const size_t row = ((size_t)b * H + h) * Sq + q0;
+    for (int r = threadIdx.x; r < 2 * BQ; r += NT) {
+      const int rr = r % BQ;
+      const bool ok = rr < q_rows;
+      const float* src = (r < BQ ? lse : delta) + row + (ok ? rr : 0);
+      float* dst = (r < BQ ? lse_s : delta_s) + buf * BQ + rr;
+      cp_async4(smem_addr(dst), src, ok);
+    }
+  };
+
+  cp_rows<D, BK, NT, LDS>(k_s, k + kv_off, kv_stride, k_rows);
+  cp_rows<D, BK, NT, LDS>(v_s, v + kv_off, kv_stride, k_rows);
+  if (n_tiles > 0) stage(0);
+  cp_async_commit();
+
+  const int key0 = k0 + warp * 16;  // this warp's first key
+  int k_pos[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) k_pos[i] = key0 + g + 8 * i;
+  const float scale2 = scale * kLog2e;
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dk_acc[n][e] = 0.f;
+      dv_acc[n][e] = 0.f;
+    }
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) stage(it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int q0 = (qt_first + it % per_head) * BQ;
+    const int buf = it % 2;
+    const bf16* qs = q_s + buf * BQ * LDS;
+    const bf16* dos = do_s + buf * BQ * LDS;
+    const float* lse_b = lse_s + buf * BQ;
+    const float* delta_b = delta_s + buf * BQ;
+
+    // transposed tiles: rows are this warp's 16 keys, columns BQ queries
+    float st[BQ / 8][4], dpt[BQ / 8][4];
+    mma_abt<D, BQ / 16, LDS>(st, k_s + warp * 16 * LDS, qs, lane);
+    mma_abt<D, BQ / 16, LDS>(dpt, v_s + warp * 16 * LDS, dos, lane);
+
+    // masked: past Sq or Sk, or a query before one of the warp's keys
+    const bool edge = q0 + BQ > Sq || key0 + 16 > Sk ||
+                      (causal && q0 < key0 + 15);
+    uint32_t pt[BQ / 16][4], dst[BQ / 16][4];
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float p[2], ds[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int e = 2 * i + c;
+          const int col = j * 8 + 2 * t + c;
+          const int q_pos = q0 + col;
+          float x = exp2f(fmaf(st[j][e], scale2, -lse_b[col] * kLog2e));
+          if (edge && !(k_pos[i] < Sk && q_pos < Sq &&
+                        (!causal || q_pos >= k_pos[i])))
+            x = 0.f;
+          p[c] = x;
+          ds[c] = x * (dpt[j][e] - delta_b[col]) * scale;
+        }
+        pt[j / 2][(j % 2) * 2 + i] = pack_bf16(p[0], p[1]);
+        dst[j / 2][(j % 2) * 2 + i] = pack_bf16(ds[0], ds[1]);
+      }
+    mma_ab<D, BQ / 16, LDS>(dv_acc, pt, dos, lane);
+    mma_ab<D, BQ / 16, LDS>(dk_acc, dst, qs, lane);
+    __syncthreads();  // this buffer is refilled two tiles on
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (k_pos[i] >= Sk) continue;
+    const size_t off = (((size_t)b * Sk + k_pos[i]) * KVH + kvh) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<uint32_t*>(dk + off + n * 8) =
+          pack_bf16(dk_acc[n][2 * i], dk_acc[n][2 * i + 1]);
+      *reinterpret_cast<uint32_t*>(dv + off + n * 8) =
+          pack_bf16(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -543,21 +996,72 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// grid (H or KVH, B, tiles) for the tensor-core kernels: y and z are
+// limited to 65535
+inline bool fits_yz(int B, int tiles) { return B <= 65535 && tiles <= 65535; }
+
+template <int D>
+cudaError_t launch_dq_mma(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse,
+                          const void* delta, void* dq, int B, int Sq, int Sk,
+                          int H, int KVH, int causal, float scale,
+                          cudaStream_t stream) {
+  using C = DqMmaCfg<D>;
+  const int tiles = (Sq + C::BQ - 1) / C::BQ;
+  if (!fits_yz(B, tiles)) return cudaErrorInvalidValue;
+  cudaError_t e = allow_smem(flash_dq_kernel_mma<D>, C::kSmemBytes);
+  if (e != cudaSuccess) return e;
+  dim3 grid(H, B, tiles);
+  flash_dq_kernel_mma<D><<<grid, C::NT, C::kSmemBytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dq), Sq, Sk, H, KVH, causal, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse,
+                           const void* delta, void* dk, void* dv, int B,
+                           int Sq, int Sk, int H, int KVH, int causal,
+                           float scale, cudaStream_t stream) {
+  using C = DkvMmaCfg<D>;
+  const int tiles = (Sk + C::BK - 1) / C::BK;
+  if (!fits_yz(B, tiles)) return cudaErrorInvalidValue;
+  cudaError_t e = allow_smem(flash_dkv_kernel_mma<D>, C::kSmemBytes);
+  if (e != cudaSuccess) return e;
+  dim3 grid(KVH, B, tiles);
+  flash_dkv_kernel_mma<D><<<grid, C::NT, C::kSmemBytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Sk, H, KVH,
+      causal, scale);
+  return cudaGetLastError();
+}
+
+// dq and dkv: bf16 on tensor cores, f32 on CUDA cores (no TF32)
 template <typename T, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int B, int Sq, int Sk, int H, int KVH,
                       int causal, float scale, cudaStream_t stream) {
-  using C = DqCfg<D>;
-  cudaError_t e = allow_smem(flash_dq_kernel<T, D>, C::kSmemBytes);
-  if (e != cudaSuccess) return e;
-  dim3 grid((Sq + C::BQ - 1) / C::BQ, H, B);
-  flash_dq_kernel<T, D><<<grid, C::NT, C::kSmemBytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), Sq, Sk, H, KVH, causal, scale);
-  return cudaGetLastError();
+  if constexpr (std::is_same_v<T, bf16>) {
+    return launch_dq_mma<D>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, KVH,
+                            causal, scale, stream);
+  } else {
+    using C = DqCfg<D>;
+    cudaError_t e = allow_smem(flash_dq_kernel<T, D>, C::kSmemBytes);
+    if (e != cudaSuccess) return e;
+    dim3 grid((Sq + C::BQ - 1) / C::BQ, H, B);
+    flash_dq_kernel<T, D><<<grid, C::NT, C::kSmemBytes, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<T*>(dq), Sq, Sk, H, KVH, causal, scale);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, int D>
@@ -566,17 +1070,22 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        void* dk, void* dv, int B, int Sq, int Sk, int H,
                        int KVH, int causal, float scale,
                        cudaStream_t stream) {
-  using C = DkvCfg<D>;
-  cudaError_t e = allow_smem(flash_dkv_kernel<T, D>, C::kSmemBytes);
-  if (e != cudaSuccess) return e;
-  dim3 grid((Sk + C::BK - 1) / C::BK, KVH, B);
-  flash_dkv_kernel<T, D><<<grid, C::NT, C::kSmemBytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, H, KVH, causal,
-      scale);
-  return cudaGetLastError();
+  if constexpr (std::is_same_v<T, bf16>) {
+    return launch_dkv_mma<D>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H,
+                             KVH, causal, scale, stream);
+  } else {
+    using C = DkvCfg<D>;
+    cudaError_t e = allow_smem(flash_dkv_kernel<T, D>, C::kSmemBytes);
+    if (e != cudaSuccess) return e;
+    dim3 grid((Sk + C::BK - 1) / C::BK, KVH, B);
+    flash_dkv_kernel<T, D><<<grid, C::NT, C::kSmemBytes, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, H, KVH, causal,
+        scale);
+    return cudaGetLastError();
+  }
 }
 
 }  // namespace
@@ -587,6 +1096,27 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   if (dtype == 1 && D == 64) return (int)CALL(__nv_bfloat16, 64); \
   if (dtype == 1 && D == 128) return (int)CALL(__nv_bfloat16, 128); \
   return (int)cudaErrorInvalidValue
+
+// Dynamic shared memory per block of one kernel (0 forward, 1 dq, 2 dkv)
+// as launched for dtype and D; -1 for what is not built.
+extern "C" int flash_smem_bytes(int kernel, int dtype, int D) {
+  if ((dtype != 0 && dtype != 1) || (D != 64 && D != 128)) return -1;
+  const bool b16 = dtype == 1, d64 = D == 64;
+  switch (kernel) {
+    case 0:
+      return d64 ? FwdCfg<64>::kSmemBytes : FwdCfg<128>::kSmemBytes;
+    case 1:
+      if (b16)
+        return d64 ? DqMmaCfg<64>::kSmemBytes : DqMmaCfg<128>::kSmemBytes;
+      return d64 ? DqCfg<64>::kSmemBytes : DqCfg<128>::kSmemBytes;
+    case 2:
+      if (b16)
+        return d64 ? DkvMmaCfg<64>::kSmemBytes : DkvMmaCfg<128>::kSmemBytes;
+      return d64 ? DkvCfg<64>::kSmemBytes : DkvCfg<128>::kSmemBytes;
+    default:
+      return -1;
+  }
+}
 
 // The output must not be empty (the wrapper returns early when it is);
 // Sk = 0 (forward, dq) or Sq = 0 (dkv) computes zeros.

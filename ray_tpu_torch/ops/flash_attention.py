@@ -12,7 +12,11 @@ counted from 0, also when Sq != Sk. The log-sum-exp ``lse`` is
 run the plain versions (``flash_forward_reference``,
 ``flash_backward_reference``); CUDA tensors launch the hand-written
 kernels of ``csrc/flash_attention.cu`` or raise: there is no fallback
-from the card to the plain versions. The forward is the dispatcher-
+from the card to the plain versions, nor from one kernel to another. In
+bf16 the dq and dkv kernels run on tensor cores (``mma.sync`` with
+``ldmatrix``, operands staged by ``cp.async``); in f32 they and the
+forward (both dtypes) run on CUDA cores, so f32 stays f32 (no TF32).
+The source's header says why. The forward is the dispatcher-
 visible op ``torch.ops.ray_tpu_torch.flash_fwd`` returning ``(out,
 lse)``, with its backward registered on it, so a selective-checkpoint
 policy can keep its outputs (``models/llama.py``'s ``save_attn``), as the
@@ -204,7 +208,9 @@ def _check_rows(q, dout, lse, delta):
 
 def flash_dq_kernel(q, k, v, dout, lse, delta, causal: bool, scale: float):
     """B4 on the card: dq [B,Sq,H,D] in q's dtype. dout contiguous;
-    lse/delta [B,H,Sq] f32."""
+    lse/delta [B,H,Sq] f32. bf16 runs on tensor cores, f32 on CUDA
+    cores; either way each dq element is summed by one thread in a fixed
+    order, so two launches give the same bits."""
     from . import _build
     _check_kernel_inputs(q, k, v)
     _check_rows(q, dout, lse, delta)
@@ -225,7 +231,8 @@ def flash_dq_kernel(q, k, v, dout, lse, delta, causal: bool, scale: float):
 
 def flash_dkv_kernel(q, k, v, dout, lse, delta, causal: bool, scale: float):
     """B5 on the card: (dk, dv) [B,Sk,KVH,D] in k's dtype, summed over
-    the query heads of each kv head inside the kernel."""
+    the query heads of each kv head inside the kernel (no atomics:
+    deterministic). bf16 runs on tensor cores, f32 on CUDA cores."""
     from . import _build
     _check_kernel_inputs(q, k, v)
     _check_rows(q, dout, lse, delta)

@@ -277,17 +277,32 @@ def _assert_flash_close(got, want, tol):
     assert ((g - w).abs() <= bound).all(), float((g - w).abs().max())
 
 
+FLASH_LENGTHS = [
+    # ragged lengths, no multiple of a tile
+    (100, 100, True), (77, 140, False), (140, 77, True), (130, 130, False),
+    # the bf16 dq/dkv tiles' edges: 16 rows per warp, 64-query dq blocks,
+    # 64-key dkv blocks and dq key tiles, 32-query dkv tiles; 65 and 129
+    # leave a last tile of one row. A query that sees a single key has
+    # dq = dk = 0 exactly (p = 1, dp = delta), which both sides reproduce
+    # only as rounding noise: Sq = 1 runs unmasked, and no case has Sk = 1.
+    (1, 17, False), (1, 129, False), (15, 15, False), (16, 16, True),
+    (17, 17, True), (63, 63, True), (64, 64, False), (65, 65, True),
+    (129, 129, True),
+    # causal with Sq < Sk, and with Sq > Sk (keys no query sees)
+    (15, 65, True), (17, 129, True), (16, 64, True),
+    (129, 63, True), (65, 16, True), (64, 15, True), (129, 17, False),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("groups", [1, 4])
-@pytest.mark.parametrize("sq,sk,causal", [(100, 100, True),
-                                          (77, 140, False),
-                                          (140, 77, True),
-                                          (130, 130, False)])
+@pytest.mark.parametrize("groups", [1, 2, 4, 8])
+@pytest.mark.parametrize("sq,sk,causal", FLASH_LENGTHS)
 def test_flash_kernels_match_plain_versions(cuda, dtype, d, groups, sq, sk,
                                             causal):
-    """Forward (out, lse), dq and dkv on ragged lengths (no length is a
-    multiple of a tile), GQA 1 and 4, both head dims and dtypes."""
+    """Forward (out, lse), dq and dkv on ragged lengths and on every tile
+    edge of the bf16 tensor-core dq/dkv kernels, GQA 1 to 8, both head
+    dims and dtypes."""
     q, k, v, dout = _flash_case(2, sq, sk, 2 * groups, 2, d, dtype, cuda)
     scale = d ** -0.5
     out, lse = flash_fwd_kernel(q, k, v, causal, scale)
@@ -302,6 +317,23 @@ def test_flash_kernels_match_plain_versions(cuda, dtype, d, groups, sq, sk,
     for got, want in ((out, w_out), (dq, w_dq), (dk, w_dk), (dv, w_dv)):
         assert got.dtype == dtype
         _assert_flash_close(got, want, FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_kernels_are_deterministic(cuda, dtype):
+    """Two launches of dq and of dkv on the same inputs give bitwise-equal
+    dq, dk and dv: each output element is summed by one thread in a fixed
+    order (no atomics)."""
+    q, k, v, dout = _flash_case(2, 300, 300, 16, 4, 128, dtype, cuda, seed=3)
+    scale = 128 ** -0.5
+    out, lse = flash_fwd_kernel(q, k, v, True, scale)
+    delta = delta_rows(out, dout)
+    runs = [(flash_dq_kernel(q, k, v, dout, lse, delta, True, scale),
+             *flash_dkv_kernel(q, k, v, dout, lse, delta, True, scale))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_flash_op_launches_each_kernel_once_per_call(cuda):

@@ -11,8 +11,8 @@ Tolerances (float32): forward atol 1e-5, gradients atol 2e-5 + rtol
 1e-5. Both sides sum the same f32 products in different orders (the
 Pallas kernel block by block with a streaming softmax, the port in one
 einsum); measured differences are below 3e-6 on values up to ~7. The
-JAX package's own tests allow 2e-4 / 2e-3. The bf16 forward's
-tolerances are stated at its test."""
+JAX package's own tests allow 2e-4 / 2e-3. The bf16 forward's and
+backward's tolerances are stated at their tests."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,21 +23,24 @@ from ray_tpu.ops.flash_attention import _flash_fwd
 from ray_tpu.ops.flash_attention import flash_attention as jax_flash
 from ray_tpu.ops.flash_attention import mha_reference as jax_mha
 from ray_tpu_torch.ops.flash_attention import (
-    FLASH_FWD_OP, flash_attention, flash_dkv_kernel, flash_dq_kernel,
-    flash_fwd_kernel, flash_forward_reference, mha_reference,
+    FLASH_FWD_OP, flash_attention, flash_backward_reference,
+    flash_dkv_kernel, flash_dq_kernel, flash_fwd_kernel,
+    flash_forward_reference, mha_reference,
 )
 
 FWD_TOL = dict(atol=1e-5, rtol=0)
 GRAD_TOL = dict(atol=2e-5, rtol=1e-5)
 
-# (b, sq, sk, h, kvh, d, block_q, block_k): aligned, GQA, and the padded
-# shapes of tests/test_flash_attention.py (30, 100, 77x140)
+# (b, sq, sk, h, kvh, d, block_q, block_k): aligned, GQA, the padded
+# shapes of tests/test_flash_attention.py (30, 100, 77x140), and the
+# card's bf16 dq/dkv kernels' head dim with GQA 4 on a ragged 80
 SHAPES = {
     "aligned": (2, 64, 64, 2, 2, 16, 32, 32),
     "gqa2": (1, 64, 64, 4, 2, 16, 32, 32),
     "pad30": (1, 30, 30, 4, 2, 32, 16, 128),
     "pad100": (2, 100, 100, 4, 2, 32, 64, 128),
     "ragged77x140": (2, 77, 140, 4, 2, 32, 64, 128),
+    "d128gqa4": (1, 80, 80, 8, 2, 128, 64, 64),
 }
 
 
@@ -113,6 +116,38 @@ def test_bf16_forward_within_one_ulp_of_reference():
     pallas = np.asarray(jax_flash(*jb, True, None, 32, 32, True)
                         .astype(jnp.float32))
     np.testing.assert_allclose(got, pallas, atol=1e-2, rtol=0)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_backward_matches_pallas_interpret(causal):
+    """bf16 at G 1: the plain backward (the card kernels' oracle) against
+    jax.grad of the Pallas kernels in interpret mode, on the same numpy
+    inputs rounded to bf16, both given the Pallas forward's out and lse.
+    Both round ds and p to bf16 at the same points and sum exact f32
+    products in f32 in other orders, so an output lands at most about one
+    bf16 ulp away: within 2^-7 of the tensor's largest |value| (measured:
+    at most 1.1e-3 of it, and fewer than 0.1% of the entries differ)."""
+    shape = (1, 96, 96, 2, 2, 64, 32, 32)
+    q, k, v, go = _inputs(shape, 6)
+    d, bq, bk = shape[5], shape[6], shape[7]
+    jq, jk, jv, jg = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, go))
+
+    def loss(q, k, v):
+        out = jax_flash(q, k, v, causal, None, bq, bk, True)
+        return (out.astype(jnp.float32) * jg.astype(jnp.float32)).sum()
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)
+    out, lse = _flash_fwd(jq, jk, jv, causal, d ** -0.5, bq, bk, True)
+    as_t = lambda x: torch.from_numpy(                       # noqa: E731
+        np.array(jnp.asarray(x, jnp.float32)))
+    got = flash_backward_reference(
+        *(as_t(x).to(torch.bfloat16) for x in (jq, jk, jv, out)),
+        as_t(lse), as_t(jg).to(torch.bfloat16), causal)
+    for name, w, g in zip("qkv", want, got):
+        assert g.dtype == torch.bfloat16
+        w = np.asarray(w.astype(jnp.float32))
+        err = np.abs(g.float().numpy() - w)
+        assert err.max() <= 2 ** -7 * np.abs(w).max(), (name, err.max())
 
 
 def test_block_k_only_chunks_the_plain_backward():
