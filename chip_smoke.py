@@ -9,17 +9,20 @@ and prints no result line):
    limit; TF32 off for f32 matrix products and convolutions.
 2. build: compiles every CUDA kernel from the sources in the checkout
    (one nvcc per source, all started together) and prints the time.
-   Then each flash kernel's registers and spill bytes (ptxas -v), its
-   dynamic shared memory per block, and its HMMA (tensor-core), LDGSTS
-   (cp.async) and LDSM (ldmatrix) instruction counts in the built SASS
-   (cuobjdump): the bf16 dq and dkv kernels must have all three and no
-   spills.
-3. kernels: each kernel against its plain PyTorch version on the card at
-   the shapes the serving path gives it (Llama-3-8B attention: H=32,
-   KVH=8, D=128, page 16) for decode, prefill and verify, in bf16 and
-   f32, with block-table tails naming a NaN-filled page. Prints the max
-   error, the kernel's, the plain version's and one library call's
-   median time, and the card's lower bound for the same work.
+   Then each kernel of the flash and ragged libraries: registers and
+   spill bytes (ptxas -v), dynamic shared memory per block, and its HMMA
+   (tensor-core), LDGSTS (cp.async) and LDSM (ldmatrix) instruction
+   counts in the built SASS (cuobjdump). Every bf16 flash kernel
+   (forward, dq, dkv) and every bf16 ragged pass-1 kernel (1, 2 and 4
+   warps), at D 64 and 128, must have all three and no spills.
+3. kernels: the ragged kernel against its plain PyTorch version on the
+   card at the shapes the serving path gives it (Llama-3-8B attention:
+   H=32, KVH=8, D=128, page 16) for decode, prefill and verify, and at
+   two long rows (4,000 and 8,000 keys) at decode and verify widths,
+   which the bf16 kernel splits several ways; in bf16 and f32, with
+   block-table tails naming a NaN-filled page. Prints the split count,
+   the max error, the kernel's, the plain version's and one library
+   call's median time, and the card's lower bound for the same work.
 4. serve: PagedInferenceEngine at full Llama-3-8B width (random weights
    from a seed, bf16, all 32 layers) generates ~10 mixed requests, then
    verify_paged_rows runs on the engine's caches. Kernel launch counts
@@ -100,11 +103,17 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,   # dense tensor-core bf16
 # |kernel - plain| <= atol + rtol * |plain|.
 # f32: both accumulate in f32 in different orders — a few ulps of values
 # below ~5, far inside atol 2e-5.
-# bf16: both compute in f32 and round the output to bf16 (8 significant
-# bits); two f32 values a few ulps apart can round one bf16 ulp apart,
-# and one bf16 ulp is at most 2^-7 of the value: rtol 2^-7, plus atol
-# 1e-2 for outputs near 0 where the f32 sums may differ more than the ulp.
+# bf16: B1 and B2 round the unnormalised p to bf16 before p.V, where the
+# Pallas kernels round it; the plain versions keep p in f32. That moves
+# each term by at most 2^-9 of itself, at random, so an output drifts by
+# about 2^-9 / sqrt(keys) of its row's scale, far below one bf16 ulp of
+# the output (2^-8 to 2^-7 of it); both sides then round the output to
+# bf16 from f32 values that close, so they land at most one bf16 ulp
+# apart: rtol 2^-7, plus atol 1e-2 for outputs near 0. The long rows
+# (thousands of keys, outputs of about sqrt(e / keys)) cut atol, row by
+# row, to ROW_ATOL_REL of the row's largest value, as phase 3c does.
 TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (1e-2, 2 ** -7)}
+ROW_ATOL_REL = 2 ** -7
 
 
 def probe() -> str:
@@ -135,84 +144,114 @@ def build():
     return info
 
 
-# mangled flash kernel name -> (kernel, dtype, head_dim)
-_FLASH_SYMBOL = re.compile(
-    r"(flash_(?:fwd|dq|dkv)_kernel(?:_mma)?)I(f|13__nv_bfloat16)?Li(\d+)E")
+# mangled kernel name -> (kernel, dtype, head_dim, warps or None), for the
+# flash library and the ragged library
+_KERNEL_SYMBOL = re.compile(
+    r"(flash_(?:fwd|dq|dkv)_kernel(?:_mma)?|rpa_kernel_mma|rpa_merge_kernel"
+    r"|ragged_paged_attention_kernel)I(f|13__nv_bfloat16)?Li(\d+)E"
+    r"(?:Li(\d+)E)?")
+_SASS_OPS = ("HMMA", "LDGSTS", "LDSM")
 
 
-def _flash_symbol(mangled: str):
-    m = _FLASH_SYMBOL.search(mangled)
+def _kernel_symbol(mangled: str):
+    m = _KERNEL_SYMBOL.search(mangled)
     if m is None:
         return None
     dtype = "float32" if m.group(2) == "f" else "bfloat16"
-    return m.group(1), dtype, int(m.group(3))
+    return m.group(1), dtype, int(m.group(3)), \
+        int(m.group(4)) if m.group(4) else None
 
 
-def check_flash_build(build_info) -> dict:
-    """Phase 2, the flash library: each kernel's registers and spill bytes
-    (ptxas -v), dynamic shared memory per block (flash_smem_bytes) and
-    its count of tensor-core (HMMA), asynchronous-copy (LDGSTS) and
-    ldmatrix (LDSM) instructions in the built SASS (cuobjdump). Raises
-    unless the bf16 dq and dkv kernels use all three and spill nothing.
-    Returns {"kernel dtype D": record}."""
+def _smem_bytes(kernel, dtype, d, nw) -> int:
+    """Dynamic shared memory per block as launched (0: static only)."""
     from ray_tpu_torch.ops import _build
-    report = {}
-    for mangled, rec in _build.ptxas_kernels(
-            build_info["flash_attention"]["log"]).items():
-        sym = _flash_symbol(mangled)
-        if sym is not None:
-            report[sym] = dict(rec)
-    lib = _build.load("flash_attention")
-    which = {"fwd": 0, "dq": 1, "dkv": 2}
+    if kernel.startswith("flash_"):
+        which = {"fwd": 0, "dq": 1, "dkv": 2}[kernel.split("_")[1]]
+        return _build.load("flash_attention").flash_smem_bytes(
+            which, 1 if dtype == "bfloat16" else 0, d)
+    if kernel == "rpa_kernel_mma":
+        return _build.load("ragged_paged_attention").rpa_smem_bytes(nw, d)
+    return 0
+
+
+def check_kernel_build(build_info) -> dict:
+    """Phase 2, the flash and ragged libraries: each kernel's registers
+    and spill bytes (ptxas -v), dynamic shared memory per block
+    (flash_smem_bytes, rpa_smem_bytes) and its count of tensor-core
+    (HMMA), asynchronous-copy (LDGSTS) and ldmatrix (LDSM) instructions in
+    the built SASS (cuobjdump). Raises unless every bf16 flash kernel
+    (forward, dq, dkv) and every bf16 ragged pass-1 kernel (1, 2 and 4
+    warps) is the tensor-core one, uses all three and spills nothing, at
+    D 64 and 128; the ragged merge pass must not spill.
+    Returns {"kernel dtype D[ NW]": record}."""
+    from ray_tpu_torch.ops import _build
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
                              "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass",
-                           _build._lib_path("flash_attention")],
-                          capture_output=True, text=True, timeout=300,
-                          check=True).stdout
-    cur = None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            sym = _flash_symbol(m.group(1))
-            cur = report.setdefault(sym, {}) if sym else None
-            continue
-        if cur is not None:
-            for op in ("HMMA", "LDGSTS", "LDSM"):
-                if re.search(rf"\b{op}\b", line):
-                    cur[op] = cur.get(op, 0) + 1
+    report = {}
+    for lib in ("flash_attention", "ragged_paged_attention"):
+        for mangled, rec in _build.ptxas_kernels(
+                build_info[lib]["log"]).items():
+            sym = _kernel_symbol(mangled)
+            if sym is not None:
+                report[sym] = dict(rec)
+        sass = subprocess.run([cuobjdump, "-sass", _build._lib_path(lib)],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        cur = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                sym = _kernel_symbol(m.group(1))
+                cur = report.setdefault(sym, {}) if sym else None
+                continue
+            if cur is not None:
+                for op in _SASS_OPS:
+                    if re.search(rf"\b{op}\b", line):
+                        cur[op] = cur.get(op, 0) + 1
     out = {}
-    for (kernel, dtype, d), rec in sorted(report.items()):
-        part = kernel.split("_")[1]
-        rec["smem_bytes"] = lib.flash_smem_bytes(
-            which[part], 1 if dtype == "bfloat16" else 0, d)
-        for op in ("HMMA", "LDGSTS", "LDSM"):
+    for (kernel, dtype, d, nw), rec in sorted(
+            report.items(), key=lambda kv: tuple(str(x) for x in kv[0])):
+        rec["smem_bytes"] = _smem_bytes(kernel, dtype, d, nw)
+        for op in _SASS_OPS:
             rec.setdefault(op, 0)
-        label = f"{kernel} {dtype} D{d}"
+        label = f"{kernel} {dtype} D{d}" + (f" NW{nw}" if nw else "")
         out[label] = rec
-        print("flash build: " + json.dumps({"kernel": label, **rec}),
+        print("kernel build: " + json.dumps({"kernel": label, **rec}),
               flush=True)
-        if dtype == "bfloat16" and part in ("dq", "dkv"):
-            if not kernel.endswith("_mma") or rec["HMMA"] == 0 or \
-                    rec["LDGSTS"] == 0 or rec.get("spill_stores", 1) or \
-                    rec.get("spill_loads", 1):
-                raise AssertionError(f"{label}: want tensor cores, cp.async "
-                                     f"and no spills, got {rec}")
-    if not any(k.startswith("flash_dq_kernel_mma") for k in out) or \
-            not any(k.startswith("flash_dkv_kernel_mma") for k in out):
-        raise AssertionError(f"bf16 dq/dkv kernels not built: {sorted(out)}")
+        spills = rec.get("spill_stores", 1) or rec.get("spill_loads", 1)
+        tensor_core = kernel.endswith("_mma")
+        if dtype == "bfloat16" and (tensor_core or kernel.startswith(
+                "flash_")):
+            if not tensor_core or spills or \
+                    not all(rec[op] for op in _SASS_OPS):
+                raise AssertionError(f"{label}: want tensor cores, cp.async, "
+                                     f"ldmatrix and no spills, got {rec}")
+        if kernel == "rpa_merge_kernel" and spills:
+            raise AssertionError(f"{label}: spills {rec}")
+    want = [f"flash_{k}_kernel_mma bfloat16 D{d}" for k in ("fwd", "dq", "dkv")
+            for d in (64, 128)] + \
+        [f"rpa_kernel_mma bfloat16 D{d} NW{nw}" for d in (64, 128)
+         for nw in (1, 2, 4)]
+    missing = [k for k in want if k not in out]
+    if missing:
+        raise AssertionError(f"tensor-core kernels not built: {missing}")
     return out
 
 
 # -- phase 3: each kernel against its plain version ------------------------
 
 def _attention_case(family: str, dtype, device, seed: int):
-    """Inputs at the 8B serving shapes for one dispatch family; table
-    tails (and the page they name) are NaN-poisoned."""
+    """Inputs at the 8B serving shapes for one dispatch family (and the
+    long rows at decode and verify widths); table tails (and the page
+    they name) are NaN-poisoned."""
     H, KVH, D, PAGE, MAXP, P = 32, 8, 128, 16, 64, 1024
     g = torch.Generator(device=device).manual_seed(seed)
     rng = np.random.RandomState(seed)
-    if family == "decode":
+    if family.startswith("long"):
+        # two rows of 4,000 and 8,000 keys: 16 blocks, split several ways
+        Q = 1 if family == "long_decode" else 5
+        starts, q_lens, MAXP = np.asarray([4000, 8000]) - Q, np.full(2, Q), 512
+    elif family == "decode":
         lengths = np.asarray([1, 17, 130, 256, 511, 640, 877, 1000])
         starts, q_lens, Q = lengths - 1, np.ones(8, np.int64), 1
     elif family == "prefill":
@@ -316,17 +355,22 @@ def _real_rows(x, q_lens):
                       if n])
 
 
+RAGGED_FAMILIES = ("decode", "prefill", "verify", "long_decode",
+                   "long_verify")
+
+
 def check_kernels() -> list:
     """Phase 3. Returns one record per (family, dtype)."""
     from ray_tpu_torch.ops.ragged_paged_attention import (
-        ragged_paged_attention, ragged_paged_reference,
+        num_splits, ragged_paged_attention, ragged_paged_reference,
     )
     flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     records = []
     for dtype in (torch.bfloat16, torch.float32):
-        for seed, family in enumerate(("decode", "prefill", "verify")):
+        for seed, family in enumerate(RAGGED_FAMILIES):
             args, kv_len = _attention_case(family, dtype, "cuda", seed)
-            q_lens = args[5]
+            q, kp, _, bt, _, q_lens = args
             got = ragged_paged_attention(*args)
             want = ragged_paged_reference(*args)
             torch.cuda.synchronize()
@@ -335,6 +379,13 @@ def check_kernels() -> list:
                 raise AssertionError(f"{family} {dtype}: non-finite output")
             err = float((g - w).abs().max())
             atol, rtol = TOL[dtype]
+            if family.startswith("long"):
+                # per row: min(atol, ROW_ATOL_REL x the row's largest value)
+                atol = torch.cat([torch.full(
+                    (n * q.shape[2] * q.shape[3],),
+                    min(atol, ROW_ATOL_REL * float(want[r, :n].abs().max())),
+                    device=w.device) for r, n in enumerate(q_lens.tolist())
+                    if n])
             if ((g - w).abs() > atol + rtol * w.abs()).any():
                 raise AssertionError(f"{family} {dtype}: |kernel - plain| "
                                      f"above atol {atol} + rtol {rtol}; "
@@ -346,28 +397,35 @@ def check_kernels() -> list:
                                   flush)
             library_ms = _device_ms(lib, flush)
             bound_ms, bound_by = _bound_ms(args, kv_len, dtype)
+            splits = 1 if dtype == torch.float32 else num_splits(
+                q.shape[0], q.shape[1], q.shape[2], kp.shape[2], bt.shape[1],
+                sms)
             rec = {"family": family, "dtype": str(dtype).split(".")[-1],
-                   "shape": list(args[0].shape), "max_abs_err": err,
-                   "atol_rtol": TOL[dtype], "library_max_abs_err": lib_err,
+                   "shape": list(q.shape), "kv_len_max": int(kv_len.max()),
+                   "splits": splits, "max_abs_err": err,
+                   "atol_rtol": [float(atol.min()) if torch.is_tensor(atol)
+                                 else atol, rtol],
+                   "library_max_abs_err": lib_err,
                    "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by}
             print("kernel: " + json.dumps(rec), flush=True)
             records.append(rec)
+            del args, got, want, lib
     return records
 
 
 # -- phase 3c: the decode-only kernel on its own entry point --------------
 
 PAGED_DECODE = ("paged_decode_attention", "ray_tpu/ops/paged_attention.py:36")
-# Phase 3c holds B2 to phase 3's TOL with atol cut, row by row, to 2^-7 of
-# the row's largest |plain| where that is smaller. A row of n keys gives
-# outputs of about sqrt(e / n) (0.018 at 8,192 keys), where a flat 1e-2
-# would let a kernel that dropped one of the row's splits pass. Rounding
+# Phase 3c holds B2 to phase 3's TOL with atol cut, row by row, to
+# ROW_ATOL_REL (2^-7) of the row's largest |plain| where that is smaller.
+# A row of n keys gives outputs of about sqrt(e / n) (0.018 at 8,192
+# keys), where a flat 1e-2 would let a kernel that dropped one of the
+# row's splits pass. Rounding
 # p to bf16 before p.V (relative 2^-8 per term, at random) moves an output
 # by about 2^-9 of the row's typical value, and two kernels that round at
 # different running maxima by about 2^-8: the largest of a row's 4,096
 # such differences stays several times below 2^-7 of the row's max.
-ROW_ATOL_REL = 2 ** -7
 
 
 def _paged_decode_case(case: str, dtype, seed: int):
@@ -1214,7 +1272,7 @@ def main():
     if "--profile-train" in sys.argv[1:]:
         profile_train()
         return 0
-    flash_build = check_flash_build(build_info)
+    kernel_build = check_kernel_build(build_info)
     records = check_kernels()
     decode = check_paged_decode()
     flash = check_flash_kernels()
@@ -1257,7 +1315,17 @@ def main():
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
         "timed_at": "decode bf16 R=8 Q=1 H=32 KVH=8 D=128 page=16",
+        # every family and dtype of phase 3, each held to its plain version
+        "timed_families": [
+            {k: r[k] for k in ("family", "dtype", "shape", "splits",
+                               "max_abs_err", "ms", "plain_ms", "library_ms",
+                               "bound_ms", "bound_by")} for r in records],
     }]
+    # the bf16 D 128 pass-1 builds (1 warp: decode; 2: verify; 4: prefill)
+    kernels[0]["builds"] = {
+        nw: {k: kernel_build[f"rpa_kernel_mma bfloat16 D128 NW{nw}"].get(k)
+             for k in ("registers", "spill_stores", "smem_bytes", "HMMA",
+                       "LDGSTS")} for nw in (1, 2, 4)}
     b2 = next(r for r in decode["records"]
               if r["case"] == "main" and r["dtype"] == "bfloat16")
     kernels.append({
@@ -1286,9 +1354,7 @@ def main():
             "timed_at": "causal bf16 B=2 S=4096 H=32 KVH=8 D=128",
         })
         # the bf16 D 128 build of the kernel that was timed
-        sym = "flash_fwd_kernel" if name == "flash_fwd" else \
-            f"{name}_kernel_mma"
-        built = flash_build[f"{sym} bfloat16 D128"]
+        built = kernel_build[f"{name}_kernel_mma bfloat16 D128"]
         kernels[-1].update({k: built.get(k) for k in (
             "registers", "spill_stores", "smem_bytes", "HMMA", "LDGSTS")})
         if name == "flash_fwd":

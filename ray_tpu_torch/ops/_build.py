@@ -3,9 +3,9 @@
 Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
 shared library with a plain C interface, loaded with ``ctypes``: no
 PyTorch headers, so a build takes seconds. Libraries land in
-``_build/<hash of the source and flags>/`` beside this file (listed in
-``.gitignore``), so an edited source rebuilds and an unchanged one is
-loaded as built. ``build_all()`` starts one ``nvcc`` per source at once
+``_build/<hash of the flags, the source and the csrc/ headers it
+includes>/`` beside this file (listed in ``.gitignore``), so an edited
+source or header rebuilds and an unchanged one is loaded as built. ``build_all()`` starts one ``nvcc`` per source at once
 and waits for all of them.
 
 Nothing here runs at import time: this module is imported on machines
@@ -57,10 +57,34 @@ def nvcc_path() -> str:
     return found
 
 
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
+
+def _sources_of(name: str) -> list:
+    """The source of library ``name`` and every file under csrc/ that it
+    includes with ``#include "..."``, transitively, in first-seen order
+    (system headers, in angle brackets, are not followed)."""
+    todo, seen = [SOURCES[name]], []
+    while todo:
+        rel = todo.pop(0)
+        if rel in seen:
+            continue
+        seen.append(rel)
+        with open(os.path.join(CSRC, rel)) as f:
+            text = f.read()
+        todo += [inc for inc in _INCLUDE.findall(text)
+                 if os.path.isfile(os.path.join(CSRC, inc))]
+    return seen
+
+
 def _lib_path(name: str) -> str:
-    src = os.path.join(CSRC, SOURCES[name])
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Where library ``name`` is built: keyed by the nvcc flags and the
+    bytes of its source and of every csrc/ header it includes, so an
+    edited header rebuilds each library that includes it."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for rel in _sources_of(name):
+        with open(os.path.join(CSRC, rel), "rb") as f:
+            digest.update(rel.encode() + b"\0" + f.read() + b"\0")
     return os.path.join(BUILD_DIR, digest.hexdigest()[:16], f"lib{name}.so")
 
 
@@ -165,9 +189,15 @@ def _bind(name: str, lib: ctypes.CDLL):
     bare Python int would be passed as a 32-bit int and cut)."""
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "ragged_paged_attention":
-        lib.rpa_forward.argtypes = [I, P, P, P, P, P, P, P,
-                                    I, I, I, I, I, I, I, F, P]
+        # dtype, q, k_pages, v_pages, block_tables, starts, q_lens, part_o,
+        # part_ml, out, R, Q, H, KVH, D, page, max_pages, n_splits, warps,
+        # scale, stream
+        lib.rpa_forward.argtypes = [I, P, P, P, P, P, P, P, P, P,
+                                    I, I, I, I, I, I, I, I, I, F, P]
         lib.rpa_forward.restype = I
+        # warps per bf16 pass-1 block, D -> dynamic smem bytes
+        lib.rpa_smem_bytes.argtypes = [I, I]
+        lib.rpa_smem_bytes.restype = I
     elif name == "flash_attention":
         # dtype, q, k, v, then the outputs / backward operands, then
         # B, Sq, Sk, H, KVH, D, causal, scale, stream

@@ -45,41 +45,52 @@
 //   * ragged lengths: the last tile is bound-checked (zero-staged rows,
 //     masked scores); there are no padding copies.
 //
-// bf16 dq and dkv (flash_dq_kernel_mma, flash_dkv_kernel_mma): tensor
-// cores and asynchronous copies.
+// bf16 (flash_fwd_kernel_mma, flash_dq_kernel_mma, flash_dkv_kernel_mma):
+// tensor cores and asynchronous copies, from the pieces in mma_sm90.cuh.
 //   * every product is mma.sync.m16n8k16 (bf16 in, f32 accumulate) with
 //     operands read from shared memory by ldmatrix; the operands reduced
-//     over their row index (K in ds.K, dO in p^T.dO, Q in ds^T.Q) by
-//     ldmatrix.trans, so nothing is transposed in memory. mma.sync and not
-//     wgmma: a warp owns 16 rows of S / dP and rewrites their f32
-//     accumulator fragment in registers as the bf16 A fragment of the next
-//     product (ds for dq; p^T and ds^T for dkv), which the m16n8k16
-//     layouts make a pure register repack; that bf16 conversion is the
-//     reference's .astype, so p and ds round where they round there;
+//     over their row index (V in p.V, K in ds.K, dO in p^T.dO, Q in
+//     ds^T.Q) by ldmatrix.trans, so nothing is transposed in memory.
+//     mma.sync and not wgmma: a warp owns 16 rows of S / dP and rewrites
+//     their f32 accumulator fragment in registers as the bf16 A fragment
+//     of the next product (p for the forward; ds for dq; p^T and ds^T for
+//     dkv), which the m16n8k16 layouts make a pure register repack; that
+//     bf16 conversion is the reference's .astype, so p and ds round where
+//     they round there;
 //   * Q, K, V and dO stay bf16 in shared memory, rows padded by 16 bytes
 //     so that the 8 row addresses of an ldmatrix phase fall in 8 distinct
 //     bank groups; they arrive by 16-byte cp.async.cg, rows past Sq / Sk
 //     zero-filled through the src-size operand (never read), lse / delta
-//     by 4-byte cp.async.ca; the next K/V tile (dq) or Q/dO/lse/delta
-//     tile (dkv) is copied while the current one computes (two buffers);
+//     by 4-byte cp.async.ca; the next K/V tile (forward, dq) or
+//     Q/dO/lse/delta tile (dkv) is copied while the current one computes
+//     (two buffers);
+//   * forward: 4 warps x 16 queries over 64-key tiles; each warp keeps its
+//     Q tile as A fragments in registers for the whole key loop (D / 4 a
+//     thread) and runs the streaming softmax on the f32 fragments of S:
+//     row max and sum over the quad of lanes that share a row (shuffles
+//     1 and 2; the sum only once, after the loop), the accumulator
+//     rescaled in registers, exp as exp2 with scale * log2(e) folded in;
+//     m stays in natural units, so lse = m + log(max(l, 1e-30)) is what
+//     dq and dkv read (they multiply it by log2(e) themselves). Blocks
+//     of 8 warps x 16 queries were slower at the 8B shape;
 //   * dq: 4 warps x 16 queries, 64-key tiles; dkv: 4 warps x 16 keys,
 //     32-query tiles (its dk and dv accumulators are 2 x D / 2 f32
 //     registers a thread: 64-query tiles would spill at D 128); only
 //     tiles that cross the diagonal or a ragged edge are masked;
 //   * causal work differs by up to 64x between blocks: the tile index is
-//     the grid's slowest dimension, dq walks it from the last query tile
-//     and dkv from the first key tile, so the heaviest blocks start first.
-// The f32 instantiation (dtype 0) keeps CUDA-core kernels (flash_dq_kernel,
-// flash_dkv_kernel): tensor cores in f32 would mean TF32, three decimal
-// digits, far from the f32 reference. The forward (flash_fwd_kernel, both
-// dtypes) is still the first design: f32 tiles in shared memory (row
-// stride D + 1 words), every product on CUDA cores from 4 x 4 register
-// tiles.
-// Not done yet (later work): the forward on tensor cores; wgmma with TMA
-// and mbarriers instead of mma.sync with cp.async (a warpgroup-wide
-// product needs its accumulator rewritten through shared memory or the
-// wgmma register-A form); a fused backward (dq by atomics or a split
-// reduction).
+//     the grid's slowest dimension, the forward and dq walk it from the
+//     last query tile and dkv from the first key tile, so the heaviest
+//     blocks start first; a forward warp whose 16 queries all precede a
+//     key tile skips it.
+// The f32 instantiation (dtype 0) keeps CUDA-core kernels (flash_fwd_kernel,
+// flash_dq_kernel, flash_dkv_kernel): tensor cores in f32 would mean TF32,
+// three decimal digits, far from the f32 reference. They stage f32 tiles
+// in shared memory (row stride D + 1 words) and run every product on CUDA
+// cores from 4 x 4 register tiles.
+// Not done yet (later work): wgmma with TMA and mbarriers instead of
+// mma.sync with cp.async (a warpgroup-wide product needs its accumulator
+// rewritten through shared memory or the wgmma register-A form); a fused
+// backward (dq by atomics or a split reduction).
 //
 // C interface (bound with ctypes, see ray_tpu_torch/ops/_build.py): each
 // entry point returns cudaGetLastError() after its launch (or the error
@@ -92,13 +103,9 @@
 
 #include <type_traits>
 
+#include "mma_sm90.cuh"  // PTX helpers, tile products, softmax_tile
+
 namespace {
-
-constexpr float kNegInf = -1e30f;  // NEG_INF of ray_tpu/ops/flash_attention.py
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr unsigned kFull = 0xffffffffu;
-
-using bf16 = __nv_bfloat16;
 
 template <typename T>
 struct Elem;
@@ -114,28 +121,6 @@ struct Elem<float> {
   }
   __device__ static float round(float x) { return x; }
   __device__ static float from_float(float x) { return x; }
-};
-
-template <>
-struct Elem<__nv_bfloat16> {
-  static constexpr int kPerVec = 8;
-  __device__ static void unpack(const uint4& u, float* out) {
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-  // the reference's .astype(bf16) before a product: round, compute in f32
-  __device__ static float round(float x) {
-    return __bfloat162float(__float2bfloat16(x));
-  }
-  __device__ static __nv_bfloat16 from_float(float x) {
-    return __float2bfloat16(x);
-  }
 };
 
 // max / sum over the NX consecutive lanes that share a row group
@@ -232,7 +217,7 @@ __device__ __forceinline__ void pv_tile(float (&acc)[RM][CD], const float* P,
 }
 
 // ---------------------------------------------------------------------------
-// forward: grid (ceil(Sq / BQ), H, B)
+// f32 forward on CUDA cores: grid (ceil(Sq / BQ), H, B)
 // ---------------------------------------------------------------------------
 
 template <int D>
@@ -554,148 +539,6 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 backward on tensor cores: PTX helpers
-// ---------------------------------------------------------------------------
-//
-// mma.m16n8k16 fragments, lane = 4 g + t (g = lane / 4, t = lane % 4):
-//   A (16 x 16, 4 regs of 2 bf16): a0 (row g, cols 2t, 2t+1), a1 (row g+8,
-//     same cols), a2 (row g, cols 2t+8, 2t+9), a3 (row g+8, cols 2t+8..);
-//   B (16 x 8, 2 regs): b0 (rows 2t, 2t+1 of col g), b1 (rows 2t+8, 2t+9);
-//   C (16 x 8 f32): c0, c1 (row g, cols 2t, 2t+1), c2, c3 (row g+8).
-// So the C fragments of two neighbouring 8-column tiles, packed to bf16
-// pairs, are exactly the A fragment of a 16-deep step over those columns.
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zero-filled (nothing read) when !valid
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-// 4 bytes global -> shared; zero-filled when !valid
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most N committed groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// four 8 x 8 bf16 matrices; lane l gives the address of row l % 8 of
-// matrix l / 8, and r[i] receives matrix i's (row g, cols 2t, 2t+1)
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// the same, each matrix transposed: r[i] receives (rows 2t, 2t+1; col g)
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// c += a . b (16 x 16 bf16 times 16 x 8 bf16, f32 accumulate)
-__device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two f32 rounded to bf16 (the reference's .astype), lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Copy ROWS rows of D bf16 (row r at src + r * stride) into dst with row
-// stride LDS elements by 16-byte cp.async; rows >= valid are zero-filled
-// and their source is never read (valid >= 1: row 0 stands in as the
-// address).
-template <int D, int ROWS, int NT, int LDS>
-__device__ __forceinline__ void cp_rows(bf16* dst, const bf16* src,
-                                        size_t stride, int valid) {
-  constexpr int VPR = D / 8;  // 16-byte chunks per row
-  static_assert(ROWS * VPR % NT == 0, "tile split");
-#pragma unroll
-  for (int it = 0; it < ROWS * VPR / NT; ++it) {
-    const int idx = threadIdx.x + it * NT;
-    const int r = idx / VPR, c = idx - r * VPR;
-    const bool ok = r < valid;
-    cp_async16(smem_addr(dst + r * LDS + c * 8),
-               src + (ok ? (size_t)r * stride : 0) + c * 8, ok);
-  }
-}
-
-// acc[n] (n < 2 * NP, 8-column tiles) = A rows [16 x D] . B rows^T, B rows
-// [16 NP x D]: S = Q K^T style, both operands with rows along D. a_s and
-// b_s point at the first row; rows have stride LDS elements.
-template <int D, int NP, int LDS>
-__device__ __forceinline__ void mma_abt(float (&acc)[2 * NP][4],
-                                        const bf16* a_s, const bf16* b_s,
-                                        int lane) {
-#pragma unroll
-  for (int n = 0; n < 2 * NP; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  const uint32_t a_base = smem_addr(a_s + (lane % 16) * LDS + (lane / 16) * 8);
-  const uint32_t b_base = smem_addr(
-      b_s + ((lane % 8) + (lane / 16) * 8) * LDS + ((lane / 8) % 2) * 8);
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    ldsm_x4(a, a_base + kk * 32);
-#pragma unroll
-    for (int np = 0; np < NP; ++np) {
-      uint32_t b[4];
-      ldsm_x4(b, b_base + (np * 16 * LDS + kk * 16) * 2);
-      mma_bf16(acc[2 * np], a, b[0], b[1]);
-      mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// acc[n] (n < D / 8) += A . B with A the bf16 fragments a[m] of a
-// [16 x 16 KM] tile and B rows [16 KM x D] in shared memory (b_s at the
-// first row, stride LDS): dq += ds K, dv += p^T dO, dk += ds^T Q.
-template <int D, int KM, int LDS>
-__device__ __forceinline__ void mma_ab(float (&acc)[D / 8][4],
-                                       const uint32_t (&a)[KM][4],
-                                       const bf16* b_s, int lane) {
-  const uint32_t b_base = smem_addr(
-      b_s + ((lane % 8) + ((lane / 8) % 2) * 8) * LDS + (lane / 16) * 8);
-#pragma unroll
-  for (int m = 0; m < KM; ++m)
-#pragma unroll
-    for (int np = 0; np < D / 16; ++np) {
-      uint32_t b[4];
-      ldsm_x4_t(b, b_base + (m * 16 * LDS + np * 16) * 2);
-      mma_bf16(acc[2 * np], a[m], b[0], b[1]);
-      mma_bf16(acc[2 * np + 1], a[m], b[2], b[3]);
-    }
-}
-
-// ---------------------------------------------------------------------------
 // bf16 dq on tensor cores: grid (H, B, ceil(Sq / BQ)), last q tile first
 // ---------------------------------------------------------------------------
 
@@ -970,35 +813,167 @@ flash_dkv_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 forward on tensor cores: grid (H, B, ceil(Sq / BQ)), last q tile first
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct FwdMmaCfg {
+  static constexpr int NW = 4, NT = 32 * NW;
+  static constexpr int BQ = 16 * NW;  // 64 queries, 16 per warp
+  static constexpr int BK = 64;       // keys per tile
+  static constexpr int LDS = D + 8;   // row stride in elements (+16 bytes)
+  // q once (read into registers), K and V twice (double buffer)
+  static constexpr int kSmemBytes = (BQ + 4 * BK) * LDS * 2;
+};
+
+template <int D>
+__global__ void __launch_bounds__(FwdMmaCfg<D>::NT)
+flash_fwd_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ out,
+                     float* __restrict__ lse, int Sq, int Sk, int H, int KVH,
+                     int causal, float scale) {
+  using C = FwdMmaCfg<D>;
+  constexpr int BQ = C::BQ, BK = C::BK, LDS = C::LDS, NT = C::NT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LDS]
+  bf16* k_s = q_s + BQ * LDS;                      // [2][BK][LDS]
+  bf16* v_s = k_s + 2 * BK * LDS;                  // [2][BK][LDS]
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
+  const int kvh = h / (H / KVH);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const size_t q_stride = (size_t)H * D, kv_stride = (size_t)KVH * D;
+  const bf16* k_base = k + ((size_t)b * Sk * KVH + kvh) * D;
+  const bf16* v_base = v + ((size_t)b * Sk * KVH + kvh) * D;
+  const int q_rows = min(BQ, Sq - q0);
+  // causal: keys past the tile's last query are never visible
+  const int n_keys = causal ? min(Sk, q0 + q_rows) : Sk;
+  const int n_tiles = (n_keys + BK - 1) / BK;
+
+  cp_rows<D, BQ, NT, LDS>(q_s, q + (((size_t)b * Sq + q0) * H + h) * D,
+                          q_stride, q_rows);
+  cp_async_commit();
+  if (n_tiles > 0) {
+    cp_rows<D, BK, NT, LDS>(k_s, k_base, kv_stride, min(BK, Sk));
+    cp_rows<D, BK, NT, LDS>(v_s, v_base, kv_stride, min(BK, Sk));
+  }
+  cp_async_commit();
+  cp_async_wait<1>();  // q has landed; the first K/V tile may not have
+  __syncthreads();
+  uint32_t qa[D / 16][4];  // this warp's 16 queries, for every key tile
+  ldsm_a<D, LDS>(qa, q_s + warp * 16 * LDS, lane);
+
+  const int row0 = q0 + warp * 16;  // this warp's first query
+  int q_pos[2];
+  float m[2], l[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    q_pos[i] = row0 + g + 8 * i;
+    m[i] = kNegInf;
+    l[i] = 0.f;
+  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int kb = it * BK;
+    if (it + 1 < n_tiles) {  // the next tile lands while this one computes
+      const int nb = kb + BK, nxt = (it + 1) % 2;
+      cp_rows<D, BK, NT, LDS>(k_s + nxt * BK * LDS, k_base + nb * kv_stride,
+                              kv_stride, min(BK, Sk - nb));
+      cp_rows<D, BK, NT, LDS>(v_s + nxt * BK * LDS, v_base + nb * kv_stride,
+                              kv_stride, min(BK, Sk - nb));
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    // causal: a warp whose queries all precede the tile sees none of it
+    if (!causal || kb <= row0 + 15) {
+      const bf16* ks = k_s + (it % 2) * BK * LDS;
+      const bf16* vs = v_s + (it % 2) * BK * LDS;
+      float s[BK / 8][4];
+      mma_abt_frag<D, BK / 16, LDS>(s, qa, ks, lane);
+      // only tiles across the diagonal or past Sk need the mask
+      const bool edge = kb + BK > Sk || (causal && kb + BK - 1 > row0);
+      uint32_t pa[BK / 16][4];
+      softmax_tile<BK / 8, D / 8>(
+          s, m, l, acc, pa, scale, edge, [&](int i, int col) {
+            const int k_pos = kb + col;
+            return k_pos < Sk && (!causal || k_pos <= q_pos[i]);
+          });
+      mma_ab<D, BK / 16, LDS>(acc, pa, vs, lane);
+    }
+    __syncthreads();  // this buffer is refilled two tiles on
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(kFull, l[i], 1);
+    l[i] += __shfl_xor_sync(kFull, l[i], 2);
+    if (q_pos[i] >= Sq) continue;
+    const float denom = fmaxf(l[i], 1e-30f);
+    bf16* o = out + (((size_t)b * Sq + q_pos[i]) * H + h) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(o + n * 8) =
+          pack_bf16(acc[n][2 * i] / denom, acc[n][2 * i + 1] / denom);
+    if (t == 0) lse[((size_t)b * H + h) * Sq + q_pos[i]] = m[i] + logf(denom);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
+// grid (H or KVH, B, tiles) for the tensor-core kernels: y and z are
+// limited to 65535
+inline bool fits_yz(int B, int tiles) { return B <= 65535 && tiles <= 65535; }
+
+template <int D>
+cudaError_t launch_fwd_mma(const void* q, const void* k, const void* v,
+                           void* out, void* lse, int B, int Sq, int Sk, int H,
+                           int KVH, int causal, float scale,
+                           cudaStream_t stream) {
+  using C = FwdMmaCfg<D>;
+  const int tiles = (Sq + C::BQ - 1) / C::BQ;
+  if (!fits_yz(B, tiles)) return cudaErrorInvalidValue;
+  cudaError_t e = allow_smem(flash_fwd_kernel_mma<D>, C::kSmemBytes);
+  if (e != cudaSuccess) return e;
+  dim3 grid(H, B, tiles);
+  flash_fwd_kernel_mma<D><<<grid, C::NT, C::kSmemBytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out),
+      static_cast<float*>(lse), Sq, Sk, H, KVH, causal, scale);
+  return cudaGetLastError();
 }
 
+// forward: bf16 on tensor cores, f32 on CUDA cores (no TF32)
 template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        void* out, void* lse, int B, int Sq, int Sk, int H,
                        int KVH, int causal, float scale,
                        cudaStream_t stream) {
-  using C = FwdCfg<D>;
-  cudaError_t e = allow_smem(flash_fwd_kernel<T, D>, C::kSmemBytes);
-  if (e != cudaSuccess) return e;
-  dim3 grid((Sq + C::BQ - 1) / C::BQ, H, B);
-  flash_fwd_kernel<T, D><<<grid, C::NT, C::kSmemBytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), Sq, Sk, H, KVH, causal, scale);
-  return cudaGetLastError();
+  if constexpr (std::is_same_v<T, bf16>) {
+    return launch_fwd_mma<D>(q, k, v, out, lse, B, Sq, Sk, H, KVH, causal,
+                             scale, stream);
+  } else {
+    using C = FwdCfg<D>;
+    cudaError_t e = allow_smem(flash_fwd_kernel<T, D>, C::kSmemBytes);
+    if (e != cudaSuccess) return e;
+    dim3 grid((Sq + C::BQ - 1) / C::BQ, H, B);
+    flash_fwd_kernel<T, D><<<grid, C::NT, C::kSmemBytes, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(out),
+        static_cast<float*>(lse), Sq, Sk, H, KVH, causal, scale);
+    return cudaGetLastError();
+  }
 }
-
-// grid (H or KVH, B, tiles) for the tensor-core kernels: y and z are
-// limited to 65535
-inline bool fits_yz(int B, int tiles) { return B <= 65535 && tiles <= 65535; }
 
 template <int D>
 cudaError_t launch_dq_mma(const void* q, const void* k, const void* v,
@@ -1104,6 +1079,8 @@ extern "C" int flash_smem_bytes(int kernel, int dtype, int D) {
   const bool b16 = dtype == 1, d64 = D == 64;
   switch (kernel) {
     case 0:
+      if (b16)
+        return d64 ? FwdMmaCfg<64>::kSmemBytes : FwdMmaCfg<128>::kSmemBytes;
       return d64 ? FwdCfg<64>::kSmemBytes : FwdCfg<128>::kSmemBytes;
     case 1:
       if (b16)
@@ -1156,3 +1133,4 @@ extern "C" int flash_dkv(int dtype, const void* q, const void* k,
   FLASH_DISPATCH(DKV);
 #undef DKV
 }
+

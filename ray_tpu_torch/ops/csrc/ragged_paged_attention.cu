@@ -1,4 +1,4 @@
-// Ragged paged attention for Hopper (sm_90a): one kernel for every
+// Ragged paged attention for Hopper (sm_90a): one kernel family for every
 // paged-KV attention dispatch of the serving engine (prefill chunks,
 // speculative-verify windows, and decode as the q_len = 1 case).
 //
@@ -11,62 +11,98 @@
 //   head `head` attends kv head head / G (G = H / KVH, no K/V repeat);
 //   key position k_pos is kept iff k_pos <= q_pos and
 //   k_pos < starts[r] + q_lens[r]; softmax streams over the live keys in
-//   f32 (m, l, acc); the output is acc / max(l, 1e-30) in q's dtype.
+//   f32 (m, l, acc); in bf16 the unnormalised p is rounded to V's dtype
+//   before p.V, where the Pallas kernel rounds it (`:112`); the output is
+//   acc / max(l, 1e-30) in q's dtype.
 //
 // What bounds it on this card: the bytes of the live K/V pages (each live
 // key's K and V row, per kv head). At decode the arithmetic is ~1 FLOP per
 // byte, far below the H100's ~295 FLOP/B ridge, and at a 128-token prefill
-// chunk it is still below it.
+// chunk (G = 4: 512 query rows per kv head) it is still below it; but
+// only if the products run at tensor-core rates, since on CUDA cores
+// (67 TFLOP/s f32) a prefill chunk's products take longer than its bytes.
 //
-// What the design does about that:
-//   * one block per (query-row tile, kv head, sequence row): the block
-//     stages each tile of 32 live keys of ITS kv head in shared memory
-//     once and every query head of the GQA group reads it from there, so
-//     K/V leave device memory once per block, never once per query head;
-//   * the block walks only the keys its own real queries can see
-//     (positions <= the last real query it holds), so pages past a row's
-//     live count, and the block table entries that name them, are never
-//     read: table tails may hold stale or poisoned page ids;
-//   * masked keys get the finite -1e30 and exp() is re-masked after the
-//     subtraction, so a fully masked query row gives 0, not NaN.
+// Shared by both dtypes:
+//   * GQA without repeat: a block owns (row r, kv head h, a tile of flat
+//     rows f = i * G + g, i.e. query positions times the G query heads of
+//     h), so each K/V tile leaves device memory once per block and serves
+//     every query head of the group;
+//   * a block walks only the keys its own real queries can see (positions
+//     <= the last real query of its tile), so pages past a row's live
+//     count, and the block-table entries that name them, are never read:
+//     table tails may hold stale or poisoned page ids;
+//   * masked keys get the finite -1e30 and p is re-masked to 0 after the
+//     exp, so a fully masked query row gives 0, not NaN.
 //
-// Each tile of 32 keys moves as 16-byte loads, all in flight together,
-// and the next tile's loads run while the current one is computed.
+// bf16 (rpa_kernel_mma, rpa_merge_kernel): tensor cores and split-KV.
+//   * Products: S = Q K^T and P V are mma.sync.m16n8k16 (bf16 in, f32
+//     accumulate) on operands read from shared memory by ldmatrix (V by
+//     ldmatrix.trans: nothing is transposed in memory), 16 flat rows per
+//     warp with Q's A fragments held in registers across the key loop;
+//     the streaming softmax runs on the f32 C fragments and p is packed
+//     to bf16 in registers as the A operand of P V (mma_sm90.cuh
+//     softmax_tile, shared with the flash forward).
+//   * Staging: Q rows by 16-byte cp.async, one address per flat row
+//     (q[r, f / G, h G + f % G]); K/V in 64-key tiles gathered through
+//     the block table (each key's page read from bt_row[key / page_size],
+//     any page size), by 16-byte cp.async.cg, double-buffered so the
+//     next tile lands while the current one computes; keys past the
+//     block's range are zero-filled through cp.async's src-size operand
+//     (never addressed) and masked.
+//   * Warps per block follow the flat rows a (row, kv head) has: 1 warp
+//     for up to 16 (decode, q_len 1: G live rows of the warp's 16), 2 for
+//     up to 32 (verify, 5 x G 4 = 20), else 4 (prefill chunks). At decode
+//     only G of the 16 tensor-core rows are live; decode is bound by
+//     bytes, so the idle rows cost tensor-core issue slots, not time
+//     (tensor-core products were taken for all three families, one design).
+//   * Split-KV: when (rows x kv heads x flat tiles) would not fill the
+//     card (decode and verify: 8 rows x 8 kv heads = 64 blocks at
+//     Llama-3-8B), the wrapper asks for n_splits > 1 and each row's live
+//     pages are cut into splits of whole pages, exactly as the decode
+//     kernel B2 (paged_attention.cu) cuts them: every block of both
+//     passes derives the pages per split from the LONGEST live row of the
+//     call (ceil(longest live pages / n_splits)), on the device, with no
+//     host sync. Pass 1 writes each split's unnormalised (m, l, acc) to
+//     f32 scratch [R, n_splits, Q, H] (+ D); blocks whose split starts
+//     past their own keys return at once; pass 2 (one block per query
+//     position and head) merges only the splits that hold keys of that
+//     query and writes 0 for padding positions (i >= q_lens[r]). With one
+//     split, pass 1 writes the output and pass 2 is not launched.
+//   * Deterministic: no atomics on data (one atomicMax on an integer in
+//     shared memory sizes the splits), so two launches give the same bits.
 //
-// Layout of the work: a warp owns up to kRowsPerWarp query rows (row =
-// one query position x one query head of the group) with its m, l and
-// acc in registers. For a key tile, lane j scores key j (its K row is
-// read from shared memory with an odd word stride, so the 32 lanes hit
-// 32 banks), the warp reduces max and sum with shuffles, and each lane
-// then accumulates P.V for its D/32 output dims. Queries are staged in
-// f32; products and sums are f32 for bf16 and f32 inputs alike.
-//
-// This first version does not reach that bound: its products run on CUDA
-// cores, so prefill and verify are limited by instruction throughput, and
-// decode by memory latency with too few blocks (PERF.md has the times).
-// Not yet done (later work): split-KV for small decode batches (at 8B
-// widths decode gives 8 rows x 8 kv heads = 64 blocks on 132 SMs),
-// tensor-core (mma/wgmma) products, and TMA or cp.async staging.
+// f32 (ragged_paged_attention_kernel): the first design, kept because
+// tensor cores in f32 would mean TF32, three decimal digits, far from the
+// f32 reference: a warp owns up to kRowsPerWarp flat rows with m, l and
+// acc in registers; for a tile of 32 keys staged in shared memory by
+// 16-byte loads (the next tile's loads in flight while the current one is
+// computed), lane j scores key j (odd word stride: 32 banks), the warp
+// reduces max and sum with shuffles, and each lane accumulates P.V for its
+// D/32 output dims. Products and sums on CUDA cores in f32; no split-KV.
 //
 // C interface (bound with ctypes, see ray_tpu_torch/ops/_build.py):
-// rpa_forward returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for a dtype/head_dim it was not built for.
+// rpa_forward launches the pass(es) on `stream` and returns
+// cudaGetLastError() after each launch (or the error of setting the
+// dynamic shared-memory size), and cudaErrorInvalidValue for a
+// dtype/head_dim it was not built for or a split count the dtype does
+// not take (f32: 1).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_sm90.cuh"  // PTX helpers, tile products, softmax_tile
+
 namespace {
 
+// the f32 kernel's layout
 constexpr int kWarps = 4;
 constexpr int kRowsPerWarp = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = kWarps * kRowsPerWarp;  // query rows per block
 constexpr int kKeyTile = 32;                  // keys per tile: one per lane
-constexpr float kNegInf = -1e30f;             // NEG_INF of the paged family
-constexpr unsigned kFull = 0xffffffffu;
 
-// Element access by 32-bit words: a word holds one f32 or two bf16.
+// Element access by 32-bit words (the f32 kernel: one f32 a word).
 template <typename T>
 struct Elem;
 
@@ -77,23 +113,6 @@ struct Elem<float> {
   __device__ static float from_float(float x) { return x; }
   __device__ static void unpack(uint32_t w, float* out) {
     out[0] = __uint_as_float(w);
-  }
-};
-
-template <>
-struct Elem<__nv_bfloat16> {
-  static constexpr int kPerWord = 2;
-  __device__ static float to_float(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-  }
-  __device__ static __nv_bfloat16 from_float(float x) {
-    return __float2bfloat16(x);
-  }
-  __device__ static void unpack(uint32_t w, float* out) {
-    __nv_bfloat162 b = *reinterpret_cast<__nv_bfloat162*>(&w);
-    float2 f = __bfloat1622float2(b);
-    out[0] = f.x;
-    out[1] = f.y;
   }
 };
 
@@ -108,6 +127,10 @@ __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
   return x;
 }
+
+// ---------------------------------------------------------------------------
+// f32 on CUDA cores
+// ---------------------------------------------------------------------------
 
 // q, out: [R, Q, H, D]; k_pages, v_pages: [P, page_size, KVH, D];
 // block_tables: [R, max_pages] int32; starts, q_lens: [R] int32.
@@ -277,11 +300,11 @@ ragged_paged_attention_kernel(const T* __restrict__ q,
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
-                   const void* block_tables, const void* starts,
-                   const void* q_lens, void* out, int R, int Q, int H,
-                   int KVH, int page_size, int max_pages, float scale,
-                   cudaStream_t stream) {
+cudaError_t launch_f32(const void* q, const void* k_pages,
+                       const void* v_pages, const void* block_tables,
+                       const void* starts, const void* q_lens, void* out,
+                       int R, int Q, int H, int KVH, int page_size,
+                       int max_pages, float scale, cudaStream_t stream) {
   const int G = H / KVH;
   dim3 grid((Q * G + kRows - 1) / kRows, KVH, R);
   ragged_paged_attention_kernel<T, D><<<grid, kThreads, 0, stream>>>(
@@ -292,24 +315,355 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on tensor cores, split-KV
+// ---------------------------------------------------------------------------
+
+template <int D, int NW>
+struct RpaMmaCfg {
+  static constexpr int NT = 32 * NW;
+  static constexpr int ROWS = 16 * NW;  // flat rows per block, 16 per warp
+  static constexpr int BK = 64;         // keys per tile
+  static constexpr int LDS = D + 8;     // row stride in elements (+16 bytes)
+  // q once (read into registers), K and V twice (double buffer)
+  static constexpr int kSmemBytes = (ROWS + 4 * BK) * LDS * 2;
+};
+
+// Keys row r attends, at most: positions < start + q_len, clamped to the
+// table's capacity (the reference attends the whole table when a row
+// exceeds it).
+__device__ __forceinline__ int live_keys(int start, int q_len, int Q,
+                                         int cap) {
+  return min(max(start + min(max(q_len, 0), Q), 0), cap);
+}
+
+// Keys each split takes: page_size * max(1, ceil(longest live page count
+// / n_splits)), B2's rule (paged_attention.cu split_pages). Every block of
+// both passes computes it from starts and q_lens alone.
+__device__ int split_span(const int* __restrict__ starts,
+                          const int* __restrict__ q_lens, int R, int Q,
+                          int page_size, int cap, int n_splits) {
+  __shared__ int s_longest;
+  if (threadIdx.x == 0) s_longest = 0;
+  __syncthreads();
+  int longest = 0;
+  for (int r = threadIdx.x; r < R; r += blockDim.x) {
+    const int n = live_keys(starts[r], q_lens[r], Q, cap);
+    longest = max(longest, (n + page_size - 1) / page_size);
+  }
+  atomicMax(&s_longest, longest);
+  __syncthreads();
+  return max(1, (s_longest + n_splits - 1) / n_splits) * page_size;
+}
+
+// Pass 1. q, out: [R, Q, H, D] bf16; k_pages, v_pages: [P, page_size, KVH,
+// D] bf16; block_tables: [R, max_pages]; starts, q_lens: [R].
+// part_o: [R, n_splits, Q, H, D] f32, part_ml: [R, n_splits, Q, H, 2] f32
+// (read only when n_splits > 1).
+// grid = (KVH * n_splits, ceil(Q * G / ROWS), R), block = 32 NW threads;
+// the flat-row tile index runs backwards (the last tiles see the most
+// keys and start first).
+template <int D, int NW>
+__global__ void __launch_bounds__(RpaMmaCfg<D, NW>::NT)
+rpa_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k_pages,
+               const bf16* __restrict__ v_pages,
+               const int* __restrict__ block_tables,
+               const int* __restrict__ starts, const int* __restrict__ q_lens,
+               bf16* __restrict__ out, float* __restrict__ part_o,
+               float* __restrict__ part_ml, int R, int Q, int H, int KVH,
+               int page_size, int max_pages, int n_splits, float scale) {
+  using C = RpaMmaCfg<D, NW>;
+  constexpr int ROWS = C::ROWS, BK = C::BK, LDS = C::LDS, NT = C::NT;
+  constexpr int VPR = D / 8;  // 16-byte chunks per row
+  static_assert(ROWS * VPR % NT == 0 && BK * VPR % NT == 0, "tile split");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [ROWS][LDS]
+  bf16* k_s = q_s + ROWS * LDS;                    // [2][BK][LDS]
+  bf16* v_s = k_s + 2 * BK * LDS;                  // [2][BK][LDS]
+
+  const int h = blockIdx.x % KVH, split = blockIdx.x / KVH;
+  const int flat0 = (gridDim.y - 1 - blockIdx.y) * ROWS;
+  const int r = blockIdx.z;
+  const int G = H / KVH;
+  const int n_flat = Q * G;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+
+  const int start = starts[r];
+  const int q_len = min(max(q_lens[r], 0), Q);
+  const int kv_len = start + q_len;  // positions < kv_len are live
+  const int cap = max_pages * page_size;
+  // keys this block needs: up to its last REAL query position
+  const int i_lo = flat0 / G;
+  const int i_hi = min((min(flat0 + ROWS, n_flat) - 1) / G, q_len - 1);
+  const int n_keys = i_hi >= i_lo ? min(start + i_hi + 1, cap) : 0;
+  int k_lo = 0, k_hi = n_keys;
+  if (n_splits > 1) {
+    const int span = split_span(starts, q_lens, R, Q, page_size, cap,
+                                n_splits);
+    k_lo = split * span;
+    k_hi = min(k_lo + span, n_keys);
+    if (k_lo >= k_hi) return;  // uniform: pass 2 reads only used splits
+  }
+  const int n_tiles = (k_hi - k_lo + BK - 1) / BK;
+
+  // Q: one address per flat row; rows past Q * G are zero-filled
+#pragma unroll
+  for (int it = 0; it < ROWS * VPR / NT; ++it) {
+    const int idx = threadIdx.x + it * NT;
+    const int row = idx / VPR, c = idx - row * VPR;
+    const int f = flat0 + row;
+    const bool ok = f < n_flat;
+    const size_t off =
+        ok ? (((size_t)r * Q + f / G) * H + h * G + f % G) * D + c * 8 : 0;
+    cp_async16(smem_addr(q_s + row * LDS + c * 8), q + off, ok);
+  }
+  cp_async_commit();
+
+  // K/V tile at key kb into buffer buf: each key's page from the block
+  // table; keys >= k_hi are zero-filled and never addressed
+  const int* bt_row = block_tables + (size_t)r * max_pages;
+  auto stage = [&](int kb, int buf) {
+#pragma unroll
+    for (int it = 0; it < BK * VPR / NT; ++it) {
+      const int idx = threadIdx.x + it * NT;
+      const int j = idx / VPR, c = idx - j * VPR;
+      const int key = kb + j;
+      const bool ok = key < k_hi;
+      size_t off = 0;
+      if (ok) {
+        const int pid = bt_row[key / page_size];
+        off = (((size_t)pid * page_size + key % page_size) * KVH + h) * D +
+              c * 8;
+      }
+      const int at = (buf * BK + j) * LDS + c * 8;
+      cp_async16(smem_addr(k_s + at), k_pages + off, ok);
+      cp_async16(smem_addr(v_s + at), v_pages + off, ok);
+    }
+  };
+  if (n_tiles > 0) stage(k_lo, 0);
+  cp_async_commit();
+  cp_async_wait<1>();  // q has landed; the first K/V tile may not have
+  __syncthreads();
+  uint32_t qa[D / 16][4];  // this warp's 16 flat rows, for every key tile
+  ldsm_a<D, LDS>(qa, q_s + warp * 16 * LDS, lane);
+
+  // this thread's flat rows: warp * 16 + g and + 8
+  const int wf0 = flat0 + warp * 16;
+  const bool warp_live = wf0 < n_flat;
+  const int wq_lo = start + wf0 / G;                         // first q_pos
+  const int wq_hi = start + (min(wf0 + 15, n_flat - 1)) / G;  // last q_pos
+  int q_pos[2];
+  float m[2], l[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    q_pos[i] = start + (wf0 + g + 8 * i) / G;
+    m[i] = kNegInf;
+    l[i] = 0.f;
+  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int kb = k_lo + it * BK;
+    if (it + 1 < n_tiles) stage(kb + BK, (it + 1) % 2);  // lands meanwhile
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    // a warp of padding rows, or whose queries all precede the tile,
+    // sees none of it (uniform across the warp)
+    if (warp_live && kb <= wq_hi) {
+      const bf16* ks = k_s + (it % 2) * BK * LDS;
+      const bf16* vs = v_s + (it % 2) * BK * LDS;
+      float s[BK / 8][4];
+      mma_abt_frag<D, BK / 16, LDS>(s, qa, ks, lane);
+      // kv_len >= k_hi, so only the block's key range and the diagonal
+      // can cut a tile
+      const bool edge = kb + BK > k_hi || kb + BK - 1 > wq_lo;
+      uint32_t pa[BK / 16][4];
+      softmax_tile<BK / 8, D / 8>(
+          s, m, l, acc, pa, scale, edge, [&](int i, int col) {
+            const int k_pos = kb + col;
+            return k_pos < k_hi && k_pos <= q_pos[i] && k_pos < kv_len;
+          });
+      mma_ab<D, BK / 16, LDS>(acc, pa, vs, lane);
+    }
+    __syncthreads();  // this buffer is refilled two tiles on
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(kFull, l[i], 1);
+    l[i] += __shfl_xor_sync(kFull, l[i], 2);
+    const int f = wf0 + g + 8 * i;
+    if (f >= n_flat) continue;
+    const int qi = f / G, head = h * G + f % G;
+    if (n_splits == 1) {
+      const float denom = fmaxf(l[i], 1e-30f);
+      bf16* o = out + (((size_t)r * Q + qi) * H + head) * D + 2 * t;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(o + n * 8) =
+            pack_bf16(acc[n][2 * i] / denom, acc[n][2 * i + 1] / denom);
+    } else {
+      const size_t at = (((size_t)r * n_splits + split) * Q + qi) * H + head;
+      float* o = part_o + at * D + 2 * t;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<float2*>(o + n * 8) =
+            make_float2(acc[n][2 * i], acc[n][2 * i + 1]);
+      if (t == 0)
+        *reinterpret_cast<float2*>(part_ml + at * 2) = make_float2(m[i], l[i]);
+    }
+  }
+}
+
+// Pass 2. grid = (H, Q, R), block = D threads: thread d merges dim d of one
+// (row, query position, head) over the splits that hold keys of that
+// query (m = max m_s, l = sum l_s exp(m_s - m), acc likewise). Padding
+// positions (i >= q_lens[r]) get 0.
+template <int D>
+__global__ void __launch_bounds__(D)
+rpa_merge_kernel(const float* __restrict__ part_o,
+                 const float* __restrict__ part_ml,
+                 const int* __restrict__ starts,
+                 const int* __restrict__ q_lens, bf16* __restrict__ out,
+                 int R, int Q, int H, int page_size, int max_pages,
+                 int n_splits) {
+  const int head = blockIdx.x, qi = blockIdx.y, r = blockIdx.z;
+  const int d = threadIdx.x;
+  const int cap = max_pages * page_size;
+  const int span = split_span(starts, q_lens, R, Q, page_size, cap, n_splits);
+  bf16* o = out + (((size_t)r * Q + qi) * H + head) * D + d;
+  if (qi >= min(max(q_lens[r], 0), Q)) {
+    *o = __float2bfloat16(0.f);
+    return;
+  }
+  // keys this query sees lie below row_keys; a split holds some of them
+  // iff it starts below row_keys, and pass 1 wrote every such split
+  const int row_keys = min(starts[r] + qi + 1, cap);
+  const int n_used = (row_keys + span - 1) / span;
+  const size_t row = (size_t)r * n_splits;
+  float m = kNegInf;
+  for (int s = 0; s < n_used; ++s)
+    m = fmaxf(m, part_ml[(((row + s) * Q + qi) * H + head) * 2]);
+  float l = 0.f, acc = 0.f;
+  for (int s = 0; s < n_used; ++s) {
+    const size_t at = ((row + s) * Q + qi) * H + head;
+    const float w = expf(part_ml[at * 2] - m);
+    l += part_ml[at * 2 + 1] * w;
+    acc += part_o[at * D + d] * w;
+  }
+  *o = __float2bfloat16(acc / fmaxf(l, 1e-30f));
+}
+
+template <int D, int NW>
+cudaError_t launch_mma_nw(const void* q, const void* k_pages,
+                          const void* v_pages, const void* block_tables,
+                          const void* starts, const void* q_lens,
+                          void* part_o, void* part_ml, void* out, int R,
+                          int Q, int H, int KVH, int page_size,
+                          int max_pages, int n_splits, float scale,
+                          cudaStream_t stream) {
+  using C = RpaMmaCfg<D, NW>;
+  const int tiles = (Q * (H / KVH) + C::ROWS - 1) / C::ROWS;
+  cudaError_t e = allow_smem(rpa_kernel_mma<D, NW>, C::kSmemBytes);
+  if (e != cudaSuccess) return e;
+  dim3 grid1(KVH * n_splits, tiles, R);
+  rpa_kernel_mma<D, NW><<<grid1, C::NT, C::kSmemBytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k_pages),
+      static_cast<const bf16*>(v_pages),
+      static_cast<const int*>(block_tables), static_cast<const int*>(starts),
+      static_cast<const int*>(q_lens), static_cast<bf16*>(out),
+      static_cast<float*>(part_o), static_cast<float*>(part_ml), R, Q, H,
+      KVH, page_size, max_pages, n_splits, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || n_splits == 1) return e;
+  dim3 grid2(H, Q, R);
+  rpa_merge_kernel<D><<<grid2, D, 0, stream>>>(
+      static_cast<const float*>(part_o), static_cast<const float*>(part_ml),
+      static_cast<const int*>(starts), static_cast<const int*>(q_lens),
+      static_cast<bf16*>(out), R, Q, H, page_size, max_pages, n_splits);
+  return cudaGetLastError();
+}
+
+// Warps per pass-1 block: 1, 2 or 4 (the wrapper picks them from the flat
+// rows of one (row, kv head): rows_per_block in
+// ray_tpu_torch/ops/ragged_paged_attention.py).
+template <int D>
+cudaError_t launch_mma(const void* q, const void* k_pages,
+                       const void* v_pages, const void* block_tables,
+                       const void* starts, const void* q_lens, void* part_o,
+                       void* part_ml, void* out, int R, int Q, int H,
+                       int KVH, int page_size, int max_pages, int n_splits,
+                       int warps, float scale, cudaStream_t stream) {
+  if (R > 65535 || Q > 65535 || n_splits < 1) return cudaErrorInvalidValue;
+#define RPA_NW(NW)                                                          \
+  return launch_mma_nw<D, NW>(q, k_pages, v_pages, block_tables, starts,    \
+                              q_lens, part_o, part_ml, out, R, Q, H, KVH,   \
+                              page_size, max_pages, n_splits, scale, stream)
+  switch (warps) {
+    case 1: RPA_NW(1);
+    case 2: RPA_NW(2);
+    case 4: RPA_NW(4);
+    default: return cudaErrorInvalidValue;
+  }
+#undef RPA_NW
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. head_dim: 64 or 128.
+// dtype: 0 = float32 (n_splits and warps must be 1), 1 = bfloat16.
+// head_dim: 64 or 128. part_o / part_ml: f32 scratch
+// [R, n_splits, Q, H, D] and [R, n_splits, Q, H, 2], read only when
+// n_splits > 1. warps: per bf16 pass-1 block, 1, 2 or 4.
 extern "C" int rpa_forward(int dtype, const void* q, const void* k_pages,
                            const void* v_pages, const void* block_tables,
-                           const void* starts, const void* q_lens, void* out,
-                           int R, int Q, int H, int KVH, int D,
-                           int page_size, int max_pages, float scale,
-                           void* stream) {
+                           const void* starts, const void* q_lens,
+                           void* part_o, void* part_ml, void* out, int R,
+                           int Q, int H, int KVH, int D, int page_size,
+                           int max_pages, int n_splits, int warps,
+                           float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RPA_CASE(T, DIM)                                                   \
-  return (int)launch<T, DIM>(q, k_pages, v_pages, block_tables, starts,   \
-                             q_lens, out, R, Q, H, KVH, page_size,        \
-                             max_pages, scale, s)
-  if (dtype == 0 && D == 64) RPA_CASE(float, 64);
-  if (dtype == 0 && D == 128) RPA_CASE(float, 128);
-  if (dtype == 1 && D == 64) RPA_CASE(__nv_bfloat16, 64);
-  if (dtype == 1 && D == 128) RPA_CASE(__nv_bfloat16, 128);
-#undef RPA_CASE
+  if (dtype == 0 && n_splits == 1 && warps == 1 && (D == 64 || D == 128)) {
+    return (int)(D == 64 ? launch_f32<float, 64>(
+                               q, k_pages, v_pages, block_tables, starts,
+                               q_lens, out, R, Q, H, KVH, page_size,
+                               max_pages, scale, s)
+                         : launch_f32<float, 128>(
+                               q, k_pages, v_pages, block_tables, starts,
+                               q_lens, out, R, Q, H, KVH, page_size,
+                               max_pages, scale, s));
+  }
+#define RPA_MMA(DIM)                                                         \
+  return (int)launch_mma<DIM>(q, k_pages, v_pages, block_tables, starts,    \
+                              q_lens, part_o, part_ml, out, R, Q, H, KVH,   \
+                              page_size, max_pages, n_splits, warps, scale,  \
+                              s)
+  if (dtype == 1 && D == 64) RPA_MMA(64);
+  if (dtype == 1 && D == 128) RPA_MMA(128);
+#undef RPA_MMA
   return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory per pass-1 block of the bf16 kernel with nw warps
+// at head_dim D; -1 for what is not built (the f32 kernel uses static
+// shared memory only).
+extern "C" int rpa_smem_bytes(int nw, int D) {
+  if (D != 64 && D != 128) return -1;
+  const bool d64 = D == 64;
+  switch (nw) {
+    case 1:
+      return d64 ? RpaMmaCfg<64, 1>::kSmemBytes : RpaMmaCfg<128, 1>::kSmemBytes;
+    case 2:
+      return d64 ? RpaMmaCfg<64, 2>::kSmemBytes : RpaMmaCfg<128, 2>::kSmemBytes;
+    case 4:
+      return d64 ? RpaMmaCfg<64, 4>::kSmemBytes : RpaMmaCfg<128, 4>::kSmemBytes;
+    default:
+      return -1;
+  }
 }

@@ -13,10 +13,11 @@ run the plain versions (``flash_forward_reference``,
 ``flash_backward_reference``); CUDA tensors launch the hand-written
 kernels of ``csrc/flash_attention.cu`` or raise: there is no fallback
 from the card to the plain versions, nor from one kernel to another. In
-bf16 the dq and dkv kernels run on tensor cores (``mma.sync`` with
-``ldmatrix``, operands staged by ``cp.async``); in f32 they and the
-forward (both dtypes) run on CUDA cores, so f32 stays f32 (no TF32).
-The source's header says why. The forward is the dispatcher-
+bf16 all three kernels (forward, dq, dkv) run on tensor cores
+(``mma.sync`` with ``ldmatrix``, operands staged by ``cp.async``; the
+forward rounds the unnormalised p to bf16 before P.V, as the reference
+does); in f32 they run on CUDA cores, so f32 stays f32 (no TF32). The
+source's header says why. The forward is the dispatcher-
 visible op ``torch.ops.ray_tpu_torch.flash_fwd`` returning ``(out,
 lse)``, with its backward registered on it, so a selective-checkpoint
 policy can keep its outputs (``models/llama.py``'s ``save_attn``), as the
@@ -174,7 +175,8 @@ def _raise_on(err: int, name: str):
 
 
 def flash_fwd_kernel(q, k, v, causal: bool, scale: float):
-    """B3 on the card: (out [B,Sq,H,D] in q's dtype, lse [B,H,Sq] f32)."""
+    """B3 on the card: (out [B,Sq,H,D] in q's dtype, lse [B,H,Sq] f32).
+    bf16 runs on tensor cores, f32 on CUDA cores."""
     from . import _build
     _check_kernel_inputs(q, k, v)
     b, sq, sk, h, kvh, d = _sizes(q, k)

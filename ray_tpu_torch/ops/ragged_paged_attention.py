@@ -13,10 +13,18 @@ CPU tensors go to the plain PyTorch version ``ragged_paged_reference``;
 CUDA tensors go to the hand-written Hopper kernel
 (``csrc/ragged_paged_attention.cu``, replacing the TPU's Pallas
 ``_ragged_kernel``), or the call raises. There is no fallback from the
-card to the plain version. ``ragged_paged_attention.launches`` counts
-kernel launches.
+card to the plain version. In bf16 the kernel runs on tensor cores
+(``mma.sync`` with ``ldmatrix``, K/V gathered through the block table by
+``cp.async``) and, when the call's blocks would not fill the card
+(decode and verify batches), splits each row's live pages over several
+blocks and merges them in a second launch; p is rounded to bf16 before
+P.V there, as the Pallas kernel rounds it. f32 runs on CUDA cores in one
+launch (no TF32). ``ragged_paged_attention.launches`` counts wrapper
+calls that launched the kernel (one per call, both passes).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -24,6 +32,8 @@ from .paged_attention import NEG_INF
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_HEAD_DIMS = (64, 128)
+# pass-1 blocks to aim for, per SM, when a call is split (B2's figure)
+_BLOCKS_PER_SM = 4
 
 
 def ragged_paged_reference(q, k_pages, v_pages, block_tables, starts,
@@ -97,10 +107,40 @@ def _check_kernel_inputs(q, k_pages, v_pages, block_tables, starts, q_lens):
                     ("q_lens", q_lens)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (the kernel "
-                             f"moves K/V rows as 16-byte vectors)")
+                             f"moves rows as 16-byte vectors)")
+
+
+def rows_per_block(n_flat: int) -> int:
+    """Flat rows (query positions x the G query heads of a kv head) that
+    one bf16 pass-1 block holds, 16 per warp: 1 warp up to 16 (decode), 2
+    up to 32 (verify), else 4 (prefill chunks). The kernel is launched
+    with this many warps."""
+    return 16 if n_flat <= 16 else 32 if n_flat <= 32 else 64
+
+
+def num_splits(rows: int, q_width: int, n_heads: int, n_kv_heads: int,
+               max_pages: int, sms: int) -> int:
+    """Splits of each row's live pages for the bf16 kernel's pass 1.
+
+    One when rows x kv heads x flat-row tiles already give a block per
+    SM; else enough for about _BLOCKS_PER_SM blocks per SM (B2's rule),
+    and never more than the table has pages. The kernel cuts the splits
+    on the device in whole pages: ceil(longest live page count / splits)
+    pages each, from the call's longest live row."""
+    n_flat = q_width * (n_heads // n_kv_heads)
+    tiles = -(-n_flat // rows_per_block(n_flat))
+    blocks = max(1, rows * n_kv_heads * tiles)
+    if blocks >= sms:
+        return 1
+    return max(1, min(max_pages, -(-_BLOCKS_PER_SM * sms // blocks)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def _launch_kernel(q, k_pages, v_pages, block_tables, starts, q_lens,
@@ -113,12 +153,27 @@ def _launch_kernel(q, k_pages, v_pages, block_tables, starts, q_lens,
     lib = _build.load("ragged_paged_attention")
     r, qw, h, d = q.shape
     _, page_size, kvh, _ = k_pages.shape
+    max_pages = block_tables.shape[1]
+    splits = warps = 1
+    part_o = part_ml = None
+    if q.dtype == torch.bfloat16:
+        warps = rows_per_block(qw * (h // kvh)) // 16
+        splits = num_splits(r, qw, h, kvh, max_pages,
+                            _sm_count(q.device.index or 0))
+    if splits > 1:
+        part_o = torch.empty((r, splits, qw, h, d), dtype=torch.float32,
+                             device=q.device)
+        part_ml = torch.empty((r, splits, qw, h, 2), dtype=torch.float32,
+                              device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.rpa_forward(
         _KERNEL_DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), block_tables.data_ptr(), starts.data_ptr(),
-        q_lens.data_ptr(), out.data_ptr(), r, qw, h, kvh, d, page_size,
-        block_tables.shape[1], float(scale), stream)
+        q_lens.data_ptr(),
+        None if part_o is None else part_o.data_ptr(),
+        None if part_ml is None else part_ml.data_ptr(), out.data_ptr(),
+        r, qw, h, kvh, d, page_size, max_pages, splits, warps,
+        float(scale), stream)
     if err != 0:
         raise RuntimeError(f"ragged_paged_attention kernel launch failed: "
                            f"CUDA error {err}")
@@ -140,7 +195,9 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, starts,
     Returns [R, Q, H, D] in q.dtype.
 
     CPU tensors run the plain version; CUDA tensors launch the Hopper
-    kernel (float32/bfloat16, head_dim 64 or 128, contiguous) or raise.
+    kernel (float32/bfloat16, head_dim 64 or 128, contiguous, 16-byte
+    aligned) or raise. In bf16 the kernel rounds p to bf16 before P.V (the
+    Pallas kernel's rounding); the plain version keeps it in f32.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -154,7 +211,8 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, starts,
                      f"{q.device}")
 
 
-#: kernel launches since the last reset (CPU calls do not count)
+#: calls that launched the kernel since the last reset (CPU calls do not
+#: count; one per call, whether it ran one pass or two)
 ragged_paged_attention.launches = 0
 
 

@@ -1,9 +1,16 @@
-"""The kernel build's bookkeeping, which runs without nvcc: the ptxas -v
-report parsed per kernel, and the build log kept beside a library so a
-cached build still reports its registers and spills."""
+"""The kernels' host-side bookkeeping, which runs without nvcc: the ptxas
+-v report parsed per kernel, the build log kept beside a library so a
+cached build still reports its registers and spills, the build key that
+follows the headers a source includes, and the ragged kernel's split
+count."""
+import importlib
 import os
 
+import pytest
+
 from ray_tpu_torch.ops import _build
+
+rpa = importlib.import_module("ray_tpu_torch.ops.ragged_paged_attention")
 
 LOG = """\
 ptxas info    : 0 bytes gmem
@@ -45,3 +52,70 @@ def test_cached_build_returns_the_log_kept_beside_its_library(
     rec = _build._finish("flash_attention", _build._start("flash_attention"),
                          0.0)
     assert rec == {"seconds": 0.0, "log": LOG}
+
+
+def test_lib_path_follows_the_headers_a_source_includes(tmp_path,
+                                                        monkeypatch):
+    """Editing a csrc header that a source includes (directly or through
+    another header) moves that library's build path; editing a header it
+    does not include, or a system header name, does not."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "a.cu").write_text('#include <cuda_runtime.h>\n'
+                               '#include "x.cuh"  // helpers\nint a;\n')
+    (csrc / "x.cuh").write_text('#pragma once\n  # include "y.cuh"\n')
+    (csrc / "y.cuh").write_text("// y\n")
+    (csrc / "z.cuh").write_text("// not included\n")
+    (csrc / "b.cu").write_text("int b;\n")
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    monkeypatch.setattr(_build, "SOURCES", {"a": "a.cu", "b": "b.cu"})
+    assert _build._sources_of("a") == ["a.cu", "x.cuh", "y.cuh"]
+    assert _build._sources_of("b") == ["b.cu"]
+    a0, b0 = _build._lib_path("a"), _build._lib_path("b")
+    (csrc / "z.cuh").write_text("// edited, still not included\n")
+    assert (_build._lib_path("a"), _build._lib_path("b")) == (a0, b0)
+    (csrc / "y.cuh").write_text("// y, edited\n")
+    a1 = _build._lib_path("a")
+    assert a1 != a0 and _build._lib_path("b") == b0
+    (csrc / "x.cuh").write_text('#pragma once\n#include "y.cuh"\n// x\n')
+    assert _build._lib_path("a") not in (a0, a1)
+
+
+def test_both_attention_sources_key_on_the_shared_header():
+    assert _build._sources_of("flash_attention") == ["flash_attention.cu",
+                                                     "mma_sm90.cuh"]
+    assert _build._sources_of("ragged_paged_attention") == [
+        "ragged_paged_attention.cu", "mma_sm90.cuh"]
+    assert _build._sources_of("paged_attention") == ["paged_attention.cu"]
+
+
+@pytest.mark.parametrize("n_flat,rows", [(1, 16), (4, 16), (16, 16),
+                                         (17, 32), (20, 32), (32, 32),
+                                         (33, 64), (512, 64)])
+def test_ragged_rows_per_block(n_flat, rows):
+    """1, 2 or 4 warps of 16 flat rows a block."""
+    assert rpa.rows_per_block(n_flat) == rows
+
+
+@pytest.mark.parametrize("rows,q,heads,kv_heads,max_pages,want", [
+    (4, 128, 32, 8, 64, 1),    # 8B prefill chunk rows: 256 blocks, full
+    (9, 128, 8, 2, 40, 1),     # 144 blocks on 132 SMs
+    (8, 1, 32, 8, 64, 9),      # 8B decode: 64 blocks -> ~4 per SM
+    (8, 5, 32, 8, 64, 9),      # 8B verify: 20 flat rows, one 2-warp tile
+    (2, 1, 32, 8, 512, 33),    # two long rows: 16 blocks
+    (40, 1, 8, 2, 127, 7),     # 80 blocks
+    (1, 1, 32, 8, 3, 3),       # never more splits than the table has pages
+    (1, 1, 32, 8, 1, 1),
+])
+def test_ragged_split_count(rows, q, heads, kv_heads, max_pages, want):
+    """One split when rows x kv heads x flat tiles give a block per SM;
+    else about four blocks per SM, capped at the table's page count. The
+    kernel sizes splits in whole pages from the longest live row
+    (ceil(pages / splits) each), so with at most max_pages splits every
+    split holds at least one page and none cuts one."""
+    n = rpa.num_splits(rows, q, heads, kv_heads, max_pages, 132)
+    assert n == want
+    assert 1 <= n <= max_pages
+    for longest in range(max_pages + 1):
+        pages = max(1, -(-longest // n))
+        assert n * pages >= longest            # every live page is covered

@@ -85,6 +85,126 @@ def test_kernel_matches_plain_version(cuda, dtype, d, groups, page):
                                        want[r, :n].float(), **TOL[dtype])
 
 
+def _rpa_case(dtype, d, q_width, groups, page, starts, q_lens, device,
+              seed=0):
+    """Ragged rows on disjoint live pages; table tails name an all-NaN
+    page and the slots past each row's live length in its last live page
+    are NaN, so a kernel that reads past a row's keys gives NaN."""
+    rng = np.random.RandomState(seed)
+    kvh = 2
+    starts = np.asarray(starts, np.int32)
+    q_lens = np.asarray(q_lens, np.int32)
+    kv_len = starts + q_lens
+    n_live = -(-kv_len // page)
+    maxp = int(n_live.max()) + 2
+    P = int(n_live.sum()) + 2
+    dead = P - 1
+    ids = iter(rng.permutation(np.arange(1, P - 1)))
+    bt = np.full((len(starts), maxp), dead, np.int32)
+    for r, n in enumerate(n_live):
+        bt[r, :n] = [next(ids) for _ in range(n)]
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((len(starts), q_width, kvh * groups, d), generator=g,
+                    device=device).to(dtype)
+    kp = torch.randn((P, page, kvh, d), generator=g, device=device).to(dtype)
+    vp = torch.randn((P, page, kvh, d), generator=g, device=device).to(dtype)
+    for t in (kp, vp):
+        t[dead] = float("nan")
+        for r, n in enumerate(kv_len):
+            if n % page:
+                t[bt[r, n // page], n % page:] = float("nan")
+    as_t = lambda a: torch.as_tensor(a, device=device)   # noqa: E731
+    return q, kp, vp, as_t(bt), as_t(starts), as_t(q_lens)
+
+
+def _assert_rpa_matches(args, dtype):
+    got = ragged_paged_attention(*args)
+    want = ragged_paged_reference(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == args[0].shape
+    for r, n in enumerate(args[5].tolist()):
+        if n:
+            assert torch.isfinite(got[r, :n]).all()
+            torch.testing.assert_close(got[r, :n].float(),
+                                       want[r, :n].float(), **TOL[dtype])
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("page", [8, 16])
+@pytest.mark.parametrize("q_width,groups", [
+    (15, 1), (16, 1), (17, 1),      # flat rows Q * G: one warp tile and its
+    (5, 4), (16, 4), (65, 1),       # edges, 20 = 16 + 4, 64, 65
+    (13, 5)])                       # 65 with G 5
+def test_ragged_kernel_flat_row_tile_edges(cuda, dtype, d, page, q_width,
+                                           groups):
+    """The bf16 kernel holds 16 flat rows (query position x query head of
+    the group) per warp, 1, 2 or 4 warps a block: every tile edge, with
+    q_len < Q, q_len 0, a full row and starts that are not page-aligned."""
+    starts = [0, 3, 2 * page + 5, 0, page - 1]
+    q_lens = [q_width, max(1, q_width - 2), max(1, q_width // 2), 0,
+              q_width]
+    args = _rpa_case(dtype, d, q_width, groups, page, starts, q_lens, cuda)
+    _assert_rpa_matches(args, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("page", [8, 16])
+@pytest.mark.parametrize("q_width", [1, 5])
+def test_ragged_kernel_long_rows_split_kv(cuda, dtype, d, page, q_width):
+    """Rows whose live pages span several splits (and short rows that
+    leave later splits empty) at decode and verify widths; NaN table
+    tails and NaN slots past each row's keys never reach the output."""
+    starts = [4000 - q_width, 1000 - q_width, 517, 33, 0]
+    q_lens = [q_width, q_width, q_width, q_width, 0]
+    args = _rpa_case(dtype, d, q_width, 4, page, starts, q_lens, cuda,
+                     seed=1)
+    _assert_rpa_matches(args, dtype)
+
+
+def test_ragged_kernel_split_count_two_to_eight(cuda):
+    """A decode batch of 40 rows: 80 blocks on a 132-SM card gives 7
+    splits, so each row's live pages are cut in 2 to 7 pieces."""
+    from ray_tpu_torch.ops.ragged_paged_attention import num_splits
+    rng = np.random.RandomState(5)
+    lengths = rng.randint(300, 2000, 40)
+    lengths[0] = 2000
+    args = _rpa_case(torch.bfloat16, 128, 1, 4, 16, lengths - 1,
+                     np.ones(40), cuda, seed=5)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if sms == 132:
+        assert num_splits(40, 1, 8, 2, args[3].shape[1], sms) == 7
+    _assert_rpa_matches(args, torch.bfloat16)
+
+
+def test_ragged_kernel_one_split_prefill(cuda):
+    """9 rows x 2 kv heads x 8 tiles of 64 flat rows fill a 132-SM card:
+    one split, pass 1 writes the output itself."""
+    from ray_tpu_torch.ops.ragged_paged_attention import num_splits
+    starts = [0, 37, 256, 0, 500, 16, 3, 130, 64]
+    q_lens = [128, 128, 77, 0, 128, 1, 100, 128, 128]
+    args = _rpa_case(torch.bfloat16, 128, 128, 4, 16, starts, q_lens, cuda,
+                     seed=4)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert num_splits(9, 128, 8, 2, args[3].shape[1], sms) == 1 or sms > 144
+    _assert_rpa_matches(args, torch.bfloat16)
+
+
+@pytest.mark.parametrize("q_width", [1, 5, 64])
+def test_ragged_kernel_is_deterministic(cuda, q_width):
+    """Two launches of the bf16 kernel (split or not) give the same bits:
+    no atomics on data."""
+    starts = [1500, 3, 700, 64]
+    args = _rpa_case(torch.bfloat16, 128, q_width, 4, 16, starts,
+                     [q_width] * 4, cuda, seed=2)
+    a = ragged_paged_attention(*args)
+    b = ragged_paged_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
 def test_decode_wrapper_and_launch_count(cuda):
     """One launch per call on CUDA tensors, none on CPU tensors; decode
     at q_len=1 matches the plain version."""
@@ -117,6 +237,9 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         ragged_paged_attention(q, kp, vp, bt.long(), st, ql)
     with pytest.raises(ValueError, match="on cpu"):
         ragged_paged_attention(q, kp, vp, bt.cpu(), st, ql)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flat = torch.zeros(q.numel() + 1, device=cuda)
+        ragged_paged_attention(flat[1:].view(q.shape), kp, vp, bt, st, ql)
 
 
 def test_engine_on_card_matches_engine_on_cpu(cuda):
