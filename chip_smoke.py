@@ -71,10 +71,25 @@ and prints no result line):
    8 prompts, then its engine generates phase 4's requests. Launch counts
    are reset just before and read just after: the flash forward kernel
    runs once per layer per prefill, the paged kernels never.
+4c. server: the dense engine freed, LLMServer (the in-process serving
+   surface) over phase 4's paged engine settings at full Llama-3-8B width
+   (32 layers, bf16, seeded weights) answers phase 4's 11 requests (seed
+   2) sent by 11 threads at once through completions, then the greedy one
+   again through completions_stream. The ragged kernel's launch count is
+   reset just before and read just after and must be above 0. Fails on a
+   badly shaped response, a stream that differs from the greedy tokens,
+   rtpu_llm_requests_total != 12, rtpu_llm_tokens_generated_total !=
+   the engine's tokens_out, a TTFT histogram count != 12, an engine
+   thread error or a failed check_health. Prints wall time, tokens/s,
+   TTFT / inter-token / queue-wait figures from the port's histograms,
+   and profile_summary() after estimate_flops() (its MFU counts the
+   matmuls only: the FLOP counter cannot see the ragged kernel; each
+   estimate must match the analytic matmul count within 1%). Stops the
+   engine thread.
 5b. dense agreement: phase 5's small f32 model through InferenceEngine on
    the card and on the CPU gives identical greedy tokens.
 
-Phases run in the order 1, 2, 3, 3c, 3b, 4, 4b, 5, 5b, 6, 7. The
+Phases run in the order 1, 2, 3, 3c, 3b, 4, 4b, 4c, 5, 5b, 6, 7. The
 second-to-last line is the card from nvidia-smi, the one before it the
 kernels' JSON record, and the last line {"ok": true, "device": ...}.
 
@@ -83,6 +98,18 @@ kernels' JSON record, and the last line {"ok": true, "device": ...}.
 runs phases 1 and 2, then one warm and one traced step of phase 6's
 train step under torch.profiler, and prints the device time by kernel
 family and the device's busy share of the traced step (no result line).
+
+    python3 chip_smoke.py --profile-serve
+
+runs phases 1 and 2, then traces serving at Llama-3-8B width: phase 4's
+paged engine on phase 4's request mix from a fresh seed (after one
+untraced pass), and phase 4b's dense engine over ~20 full-batch decode
+steps. Prints, for each, wall and kernel time, the device's busy share,
+kernels per decode dispatch / step / token, the host time inside a
+decode dispatch and outside the dispatches per engine step, the kernel
+families and the 15 largest kernels; for the dense step, the device time
+of its copies (dtype casts, contiguous operands) by shape (no result
+line).
 """
 import gc
 import json
@@ -1015,6 +1042,208 @@ def dense_serve(model_cfg, device, seed: int = 0, **engine_kw) -> dict:
                              if cuda else None)}
 
 
+# -- phase 4c: LLMServer in process at full width -----------------------------
+
+def _matmul_flops(mc, kind: str, key: tuple, batch: int, chunk: int) -> int:
+    """2 x (matmul weights) x tokens of one dispatch at a profiler key,
+    plus the lm_head over the rows that reach it: the FLOPs a counter
+    sees when attention is a kernel it cannot see."""
+    per_tok = 2 * (mc.dim * mc.n_heads * mc.head_dim
+                   + 2 * mc.dim * mc.n_kv_heads * mc.head_dim
+                   + mc.n_heads * mc.head_dim * mc.dim
+                   + 3 * mc.dim * mc.mlp_dim)
+    head = 2 * mc.dim * mc.vocab_size
+    if kind == "decode":
+        w = key[0]
+        return w * batch * (mc.n_layers * per_tok + head)
+    if kind == "prefill":
+        rows = key[0]
+        return rows * (chunk * mc.n_layers * per_tok + head)
+    rows, s1 = key[0], key[1]                          # verify
+    return rows * s1 * (mc.n_layers * per_tok + head)
+
+
+def _hist(store: dict, name: str) -> dict:
+    """histogram_stats of one rtpu_llm_* histogram plus max_le, the
+    smallest bucket edge at or above every observation (the histogram's
+    own bound on the maximum; None past its last finite edge)."""
+    from ray_tpu_torch.util.metrics import histogram_stats
+    rec = store.get(name)
+    st = histogram_stats(rec)
+    if st is None:
+        return {"count": 0}
+    edges = {}
+    for key, val in rec["series"].items():
+        le = dict(key).get("le")
+        if le is not None:
+            edges[le] = edges.get(le, 0.0) + val
+    finite = sorted((float(le), c) for le, c in edges.items()
+                    if le != "+Inf")
+    st["max_le"] = next((b for b, c in finite if c >= st["count"]), None)
+    return st
+
+
+def llm_server(model_cfg, device, seed: int = 0, **engine_kw) -> dict:
+    """Phase 4c (also rehearsed on the CPU at tiny size): LLMServer over
+    the paged engine (seeded weights) answers phase 4's requests from
+    ``seed`` 2 sent by 11 threads at once through ``completions``, then
+    the first (greedy) prompt once more through ``completions_stream``.
+    Checks each response's shape, the stream against a greedy
+    ``completions`` of the same prompt sent after it (both alone),
+    the rtpu_llm_* series against the engine's counters, the launches and
+    the engine thread's health; then estimate_flops and
+    profile_summary (MFU without attention: the counter cannot see the
+    ragged kernel). Stops the engine thread."""
+    import threading
+    from ray_tpu_torch.llm import LLMConfig, LLMServer, PagedEngineConfig
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops.ragged_paged_attention import \
+        ragged_paged_attention as rpa
+    from ray_tpu_torch.util import metrics
+    cuda = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    params = llama.init(model_cfg, seed=seed, device=device)
+    cfg = LLMConfig(model_id="llama3-8b", warmup_sampled=True,
+                    engine=PagedEngineConfig(model=model_cfg, **engine_kw))
+    srv = LLMServer(cfg, params_ref=params, device=device)
+    setup_s = time.perf_counter() - t0
+    eng = srv.engine
+    served = []                       # (prompt ids, out ids) per response
+    result = eng._result
+
+    def recording_result(req):
+        served.append((list(req.prompt_ids), list(req.out_ids)))
+        return result(req)
+    eng._result = recording_result
+    stepping = [False]
+    step = eng.step
+
+    def flagged_step():
+        stepping[0] = True
+        try:
+            step()
+        finally:
+            stepping[0] = False
+    eng.step = flagged_step
+
+    def quiesce():
+        """Wait until the engine thread has no work and is not inside a
+        step: the last step's telemetry (shipped at its end) is in."""
+        while eng.has_work() or stepping[0]:
+            time.sleep(0.001)
+    prompts, sps = _requests(model_cfg.vocab_size, seed=2)
+    bodies = [{"prompt": p, "max_tokens": sp.max_tokens,
+               "temperature": sp.temperature, "top_k": sp.top_k,
+               "logprobs": sp.logprobs} for p, sp in zip(prompts, sps)]
+    resps = [None] * len(bodies)
+    errors = []
+
+    def call(i):
+        try:
+            resps[i] = srv.completions(dict(bodies[i]))
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+    threads = [threading.Thread(target=call, args=(i,))
+               for i in range(len(bodies))]
+    metrics._reset_registry()
+    rpa.launches = 0                       # main path starts here
+    t1 = time.perf_counter()
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        greedy_body = {"prompt": prompts[0],
+                       "max_tokens": sps[0].max_tokens}
+        chunks = list(srv.completions_stream(dict(greedy_body)))
+        wall_s = time.perf_counter() - t1
+        launches = rpa.launches            # main path ends here
+        quiesce()
+        store = metrics.collect_store()
+        tokens_out = eng.stats["tokens_out"]
+        # the stream against a greedy completions in the same conditions
+        # (alone, prefix cached): in bf16 the tokens depend on the batch
+        # (the table-width bucket changes B1's split count and so its
+        # rounding), so the burst's own greedy request need not match
+        again = srv.completions(dict(greedy_body))
+        srv.check_health()
+        if srv._error is not None:
+            raise AssertionError(f"engine thread error: {srv._error!r}")
+    finally:
+        srv._stop = True
+        srv._wake.set()
+        srv._thread.join(timeout=120)
+    if srv._thread.is_alive():
+        raise AssertionError("engine thread did not stop")
+    vocab = model_cfg.vocab_size
+    for body, r in zip(bodies, resps):
+        ch = r["choices"][0]
+        usage = r["usage"]
+        if r["object"] != "text_completion" or r["model"] != "llama3-8b" \
+                or set(ch) - {"text", "finish_reason", "index", "logprobs"} \
+                or usage["prompt_tokens"] != len(body["prompt"]) \
+                or not 1 <= usage["completion_tokens"] <= body["max_tokens"] \
+                or ch["finish_reason"] not in ("stop", "length"):
+            raise AssertionError(f"bad response: {r}")
+        if body["logprobs"]:
+            lp = np.asarray(ch["logprobs"]["token_logprobs"], np.float64)
+            if len(lp) != usage["completion_tokens"] or \
+                    not np.isfinite(lp).all() or (lp > 1e-4).any():
+                raise AssertionError(f"bad logprobs: {lp}")
+        elif "logprobs" in ch:
+            raise AssertionError(f"unasked logprobs: {r}")
+    greedy = [out for p, out in served if p == prompts[0]]
+    text = "".join(c["choices"][0]["text"] for c in chunks)
+    if len(greedy) != 3 or greedy[1] != greedy[2] or \
+            text != again["choices"][0]["text"] or \
+            chunks[-1]["choices"][0]["finish_reason"] != \
+            again["choices"][0]["finish_reason"]:
+        raise AssertionError(f"stream differs from the greedy completion: "
+                             f"{greedy}")
+    served = served[:-1]                   # the 12 of the phase
+    if not all(0 <= t < vocab for _, out in served for t in out):
+        raise AssertionError("token out of the vocabulary")
+    requests = sum(store["rtpu_llm_requests_total"]["series"].values())
+    generated = sum(store["rtpu_llm_tokens_generated_total"]["series"]
+                    .values())
+    ttft = _hist(store, "rtpu_llm_ttft_seconds")
+    if requests != 12 or generated != tokens_out or ttft["count"] != 12:
+        raise AssertionError(f"telemetry: {requests} requests, {generated} "
+                             f"tokens (engine {tokens_out}), "
+                             f"{ttft['count']} TTFT observations")
+    if cuda and launches <= 0:
+        raise AssertionError("the ragged kernel never launched")
+    est = eng.estimate_flops()
+    for kind, keys in est.items():
+        for key, fl in keys.items():
+            want = _matmul_flops(model_cfg, kind, key, eng.cfg.max_batch_size,
+                                 eng.cfg.chunk_size)
+            # on the card attention is invisible to the counter: the
+            # matmuls alone; on the CPU the plain attention adds to them
+            if fl < 0.99 * want or (cuda and fl > 1.01 * want):
+                raise AssertionError(f"{kind} {key}: counted {fl:.4g} "
+                                     f"FLOPs, matmuls {want:.4g}")
+    prof = eng.profile_summary()
+    n_out = sum(len(out) for _, out in served)
+    return {"setup_s": setup_s, "wall_s": wall_s, "tokens_out": n_out,
+            "tokens_per_s": n_out / wall_s, "launches": launches,
+            "ttft_s": ttft,
+            "inter_token_s": _hist(store, "rtpu_llm_inter_token_seconds"),
+            "queue_wait_s": _hist(store, "rtpu_llm_queue_wait_seconds"),
+            "dispatches": {k: eng.stats[k] for k in
+                           ("prefill_dispatches", "decode_dispatches",
+                            "spec_dispatches")},
+            "prefix_hits": eng.stats["prefix_hits"],
+            "profile": {k: prof[k] for k in (
+                "compiles", "steps", "steps_by_kind", "step_wall_s",
+                "flops_per_step", "mfu")},
+            "mfu_counts": "matmuls only: the FLOP counter cannot see the "
+                          "ragged attention kernel" if cuda else
+                          "matmuls and the plain attention"}
+
+
 # -- phase 5b: dense-engine agreement ---------------------------------------
 
 def dense_agreement():
@@ -1209,9 +1438,9 @@ _FAMILIES = (("flash_fwd", "flash_fwd_kernel"),
              ("copy / fill", ("copy", "fill", "memset", "memcpy")))
 
 
-def _family(name: str) -> str:
+def _family(name: str, families=_FAMILIES) -> str:
     low = name.lower()
-    for fam, keys in _FAMILIES:
+    for fam, keys in families:
         if any(k in low for k in ((keys,) if isinstance(keys, str)
                                   else keys)):
             return fam
@@ -1266,11 +1495,353 @@ def profile_train():
         print(f"profile kernel: {t:9.2f} ms {n:5d}x {name[:110]}")
 
 
+# -- --profile-serve: where a serve step's time goes ------------------------
+
+# serve-side kernel families, matched before _FAMILIES: the ragged paged
+# attention kernel (B1), sampling, the host transfers, and dtype casts
+# (the dense decode's per-layer f32 copy of the K cache is one)
+_SERVE_FAMILIES = (
+    ("ragged_paged_attention (B1)", ("rpa_", "ragged_paged_attention")),
+    ("sampling (sort, argmax, log_softmax)", ("sort", "argmax")),
+    ("H2D copy", "htod"), ("D2H copy", "dtoh"),
+    ("dtype cast (direct_copy)", "direct_copy"),
+) + _FAMILIES
+_SAMPLING = _SERVE_FAMILIES[1][0]
+# the warp softmax kernel's template arguments are <input, output, acc,
+# log2 elements, is_log_softmax, ...>: a log_softmax when the fifth is true
+_WARP_LOG_SOFTMAX = re.compile(r"softmax_warp_forward<(?:[^,<>]+,){4}\s*true")
+
+
+def _serve_family(name: str) -> str:
+    """Family of a serve kernel. Sampling's log_softmax (the LogSoftMax
+    epilogue, or the warp kernel with is_log_softmax set) counts as
+    sampling; a plain softmax is attention's (the dense decode's plain
+    attention over the cache: sampling has none)."""
+    low = name.lower()
+    if "softmax" in low:
+        if "logsoftmax" in low or _WARP_LOG_SOFTMAX.search(name):
+            return _SAMPLING
+        return "attention softmax (plain)"
+    return _family(name, _SERVE_FAMILIES)
+
+
+class _HostClock:
+    """Host wall per label around wrapped calls, each also labelled for
+    the trace with record_function("serve::<label>")."""
+
+    def __init__(self):
+        self.s, self.n = {}, {}
+
+    def wrap(self, label: str, fn, sync: bool = False):
+        from torch.profiler import record_function
+
+        def run(*a, **kw):
+            with record_function(f"serve::{label}"):
+                t = time.perf_counter()
+                out = fn(*a, **kw)
+                if sync:
+                    torch.cuda.synchronize()
+                dt = time.perf_counter() - t
+            self.s[label] = self.s.get(label, 0.0) + dt
+            self.n[label] = self.n.get(label, 0) + 1
+            return out
+        return run
+
+    def reset(self):
+        self.s, self.n = {}, {}
+
+    def split(self, dispatches: tuple, decode: str,
+              decode_steps: int) -> dict:
+        """Host ms inside each decode dispatch (and per decode step: a
+        window dispatch runs several), and the engine step's time outside
+        every dispatch (the Python loop around them), per engine step."""
+        inside = sum(self.s.get(d, 0.0) for d in dispatches)
+        steps = self.n.get("step", 0)
+        nd = self.n.get(decode, 0)
+        ms = self.s.get(decode, 0.0) * 1e3
+        return {"steps": steps, "decode_dispatches": nd,
+                "decode_steps": decode_steps,
+                "inside_ms_per_decode_dispatch": ms / nd if nd else None,
+                "inside_ms_per_decode_step":
+                    ms / decode_steps if decode_steps else None,
+                "outside_ms_per_step":
+                    (self.s.get("step", 0.0) - inside) / steps * 1e3
+                    if steps else None}
+
+
+def _serve_trace(label: str, run, decode_steps, decode_tokens,
+                 shapes: bool = False) -> dict:
+    """Run ``run()`` under torch.profiler and print: wall, kernel time and
+    busy share; kernels per decode dispatch / step / token (kernels whose
+    start lies inside a serve::decode range); the family table; the 15
+    largest kernels; with ``shapes``, the device time of aten::copy_ (casts
+    and contiguous copies) by shape."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=shapes) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    ranges = {}
+    kernels = []
+    for ev in events:
+        if ev.device_type == DeviceType.CUDA:
+            if not getattr(ev, "is_user_annotation", False):
+                kernels.append(ev)
+        elif ev.name.startswith("serve::"):
+            ranges.setdefault(ev.name[len("serve::"):], []).append(
+                (ev.time_range.start, ev.time_range.end))
+    busy = sum(k.time_range.elapsed_us() for k in kernels) / 1e3
+    if busy <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    dec = sorted(ranges.get("decode", []))
+    starts = [s for s, _ in dec]
+    import bisect
+    in_decode, decode_ms = 0, 0.0
+    for k in kernels:
+        i = bisect.bisect_right(starts, k.time_range.start) - 1
+        if i >= 0 and k.time_range.start <= dec[i][1]:
+            in_decode += 1
+            decode_ms += k.time_range.elapsed_us() / 1e3
+    n_dec = len(dec)
+    out = {"wall_ms": wall * 1e3, "kernel_ms": busy,
+           "busy_share": busy / (wall * 1e3), "launches": len(kernels),
+           "decode_dispatches": n_dec, "decode_steps": decode_steps(),
+           "decode_tokens": decode_tokens(),
+           "decode_launches": in_decode, "decode_kernel_ms": decode_ms,
+           "decode_kernel_ms_per_dispatch": decode_ms / n_dec
+           if n_dec else None}
+    out["launches_per_decode_dispatch"] = in_decode / n_dec if n_dec else None
+    out["launches_per_decode_step"] = (in_decode / out["decode_steps"]
+                                       if out["decode_steps"] else None)
+    out["launches_per_decode_token"] = (in_decode / out["decode_tokens"]
+                                        if out["decode_tokens"] else None)
+    out["decode_kernel_ms_per_step"] = (decode_ms / out["decode_steps"]
+                                        if out["decode_steps"] else None)
+    print(f"profile-serve {label}: " + json.dumps(out), flush=True)
+    by_name, fams = {}, {}
+    for k in kernels:
+        ms = k.time_range.elapsed_us() / 1e3
+        rec = by_name.setdefault(k.name, [0.0, 0])
+        rec[0] += ms
+        rec[1] += 1
+        f = fams.setdefault(_serve_family(k.name), [0.0, 0])
+        f[0] += ms
+        f[1] += 1
+    for fam, (t, n) in sorted(fams.items(), key=lambda kv: -kv[1][0]):
+        print(f"profile-serve {label} family: {fam:38s} {t:9.3f} ms "
+              f"{t / busy:6.1%} {n:7d} launches")
+    for name, (t, n) in sorted(by_name.items(),
+                               key=lambda kv: -kv[1][0])[:15]:
+        print(f"profile-serve {label} kernel: {t:9.3f} ms {n:6d}x "
+              f"{name[:100]}")
+    if shapes:
+        # every copy kernel (dtype casts, and the permuted operands an
+        # einsum makes contiguous) runs under aten::copy_: its 8 largest
+        # by (destination, source) shape
+        copies = []
+        for avg in prof.key_averages(group_by_input_shape=True):
+            if avg.key == "aten::copy_":
+                dev = getattr(avg, "self_device_time_total", None)
+                if dev is None:
+                    dev = avg.self_cuda_time_total
+                copies.append((dev / 1e3, avg.count, avg.input_shapes[:2]))
+        for ms, n, shp in sorted(copies, key=lambda c: -c[0])[:8]:
+            print(f"profile-serve {label} copy: aten::copy_ dst/src {shp} "
+                  f"{n}x {ms:.3f} ms device")
+    return out
+
+
+def profile_serve():
+    """Phases 1-2, then two traced serve runs at Llama-3-8B width.
+    Paged: phase 4's engine, warmed, serves phase 4's requests once
+    untraced, then the same mix drawn from another seed (so the prefix
+    cache cannot serve it) under torch.profiler. Dense: phase 4b's
+    engine, after a warm batch, runs ~20 traced decode steps over a full
+    batch. For each: wall, kernel time and busy share; kernels per decode
+    dispatch, step and token; the host ms inside a decode dispatch and
+    outside the dispatches per engine step (taken in the untraced runs:
+    the profiler's own host cost would inflate them); the kernel
+    families; the 15 largest kernels. Last, the batch witness
+    (``_batch_witness``): greedy tokens in the mix against alone, with
+    B1's split count as picked and pinned to 1."""
+    from ray_tpu_torch.llm import (EngineConfig, InferenceEngine,
+                                   PagedEngineConfig, PagedInferenceEngine,
+                                   SamplingParams)
+    from ray_tpu_torch.models import llama
+    mc = llama.llama3_8b()
+    eng = PagedInferenceEngine(
+        PagedEngineConfig(model=mc, page_size=16, num_pages=1024,
+                          max_pages_per_seq=64, chunk_size=128,
+                          prefill_rows=4, decode_window=8, max_batch_size=8),
+        params=llama.init(mc, seed=0, device="cuda"), device="cuda")
+    eng.warmup(sample_modes=((False, False, False), (True, True, True)))
+    clock = _HostClock()
+    for name, attr in (("prefill", "_prefill_rows"),
+                       ("decode", "_decode_window"),
+                       ("verify", "_verify_rows"), ("step", "step")):
+        setattr(eng, attr, clock.wrap(name, getattr(eng, attr)))
+    windows = []                      # decode steps per decode dispatch
+    decode_window = eng._decode_window
+
+    def counted_window(w, *a, **kw):
+        windows.append(w)
+        return decode_window(w, *a, **kw)
+    eng._decode_window = counted_window
+    dispatches = ("prefill", "decode", "verify")
+    prompts, sps = _requests(mc.vocab_size, seed=0)
+    t = time.perf_counter()
+    out = eng.generate(prompts, sps)
+    torch.cuda.synchronize()
+    untraced = {"wall_ms": (time.perf_counter() - t) * 1e3,
+                "tokens_out": sum(len(r["token_ids"]) for r in out),
+                **clock.split(dispatches, "decode", sum(windows))}
+    print("profile-serve paged untraced: " + json.dumps(untraced),
+          flush=True)
+    clock.reset()
+    windows.clear()
+    prompts, sps = _requests(mc.vocab_size, seed=3)
+    tokens0 = eng.stats["tokens_out"]
+    hits0 = eng.stats["prefix_hits"]
+    traced = _serve_trace(
+        "paged", lambda: eng.generate(prompts, sps), lambda: sum(windows),
+        # one token per request comes from its prefill
+        lambda: eng.stats["tokens_out"] - tokens0 - len(prompts))
+    print("profile-serve paged traced host: " + json.dumps(
+        {**clock.split(dispatches, "decode", sum(windows)),
+         "prefix_hits": eng.stats["prefix_hits"] - hits0}), flush=True)
+    _busy_estimate("paged", traced, untraced)
+    del eng, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    dense = InferenceEngine(EngineConfig(mc, max_batch_size=8,
+                                         max_seq_len=1024),
+                            params=llama.init(mc, seed=0, device="cuda"),
+                            device="cuda")
+    clock = _HostClock()
+    # the dense decode returns before the device is done: the sync makes
+    # "inside" the forward's device time (sampling would sync right after)
+    dense._decode = clock.wrap("decode", dense._decode, sync=True)
+    dense._prefill = clock.wrap("prefill", dense._prefill, sync=True)
+    dense.step = clock.wrap("step", dense.step)
+    warm, _ = _requests(mc.vocab_size, seed=0)
+    dense.generate(warm[:8], SamplingParams(max_tokens=8))
+    prompts, _ = _requests(mc.vocab_size, seed=3)
+    reqs = [dense.submit(p, SamplingParams(max_tokens=64))
+            for p in prompts[:8]]
+    dense.step()                      # admits and prefills all 8
+    for _ in range(20):               # untraced decode steps
+        dense.step()
+    torch.cuda.synchronize()
+    untraced = clock.split(("decode", "prefill"), "decode",
+                           clock.n.get("decode", 0))
+    print("profile-serve dense untraced: " + json.dumps(untraced),
+          flush=True)
+    clock.reset()
+    n0 = dense.stats["decode_dispatches"]
+    t0 = dense.stats["tokens_out"]
+
+    def twenty():
+        for _ in range(20):
+            dense.step()
+    traced = _serve_trace("dense", twenty,
+                          lambda: dense.stats["decode_dispatches"] - n0,
+                          lambda: dense.stats["tokens_out"] - t0,
+                          shapes=True)
+    print("profile-serve dense traced host: " + json.dumps(
+        clock.split(("decode", "prefill"), "decode",
+                    clock.n.get("decode", 0))), flush=True)
+    _busy_estimate("dense", traced, untraced)
+    dense.run_until_done(reqs)
+    del dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    _batch_witness(mc)
+
+
+def _batch_witness(mc, device: str = "cuda"):
+    """Does a request's greedy output depend on its batch, and is B1's
+    split count the cause? Phase 4c's weights (seed 0) and mix (seed 2)
+    on phase 4's engine with the prefix cache off, so every run computes
+    every page: the whole mix at once, then each greedy request alone.
+    Once with the split count the wrapper picks, once with it pinned to
+    1. Prints, per case, the split counts used and the greedy requests
+    whose tokens in the mix differ from their tokens alone, with the
+    first position that differs."""
+    import importlib
+    from ray_tpu_torch.llm import PagedEngineConfig, PagedInferenceEngine
+    from ray_tpu_torch.models import llama
+    rpa_mod = importlib.import_module(
+        "ray_tpu_torch.ops.ragged_paged_attention")
+    eng = PagedInferenceEngine(
+        PagedEngineConfig(model=mc, page_size=16, num_pages=1024,
+                          max_pages_per_seq=64, chunk_size=128,
+                          prefill_rows=4, decode_window=8, max_batch_size=8,
+                          enable_prefix_caching=False),
+        params=llama.init(mc, seed=0, device=device), device=device)
+    prompts, sps = _requests(mc.vocab_size, seed=2)
+    greedy = [i for i, sp in enumerate(sps) if sp.temperature == 0]
+    picked = rpa_mod.num_splits
+    report = {}
+    for case, choose in (("picked", picked), ("pinned_1", lambda *a: 1)):
+        seen = set()
+
+        def splits(*a):
+            n = choose(*a)
+            seen.add(n)
+            return n
+        rpa_mod.num_splits = splits
+        try:
+            mixed = eng.generate(prompts, sps)
+            alone = [eng.generate([prompts[i]], [sps[i]])[0] for i in greedy]
+        finally:
+            rpa_mod.num_splits = picked
+        differ = {}
+        for i, one in zip(greedy, alone):
+            a, b = mixed[i]["token_ids"], one["token_ids"]
+            if a != b:
+                differ[i] = next((k for k, (x, y) in enumerate(zip(a, b))
+                                  if x != y), min(len(a), len(b)))
+        report[case] = {"splits_used": sorted(seen),
+                        "greedy_requests": len(greedy),
+                        "differ": len(differ),
+                        "first_difference_at": differ}
+    print("profile-serve batch witness: " + json.dumps(report), flush=True)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _busy_estimate(label: str, traced: dict, untraced: dict):
+    """The profiler's own host cost inflates the traced wall, so the
+    device's busy share in plain serving is estimated per decode step:
+    device ms per step from the trace over host ms per step untraced
+    (inside the dispatch plus the loop around it; one decode dispatch per
+    engine step)."""
+    dev = traced["decode_kernel_ms_per_step"]
+    steps_per_dispatch = (untraced["decode_steps"]
+                          / untraced["decode_dispatches"])
+    host = (untraced["inside_ms_per_decode_step"]
+            + untraced["outside_ms_per_step"] / steps_per_dispatch)
+    print(f"profile-serve {label} estimate: " + json.dumps(
+        {"decode_kernel_ms_per_step": dev,
+         "untraced_host_ms_per_decode_step": host,
+         "decode_busy_share_est": dev / host}), flush=True)
+
+
 def main():
     card = probe()
     build_info = build()
     if "--profile-train" in sys.argv[1:]:
         profile_train()
+        return 0
+    if "--profile-serve" in sys.argv[1:]:
+        profile_serve()
         return 0
     kernel_build = check_kernel_build(build_info)
     records = check_kernels()
@@ -1297,6 +1868,12 @@ def main():
                              f"checked in phase 3b {SERVE_BUCKETS}")
     gc.collect()
     torch.cuda.empty_cache()
+    served = llm_server(llama.llama3_8b(), "cuda", page_size=16,
+                        num_pages=1024, max_pages_per_seq=64, chunk_size=128,
+                        prefill_rows=4, decode_window=8, max_batch_size=8)
+    print("server: " + json.dumps(served), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     agreement()
     dense_agreement()
     tr = train(llama.llama3_8b(n_layers=TRAIN_LAYERS), "cuda",
@@ -1310,6 +1887,7 @@ def main():
         "source": "ray_tpu_torch/ops/csrc/ragged_paged_attention.cu",
         "replaces": "ray_tpu/ops/ragged_paged_attention.py:53",
         "launches": res["launches"],
+        "launches_server": served["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in records),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

@@ -2,7 +2,10 @@
 result shaping shared with the paged engine (counterpart of
 ``ray_tpu/llm/engine.py``: ``SamplingParams``, ``EngineConfig``,
 ``_Request``, ``sample_logits``, ``sample_logits_batch``, ``_EngineBase``
-and ``InferenceEngine``; the telemetry hooks are not ported yet).
+and ``InferenceEngine``). Both engines call the reference's telemetry
+hooks (``llm/telemetry.py``) at the reference's sites: ``on_submit`` at
+intake, ``on_admit`` / ``on_first_token`` / ``on_step`` in the loop and
+``on_finish`` at retirement.
 
 Sampling runs on the device of the logits. Random draws come from a
 ``torch.Generator`` seeded per dispatch step (``step_generator``), so a
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from ..models import llama
+from . import telemetry
 from .tokenizer import get_tokenizer
 
 
@@ -70,6 +74,13 @@ class _Request:
     done: bool = False
     submit_t: float = 0.0
     first_token_t: float = 0.0    # TTFT = first_token_t - submit_t
+    # telemetry (llm/telemetry.py): admission time, wall-clock submit
+    # (spans use wall time), serve request id, and the submitter's trace
+    # context so the engine thread can emit an llm.request span
+    admit_t: float = 0.0
+    submit_wall: float = 0.0
+    request_id: str = ""
+    trace_ctx: Optional[tuple] = None
     event: threading.Event = dataclasses.field(
         default_factory=threading.Event)
 
@@ -146,6 +157,8 @@ class _EngineBase:
     maintain self.cfg (with .max_seq_len), self._lock, self._pending,
     self._active, self._next_rid and self.tokenizer."""
 
+    telemetry_kind = "dense"
+
     def generate(self, prompts, params=None) -> list[dict]:
         """Blocking batch generation; returns [{text, token_ids,
         prompt_tokens, ttft_s, finish_reason, logprobs}] in prompt
@@ -176,15 +189,21 @@ class _EngineBase:
             req.prefix_salt = bytes(prefix_salt)
             req.submit_t = time.perf_counter()
             self._next_rid += 1
+            # stamp trace/request identity BEFORE publishing: once req is
+            # in _pending a concurrently stepping engine thread can retire
+            # a short request and emit its span/metrics immediately
+            telemetry.on_submit(self, req)
             self._pending.append(req)
         return req
 
-    def _finish_request(self, req: _Request):
-        """Retire a request: mark done and wake waiters."""
+    def _finish_request(self, req: _Request, finish=None):
+        """Retire a request: mark done, wake waiters, emit telemetry
+        (TTFT/ITL/e2e observations + the request's trace span)."""
         if req.done:
             return
         req.done = True
         req.event.set()
+        telemetry.on_finish(self, req, finish)
 
     def has_work(self) -> bool:
         return bool(self._pending or self._active)
@@ -332,6 +351,7 @@ class InferenceEngine(_EngineBase):
         logits = self._decode(tokens, active)
         self.stats["decode_dispatches"] += 1
         self._sample_and_retire(logits, ctr)
+        telemetry.on_step(self)
 
     def _admit(self):
         with self._lock:
@@ -340,6 +360,7 @@ class InferenceEngine(_EngineBase):
                 slot = self._free_slots.popleft()
                 req.slot = slot
                 self._active[slot] = req
+                telemetry.on_admit(self, req)
                 self._do_prefill(req)
 
     def _bucket(self, n: int) -> int:
@@ -358,6 +379,7 @@ class InferenceEngine(_EngineBase):
         req.first_token_t = time.perf_counter()
         self.stats["prefill_dispatches"] += 1
         self.stats["tokens_out"] += 1
+        telemetry.on_first_token(self, req)
 
     def _sample_and_retire(self, logits, ctr: int):
         next_tokens = self._sample_next_tokens(logits, ctr)

@@ -26,11 +26,18 @@ two to bound its compiled programs). Block tables are still sliced to
 power-of-two page buckets (``_page_bucket``): the width bounds the plain
 version's gather and keeps every write inside the table.
 
+Observability as in the reference: the telemetry hooks
+(``llm/telemetry.py``: the ``rtpu_llm_*`` series), ``PREFIX_EVICT``
+flight events on eviction, and a step profiler (``util/profiling.py``)
+around every dispatch, with ``estimate_flops()`` and
+``profile_summary()``.
+
 Not ported yet (the config fields raise NotImplementedError when set):
 multi-LoRA (``max_adapters``, ``lora_*``), the host spill tier
-(``kv_spill*``) and mesh-parallel serving (``mesh``). Also absent:
-telemetry, the flight recorder, the step profiler, PD export/import and
-cross-replica prefix import/export.
+(``kv_spill*``) and mesh-parallel serving (``mesh``). Also absent: PD
+export/import, cross-replica prefix import/export and the prefix
+directory's publish tracking (``prefix_imported_pages`` and
+``prefix_exported_pages`` stay 0).
 """
 from __future__ import annotations
 
@@ -44,7 +51,10 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..core import flight
 from ..models import llama
+from ..util.profiling import StepProfiler, compiled_flops
+from . import telemetry
 from .engine import (  # noqa: F401 — SamplingParams re-exported
     SamplingParams, _EngineBase, _Request, sample_logits_batch,
     step_generator,
@@ -62,6 +72,11 @@ _NOT_PORTED = {
     "kv_spill_max_idle_s": "the tiered KV spill cache",
     "mesh": "mesh-parallel serving",
 }
+
+#: prefix_accounting()'s spill-tier keys (0: the tier is not ported)
+_SPILL_KEYS = ("spill_pages", "spill_bytes", "spill_demotions",
+               "spill_promotions", "spill_expired", "spill_drops",
+               "spill_resident_pages", "spill_resident_bytes")
 
 
 @dataclasses.dataclass
@@ -138,6 +153,8 @@ class PagedInferenceEngine(_EngineBase):
     """Synchronous paged engine. ``device`` defaults to CUDA and raises
     when it is absent; pass ``device="cpu"`` for the plain versions."""
 
+    telemetry_kind = "paged"
+
     def __init__(self, cfg: PagedEngineConfig, params: Optional[dict] = None,
                  rng_seed: int = 0, device="cuda"):
         self.cfg = cfg
@@ -198,13 +215,22 @@ class PagedInferenceEngine(_EngineBase):
                       # LRU pages reclaimed under pressure, and prompt
                       # tokens whose prefill was skipped
                       "prefix_hits": 0, "prefix_misses": 0,
-                      "prefix_evictions": 0, "prefix_tokens_saved": 0}
+                      "prefix_evictions": 0, "prefix_tokens_saved": 0,
+                      # pages seeded from / gathered for another replica
+                      # (cross-replica prefix sharing): 0 until it is
+                      # ported
+                      "prefix_imported_pages": 0,
+                      "prefix_exported_pages": 0}
         # speculation controller: EMA of tokens per slot per spec
         # dispatch (starts optimistic) and a cooldown of windowed
         # dispatches before re-probing
         self._spec_gain = float(cfg.spec_tokens + 1)
         self._spec_cooldown = 0
         self._spec_cooldown_len = 8    # doubles per failed probe, to 256
+        # step profiler: first-dispatch-vs-later wall split per family
+        # and static key; feeds profile_summary()'s MFU once
+        # estimate_flops() has run
+        self.profiler = StepProfiler("paged_engine", device=self.device)
 
     # -- host <-> device ---------------------------------------------------
 
@@ -308,29 +334,29 @@ class PagedInferenceEngine(_EngineBase):
         the card, and runs one dummy dispatch per family (verify only
         with speculation on) and sampling mode, given as (any_sampled,
         any_topk[, want_logp]), so library handles and allocator pools
-        exist before the first request. Dummy dispatches carry zero block
-        tables and zero true lengths: every write routes to sink page 0
-        and no visible
-        engine state changes. Eager PyTorch compiles nothing per shape,
-        so one dispatch per family covers every later shape."""
+        exist before the first request. Each dummy dispatch is booked in
+        the step profiler through ``record_compile`` at the key it ran
+        under, as the reference books its warmup compiles. Dummy
+        dispatches carry zero block tables and zero true lengths: every
+        write routes to sink page 0 and no visible engine state changes.
+        Eager PyTorch compiles nothing per shape, so one dispatch per
+        family covers every later shape."""
         t0 = time.perf_counter()
         if self.device.type == "cuda":
             from ..ops import _build
             _build.load("ragged_paged_attention")
         cfg = self.cfg
-        bs, c, w0 = cfg.max_batch_size, cfg.chunk_size, \
-            self._page_bucket(1)
         modes = [tuple(m) + (False,) * (3 - len(m)) for m in sample_modes]
-        zi = lambda *s: np.zeros(s, np.int32)                  # noqa: E731
-        zf = lambda *s: np.zeros(s, np.float32)                # noqa: E731
-        for mode in modes:
-            self._prefill_rows(mode, zi(1, c), zi(1, w0), zi(1), zi(1),
-                               zf(1), zi(1))
-            self._decode_window(1, mode, zi(bs), zi(bs, w0), zi(bs),
-                                zf(bs), zi(bs))
+        kinds = [("prefill", (1, m, self._page_bucket(1))) for m in modes] \
+            + [("decode", (1, m, self._page_bucket(1))) for m in modes]
         if cfg.spec_tokens > 0:
-            self._verify_rows(zi(1, cfg.spec_tokens + 1), zi(1, w0), zi(1),
-                              False)
+            kinds.append(("verify", (1, cfg.spec_tokens + 1,
+                                     self._page_bucket(1), False)))
+        for kind, key in kinds:
+            tw = time.perf_counter()
+            fn, *args = self._dispatch_for_key(kind, key)
+            fn(*args)
+            self.profiler.record_compile(time.perf_counter() - tw, kind, key)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return time.perf_counter() - t0
@@ -371,6 +397,7 @@ class PagedInferenceEngine(_EngineBase):
             else:
                 self.chains.resident_sub(slot)
             self.chains.evict(slot)
+            flight.evt(flight.PREFIX_EVICT, pid, slot)
 
     def _incref(self, pid: int):
         """Pin a page for a request; a cached (refcount-0) page leaves
@@ -589,6 +616,7 @@ class PagedInferenceEngine(_EngineBase):
         self._admit()
         self._prefill_step()
         self._decode_step()
+        telemetry.on_step(self)
 
     def _admit(self):
         with self._lock:
@@ -619,6 +647,7 @@ class PagedInferenceEngine(_EngineBase):
                         self.chains.hit(req.chain_slot, len(matched),
                                         req.prefill_pos)
                 self._prefilling.append(req)
+                telemetry.on_admit(self, req)
 
     def _prefill_step(self):
         if not self._prefilling:
@@ -658,8 +687,11 @@ class PagedInferenceEngine(_EngineBase):
             temps[i] = req.params.temperature
             topks[i] = req.params.top_k
         mode = self._sampling_mode([q for q, _, _ in rows])
-        toks, lps = self._prefill_rows(mode, chunks, bts, sps, tls, temps,
-                                       topks)
+        # keyed by the exact row count: the port dispatches the real rows
+        # (the reference pads them to a power of two)
+        with self.profiler.step("prefill", (r, mode, W)):
+            toks, lps = self._prefill_rows(mode, chunks, bts, sps, tls,
+                                           temps, topks)
         self._rng_ctr += 1
         self.stats["prefill_dispatches"] += 1
         if self._prefix_on:
@@ -687,6 +719,7 @@ class PagedInferenceEngine(_EngineBase):
                 req.out_logps.append(float(lps[i]))
             self.stats["tokens_out"] += 1
             req.first_token_t = time.perf_counter()
+            telemetry.on_first_token(self, req)
             self._lengths[req.slot] = len(req.prompt_ids)
             self._prefilling.remove(req)
             self._active[req.slot] = req
@@ -748,7 +781,8 @@ class PagedInferenceEngine(_EngineBase):
             bts[i] = self._block_tables[slot][:W]
             starts[i] = self._lengths[slot]
         want_lp = any(self._active[sl].params.logprobs for sl in slots)
-        y, ylp = self._verify_rows(toks, bts, starts, want_lp)
+        with self.profiler.step("verify", (r, s1, W, want_lp)):
+            y, ylp = self._verify_rows(toks, bts, starts, want_lp)
         self.stats["spec_dispatches"] += 1
         emitted = 0
         for i, slot in enumerate(slots):
@@ -768,6 +802,7 @@ class PagedInferenceEngine(_EngineBase):
             consumed = 0
             for tok, lp in out:
                 if consumed >= allow[slot]:
+                    telemetry.on_preempted(self)
                     self._retire(req)
                     break
                 req.out_ids.append(tok)
@@ -827,8 +862,9 @@ class PagedInferenceEngine(_EngineBase):
             topks[slot] = req.params.top_k
             bt[slot] = self._block_tables[slot][:W]
         mode = self._sampling_mode(self._active.values())
-        out, lps = self._decode_window(w, mode, tokens, bt, lengths, temps,
-                                       topks)
+        with self.profiler.step("decode", (w, mode, W)):
+            out, lps = self._decode_window(w, mode, tokens, bt, lengths,
+                                           temps, topks)
         self._rng_ctr += 1
         self.stats["decode_dispatches"] += 1
         for slot in list(self._active):
@@ -838,6 +874,7 @@ class PagedInferenceEngine(_EngineBase):
                     # page pool exhausted mid-window: finish early rather
                     # than wedge (tokens past the allocation wrote to the
                     # sink page and are not trustworthy)
+                    telemetry.on_preempted(self)
                     self._retire(req)
                     break
                 tok = int(out[slot, j])
@@ -885,22 +922,107 @@ class PagedInferenceEngine(_EngineBase):
             total = len(req.prompt_ids) + len(req.out_ids)
             if not self._ensure_pages(req, total + 1):
                 stop = True  # pool exhausted: finish early rather than wedge
+                telemetry.on_preempted(self)
         if stop:
             self._retire(req)
 
     # -- stats -------------------------------------------------------------
 
-    def pool_stats(self) -> dict:
+    def estimate_flops(self) -> dict:
+        """FLOPs per dispatch for the program families, counted by
+        running one dummy dispatch per static key under
+        ``FlopCounterMode`` (``util/profiling.compiled_flops``; run once,
+        after traffic, not per step). The dummies are warmup's: zero
+        block tables and zero true lengths, every write on sink page 0,
+        and no counter, RNG position or profiler count moves.
+
+        Length-aware, as the reference: one estimate PER static key
+        — (rows/window, sampling mode, block-table page bucket) — for
+        every key the profiler has executed steps under; before any
+        traffic, the full-width greedy decode and prefill. The counter
+        sees dispatcher ops only: the matmuls always, attention only
+        where it reaches aten (the plain version, on the CPU). On the
+        card the ragged kernel is a ``ctypes`` call it cannot see, so
+        the estimate and profile_summary()'s MFU leave attention out —
+        they understate, never inflate. Returns {family: {key: flops}}."""
+        cfg = self.cfg
+        maxp = cfg.max_pages_per_seq
+        mode = (False, False, False)
+        tags = [t for t in self.profiler.executed_tags()
+                if t[0] in ("prefill", "decode", "verify")]
+        if not tags:
+            tags = [("decode", (cfg.decode_window, mode, maxp)),
+                    ("prefill", (cfg.prefill_rows, mode, maxp))]
+        out: dict[str, dict] = {}
+        for kind, k in tags:
+            fl = compiled_flops(*self._dispatch_for_key(kind, k))
+            if fl:
+                out.setdefault(kind, {})[k] = fl
+                # credited only to steps at this EXACT static key
+                self.profiler.attach_flops(kind, fl, key=k)
+        return out
+
+    def _dispatch_for_key(self, kind: str, key: tuple):
+        """(fn, *dummy_args) reproducing the static shapes of the
+        dispatch behind a profiler step tag — used by warmup and
+        estimate_flops. Zero block tables and zero true lengths / starts:
+        every write lands on sink page 0."""
+        cfg = self.cfg
+        bs, c = cfg.max_batch_size, cfg.chunk_size
+        zi = lambda *s: np.zeros(s, np.int32)                  # noqa: E731
+        zf = lambda *s: np.zeros(s, np.float32)                # noqa: E731
+        if kind == "decode":
+            w, mode, W = key
+            return (self._decode_window, w, mode, zi(bs), zi(bs, W), zi(bs),
+                    zf(bs), zi(bs))
+        if kind == "prefill":
+            r, mode, W = key
+            return (self._prefill_rows, mode, zi(r, c), zi(r, W), zi(r),
+                    zi(r), zf(r), zi(r))
+        r, s1, W, want_lp = key                       # verify
+        return self._verify_rows, zi(r, s1), zi(r, W), zi(r), want_lp
+
+    def profile_summary(self) -> dict:
+        """Step-profiler view (util/profiling.py): first-dispatch vs
+        later wall split, per-step wall, and MFU once estimate_flops()
+        has run. The MFU leaves out work the FLOP counter cannot see (the
+        ragged kernel on the card: estimate_flops says why), so it
+        understates."""
+        return {**self.profiler.summary(), "dispatches": {
+            "prefill": self.stats["prefill_dispatches"],
+            "decode": self.stats["decode_dispatches"],
+            "spec": self.stats["spec_dispatches"]}}
+
+    def prefix_accounting(self) -> dict:
+        """THE accounting source for prefix-cache counters: pool_stats()
+        and the telemetry gauges (llm/telemetry.py) derive from this one
+        snapshot, so the surfaces cannot drift from each other. The
+        spill-tier keys stay 0 (the tier is not ported), as the
+        reference reports them with the tier off."""
         hits = self.stats["prefix_hits"]
         misses = self.stats["prefix_misses"]
+        return {
+            "hits": hits,
+            "misses": misses,
+            "evictions": self.stats["prefix_evictions"],
+            "tokens_saved": self.stats["prefix_tokens_saved"],
+            "imported_pages": self.stats["prefix_imported_pages"],
+            "exported_pages": self.stats["prefix_exported_pages"],
+            "cached_pages": len(self._cached_lru),
+            "hit_rate": round(hits / (hits + misses), 4)
+            if hits + misses else 0.0,
+            **dict.fromkeys(_SPILL_KEYS, 0),
+        }
+
+    def pool_stats(self) -> dict:
+        acct = self.prefix_accounting()
         return {
             # free + cached together are the allocatable pool: cached
             # pages hold reusable prefix KV but evict on demand
             "free_pages": len(self._free_pages),
-            "cached_pages": len(self._cached_lru),
+            "cached_pages": acct["cached_pages"],
             "total_pages": self.cfg.num_pages,
-            "prefix_hit_rate": round(hits / (hits + misses), 4)
-            if hits + misses else 0.0,
+            "prefix_hit_rate": acct["hit_rate"],
             "active": len(self._active),
             "prefilling": len(self._prefilling),
             "pending": len(self._pending),

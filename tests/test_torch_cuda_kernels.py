@@ -380,6 +380,58 @@ def test_dense_engine_on_card_matches_engine_on_cpu(cuda):
     assert [x["token_ids"] for x in a] == [x["token_ids"] for x in b]
 
 
+def test_llm_server_on_card_matches_server_on_cpu(cuda):
+    """LLMServer over chip_smoke's phase-5 model (small, f32): requests
+    sent one at a time give the same greedy tokens, responses and
+    rtpu_llm_* counters on the card (the ragged kernel) as on the CPU
+    (its plain version)."""
+    from ray_tpu_torch.llm import LLMConfig, LLMServer, PagedEngineConfig
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.util import metrics
+    mc = llama.llama_tiny(vocab_size=512, dim=256, n_heads=2, n_kv_heads=1,
+                          mlp_dim=512, n_layers=2, max_seq_len=1024)
+    params = llama.init(mc, seed=3, device="cpu")
+    on_card = {k: ({n: t.to(cuda) for n, t in v.items()}
+                   if isinstance(v, dict) else v.to(cuda))
+               for k, v in params.items()}
+    cfg = LLMConfig(engine=PagedEngineConfig(
+        model=mc, max_batch_size=4, page_size=16, num_pages=128,
+        max_pages_per_seq=32, chunk_size=32, decode_window=4))
+    rng = np.random.RandomState(9)
+    bodies = [{"prompt": [int(t) for t in rng.randint(0, 512, n)],
+               "max_tokens": 12, "logprobs": 1} for n in (7, 40, 95, 150)]
+    runs = []
+    for device, p in ((cuda, on_card), ("cpu", params)):
+        metrics._reset_registry()
+        srv = LLMServer(cfg, params_ref=p, device=device)
+        tokens, result = [], srv.engine._result
+
+        def recording_result(req, result=result, tokens=tokens):
+            tokens.append(list(req.out_ids))
+            return result(req)
+        srv.engine._result = recording_result
+        try:
+            resps = [srv.completions(dict(b)) for b in bodies]
+            srv.check_health()
+        finally:
+            srv._stop = True
+            srv._wake.set()
+            srv._thread.join(timeout=60)
+        counters = {n: r["series"] for n, r in metrics.local_store().items()
+                    if r["kind"] == "counter"}
+        runs.append((tokens, resps, counters))
+    metrics._reset_registry()
+    (tok_a, resp_a, cnt_a), (tok_b, resp_b, cnt_b) = runs
+    assert tok_a == tok_b
+    assert cnt_a == cnt_b and cnt_a["rtpu_llm_tokens_generated_total"]
+    for a, b in zip(resp_a, resp_b):
+        la = a["choices"][0].pop("logprobs")
+        lb = b["choices"][0].pop("logprobs")
+        assert a == b
+        np.testing.assert_allclose(la["token_logprobs"], lb["token_logprobs"],
+                                   atol=1e-4)
+
+
 # -- flash attention (training path) ----------------------------------------
 
 FLASH_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2 ** -8, 2 ** -7)}

@@ -52,7 +52,13 @@ def test_port_modules_load_no_jax_and_no_ray_tpu():
                  "ray_tpu_torch.llm.paged_engine",
                  "ray_tpu_torch.llm.engine", "ray_tpu_torch.llm.batch",
                  "ray_tpu_torch.llm.chainstats",
-                 "ray_tpu_torch.llm.tokenizer"):
+                 "ray_tpu_torch.llm.tokenizer",
+                 "ray_tpu_torch.llm.serving", "ray_tpu_torch.llm.openai_api",
+                 "ray_tpu_torch.llm.telemetry", "ray_tpu_torch.core.config",
+                 "ray_tpu_torch.core.flight", "ray_tpu_torch.util.metrics",
+                 "ray_tpu_torch.util.tracing",
+                 "ray_tpu_torch.util.profiling",
+                 "ray_tpu_torch.serve.context"):
         assert want in modules, (want, sorted(modules))
     assert lines["BANNED"] == "", lines["BANNED"]
 
@@ -101,8 +107,8 @@ def test_default_device_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("this machine has a GPU: the defaults run there")
     from ray_tpu_torch.llm import (EngineConfig, InferenceEngine,
-                                   LLMPredictor, PagedEngineConfig,
-                                   PagedInferenceEngine)
+                                   LLMConfig, LLMPredictor, LLMServer,
+                                   PagedEngineConfig, PagedInferenceEngine)
     from ray_tpu_torch.models import llama
     cfg = llama.llama_tiny()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -120,6 +126,9 @@ def test_default_device_entry_points_raise_without_a_card():
         InferenceEngine(EngineConfig(model=cfg), params=params)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         LLMPredictor(EngineConfig(model=cfg))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LLMServer(LLMConfig(engine=PagedEngineConfig(model=cfg)),
+                  params_ref=params)
     # device="cpu" runs the plain versions
     InferenceEngine(EngineConfig(model=cfg), params=params, device="cpu")
     LLMPredictor(EngineConfig(model=cfg), device="cpu")
