@@ -20,14 +20,24 @@ and prints no result line):
    H=32, KVH=8, D=128, page 16) for decode, prefill and verify, and at
    two long rows (4,000 and 8,000 keys) at decode and verify widths,
    which the bf16 kernel splits several ways; in bf16 and f32, with
-   block-table tails naming a NaN-filled page. Prints the split count,
-   the max error, the kernel's, the plain version's and one library
-   call's median time, and the card's lower bound for the same work.
+   block-table tails naming a NaN-filled page. Prints the split count
+   (bf16 at decode and verify widths: runs of 8 pages, whatever the
+   batch), the max error, the kernel's, the plain version's and one
+   library call's median time, and the card's lower bound for the same
+   work.
 4. serve: PagedInferenceEngine at full Llama-3-8B width (random weights
-   from a seed, bf16, all 32 layers) generates ~10 mixed requests, then
-   verify_paged_rows runs on the engine's caches. Kernel launch counts
-   are reset just before and read just after, and every family of the
-   path must have launched the kernel.
+   from a seed, bf16, all 32 layers), dispatching CUDA graphs captured
+   at warmup (or at the first dispatch of a key warmup left out),
+   generates ~10 mixed requests (greedy, sampled, top-k, logprobs), then
+   two verify dispatches run through the engine on its caches. Kernel
+   launch counts are reset just before and read just after, and every
+   family of the path must have launched the kernel. Then a second
+   engine on the same weights runs the same mix with its dispatch
+   bodies eager: every request's tokens and logprobs, the verify
+   outputs, the dispatch counters, the launches by family and every
+   page from 1 up must equal the captured run's, bit for bit. Prints
+   both runs' tokens/s and TTFT, the warmup seconds, the number of
+   captured programs and the seconds per capture.
 5. agreement: a small f32 model served on the card (kernel) and on the
    CPU (plain version) gives identical greedy tokens.
 3b. flash: the training path's three kernels (flash forward, dq, dkv)
@@ -73,11 +83,14 @@ and prints no result line):
    runs once per layer per prefill, the paged kernels never.
 4c. server: the dense engine freed, LLMServer (the in-process serving
    surface) over phase 4's paged engine settings at full Llama-3-8B width
-   (32 layers, bf16, seeded weights) answers phase 4's 11 requests (seed
-   2) sent by 11 threads at once through completions, then the greedy one
-   again through completions_stream. The ragged kernel's launch count is
-   reset just before and read just after and must be above 0. Fails on a
-   badly shaped response, a stream that differs from the greedy tokens,
+   (32 layers, bf16, seeded weights), after a first burst of the mix
+   from seed 1 (its engine thread captures the keys warmup left out),
+   answers phase 4's 11 requests (seed 2) sent by 11 threads at once
+   through completions, then the greedy one again through
+   completions_stream; the engine dispatches captured programs. The
+   ragged kernel's launch count is reset just before and read just
+   after and must be above 0. Fails on a badly shaped response, a
+   stream that differs from the greedy request's tokens in the burst,
    rtpu_llm_requests_total != 12, rtpu_llm_tokens_generated_total !=
    the engine's tokens_out, a TTFT histogram count != 12, an engine
    thread error or a failed check_health. Prints wall time, tokens/s,
@@ -102,14 +115,16 @@ family and the device's busy share of the traced step (no result line).
     python3 chip_smoke.py --profile-serve
 
 runs phases 1 and 2, then traces serving at Llama-3-8B width: phase 4's
-paged engine on phase 4's request mix from a fresh seed (after one
-untraced pass), and phase 4b's dense engine over ~20 full-batch decode
-steps. Prints, for each, wall and kernel time, the device's busy share,
-kernels per decode dispatch / step / token, the host time inside a
-decode dispatch and outside the dispatches per engine step, the kernel
-families and the 15 largest kernels; for the dense step, the device time
-of its copies (dtype casts, contiguous operands) by shape (no result
-line).
+paged engine (captured programs) on phase 4's request mix from a fresh
+seed (after a capture pass and one untraced pass), and phase 4b's dense
+engine over ~20 full-batch decode steps. Prints, for each, wall and
+kernel time, the device's busy share, kernels per decode dispatch /
+step / token, the host time inside a decode dispatch and outside the
+dispatches per engine step, the device span of the decode dispatches
+(CUDA events), the kernel families and the 15 largest kernels; for the
+dense step, the device time of its copies (dtype casts, contiguous
+operands) by shape. Last, the batch witness: each greedy request of the
+mix against itself alone (no result line).
 """
 import gc
 import json
@@ -392,7 +407,6 @@ def check_kernels() -> list:
         num_splits, ragged_paged_attention, ragged_paged_reference,
     )
     flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     records = []
     for dtype in (torch.bfloat16, torch.float32):
         for seed, family in enumerate(RAGGED_FAMILIES):
@@ -425,8 +439,7 @@ def check_kernels() -> list:
             library_ms = _device_ms(lib, flush)
             bound_ms, bound_by = _bound_ms(args, kv_len, dtype)
             splits = 1 if dtype == torch.float32 else num_splits(
-                q.shape[0], q.shape[1], q.shape[2], kp.shape[2], bt.shape[1],
-                sms)
+                q.shape[1], bt.shape[1], kp.shape[1])
             rec = {"family": family, "dtype": str(dtype).split(".")[-1],
                    "shape": list(q.shape), "kv_len_max": int(kv_len.max()),
                    "splits": splits, "max_abs_err": err,
@@ -834,28 +847,29 @@ def _requests(vocab: int, seed: int):
     return prompts, params
 
 
-def serve(model_cfg, device, seed: int = 0, **engine_kw) -> dict:
-    """Phase 4 (also rehearsed on the CPU at tiny size): drive
-    PagedInferenceEngine.generate, then verify_paged_rows on its caches;
-    returns launch counts per family and the serving figures."""
-    from ray_tpu_torch.llm import PagedEngineConfig, PagedInferenceEngine
-    from ray_tpu_torch.models import llama
+def _serve_run(params, cfg, device, seed: int, eager: bool) -> dict:
+    """One engine of phase 4 on phase 4's mix: captured programs (the
+    default on the card) or the eager bodies. Warmup, generate the mix,
+    generate it again from another seed, then two verify dispatches
+    through the engine's own program (random weights rarely give the
+    engine a draft); the ragged kernel's launches by family are read
+    around them."""
+    from ray_tpu_torch.llm import PagedInferenceEngine
     from ray_tpu_torch.ops.ragged_paged_attention import \
         ragged_paged_attention as rpa
-
-    t0 = time.perf_counter()
-    params = llama.init(model_cfg, seed=seed, device=device)
-    cfg = PagedEngineConfig(model=model_cfg, **engine_kw)
-    eng = PagedInferenceEngine(cfg, params=params, rng_seed=seed,
-                               device=device)
-    warm_s = eng.warmup(sample_modes=((False, False, False),
-                                      (True, True, True)))
     sync = (torch.cuda.synchronize if torch.device(device).type == "cuda"
             else (lambda: None))
+    t0 = time.perf_counter()
+    eng = PagedInferenceEngine(cfg, params=params, rng_seed=seed,
+                               device=device)
+    eng._eager = eager
+    warm_s = eng.warmup(sample_modes=((False, False, False),
+                                      (True, True, True)))
     sync()
     setup_s = time.perf_counter() - t0
-    prompts, sps = _requests(model_cfg.vocab_size, seed)
-
+    warm_programs = len(eng._graphs) if not eager and \
+        eng._graphs is not None else 0
+    prompts, sps = _requests(cfg.model.vocab_size, seed)
     fam = {"prefill": 0, "decode": 0, "verify": 0}
 
     def counted(name, fn):
@@ -868,34 +882,81 @@ def serve(model_cfg, device, seed: int = 0, **engine_kw) -> dict:
     eng._prefill_step = counted("prefill", eng._prefill_step)
     eng._decode_step = counted("decode", eng._decode_step)
 
+    graphs = eng._graphs if (eng._graphs is not None and not eager) \
+        else None
     rpa.launches = 0                       # main path starts here
     t1 = time.perf_counter()
     out = eng.generate(prompts, sps)
     sync()
     gen_s = time.perf_counter() - t1
-
-    # verify family: random weights rarely give the engine a draft, so
-    # call the model's verify forward directly on the engine's caches
+    # the mix again, from another seed (the prefix cache cannot serve
+    # it): the first pass captured the keys warmup left out (logprob
+    # modes), so this one replays only
+    n_programs = len(graphs) if graphs is not None else 0
+    prompts2, sps2 = _requests(cfg.model.vocab_size, seed + 3)
+    t2 = time.perf_counter()
+    out2 = eng.generate(prompts2, sps2)
+    sync()
+    gen2_s = time.perf_counter() - t2
+    # verify family: 4 rows of 5 tokens at table width 64 on the engine's
+    # caches (the engine is done: any pages will do); on the card the
+    # first dispatch at this key is captured, the second replays it
     R, S1, page = 4, 5, cfg.page_size
     rng = np.random.RandomState(seed + 1)
-    toks = torch.as_tensor(rng.randint(0, model_cfg.vocab_size, (R, S1)),
-                           dtype=torch.int32, device=device)
-    bts = torch.zeros((R, cfg.max_pages_per_seq), dtype=torch.int32,
-                      device=device)
-    starts = torch.as_tensor([3, 40, 130, 250], dtype=torch.int32,
-                             device=device)
-    for r in range(R):              # the engine is done: any pages will do
+    toks = rng.randint(0, cfg.model.vocab_size, (R, S1)).astype(np.int32)
+    bts = np.zeros((R, cfg.max_pages_per_seq), np.int32)
+    starts = np.asarray([3, 40, 130, 250], np.int32)
+    for r in range(R):
         need = -(-(int(starts[r]) + S1) // page)
-        bts[r, :need] = torch.arange(1 + 20 * r, 1 + 20 * r + need)
+        bts[r, :need] = np.arange(1 + 20 * r, 1 + 20 * r + need)
     before = rpa.launches
-    logits, _ = llama.verify_paged_rows(params, toks, eng.caches, bts,
-                                        starts, model_cfg, page_size=page)
+    verify = [eng._verify_rows(toks, bts, starts, True) for _ in range(2)]
     sync()
     fam["verify"] = rpa.launches - before
     launches = rpa.launches                # main path ends here
 
+    def figures(res, secs):
+        n_out = sum(len(r["token_ids"]) for r in res)
+        ttft = sorted(r["ttft_s"] for r in res)
+        return {"generate_s": secs, "tokens_out": n_out,
+                "tokens_per_s": n_out / secs,
+                "ttft_median_s": ttft[len(ttft) // 2],
+                "ttft_max_s": ttft[-1]}
+    return {"engine": eng, "out": out + out2, "verify": verify,
+            "sps": sps + sps2, "prompts": prompts + prompts2, "figures": {
+                "launches": launches, "launches_by_family": fam,
+                "setup_s": setup_s, "warmup_s": warm_s,
+                "first_pass": figures(out, gen_s),
+                "second_pass": figures(out2, gen2_s),
+                "programs_after_warmup": warm_programs,
+                "programs_after_first_pass": n_programs,
+                "programs": len(graphs) if graphs is not None else 0,
+                "capture_s_mean": (statistics.mean(graphs.capture_s)
+                                   if graphs is not None
+                                   and graphs.capture_s else None),
+                "capture_s_max": (max(graphs.capture_s)
+                                  if graphs is not None
+                                  and graphs.capture_s else None)}}
+
+
+def serve(model_cfg, device, seed: int = 0, **engine_kw) -> dict:
+    """Phase 4 (also rehearsed on the CPU at tiny size, where both runs
+    are eager): PagedInferenceEngine with captured programs, then one
+    with eager bodies on the same weights and mixes. Each request's tokens
+    and logprobs, the verify outputs, the dispatch counters, the ragged
+    kernel's launches by family and every page from 1 up must be equal
+    (bitwise). Returns the captured run's launches and both runs'
+    serving figures."""
+    from ray_tpu_torch.llm import PagedEngineConfig
+    from ray_tpu_torch.models import llama
+
+    params = llama.init(model_cfg, seed=seed, device=device)
+    cfg = PagedEngineConfig(model=model_cfg, **engine_kw)
+    cap = _serve_run(params, cfg, device, seed, eager=False)
+    eag = _serve_run(params, cfg, device, seed, eager=True)
+
     vocab = model_cfg.vocab_size
-    for r, sp in zip(out, sps):
+    for r, sp in zip(cap["out"], cap["sps"]):
         toks_out = r["token_ids"]
         if not toks_out or len(toks_out) > sp.max_tokens or \
                 not all(0 <= t < vocab for t in toks_out):
@@ -905,22 +966,46 @@ def serve(model_cfg, device, seed: int = 0, **engine_kw) -> dict:
             if len(lp) != len(toks_out) or not np.isfinite(lp).all() or \
                     (lp > 1e-4).any():
                 raise AssertionError(f"bad logprobs: {lp}")
-    if tuple(logits.shape) != (R, S1, vocab) or \
-            not torch.isfinite(logits).all():
-        raise AssertionError("verify logits not finite / wrong shape")
-    if eng.stats["prefix_hits"] <= 0:
-        raise AssertionError(f"no prefix-cache hits: {eng.stats}")
-    n_out = sum(len(r["token_ids"]) for r in out)
-    ttft = sorted(r["ttft_s"] for r in out)
-    return {"launches": launches, "launches_by_family": fam,
-            "setup_s": setup_s, "warmup_s": warm_s, "generate_s": gen_s,
-            "tokens_out": n_out, "tokens_per_s": n_out / gen_s,
-            "ttft_median_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
-            "prompt_tokens": sum(len(p) for p in prompts),
-            "dispatches": {k: eng.stats[k] for k in
+    for y, lp in cap["verify"]:
+        if y.shape != (4, 5) or not ((0 <= y) & (y < vocab)).all() or \
+                not np.isfinite(lp).all() or (lp > 1e-4).any():
+            raise AssertionError("verify outputs out of range / not finite")
+    ce, ee = cap["engine"], eag["engine"]
+    if ce.stats["prefix_hits"] <= 0:
+        raise AssertionError(f"no prefix-cache hits: {ce.stats}")
+    # captured against eager: the same kernels on the same inputs
+    for i, (x, y) in enumerate(zip(cap["out"], eag["out"])):
+        if x["token_ids"] != y["token_ids"] or \
+                x["logprobs"] != y["logprobs"]:
+            raise AssertionError(f"request {i}: captured {x['token_ids']} "
+                                 f"!= eager {y['token_ids']}")
+    if ce.stats != ee.stats:
+        raise AssertionError(f"counters: captured {ce.stats} != eager "
+                             f"{ee.stats}")
+    cf, ef = cap["figures"], eag["figures"]
+    if cf["launches_by_family"] != ef["launches_by_family"]:
+        raise AssertionError(f"B1 launches: captured "
+                             f"{cf['launches_by_family']} != eager "
+                             f"{ef['launches_by_family']}")
+    # the second verify dispatch rewrites the same K/V: all four agree
+    y0, l0 = cap["verify"][0]
+    for y, lp in cap["verify"][1:] + eag["verify"]:
+        if not (np.array_equal(y, y0) and np.array_equal(lp, l0)):
+            raise AssertionError("verify outputs differ")
+    for a, b in zip(ce.caches, ee.caches):
+        if not (torch.equal(a["k"][1:], b["k"][1:])
+                and torch.equal(a["v"][1:], b["v"][1:])):
+            raise AssertionError("pages differ between captured and eager")
+    if torch.device(device).type == "cuda" and cf["programs"] <= 0:
+        raise AssertionError("the captured engine captured nothing")
+    return {"launches": cf["launches"],
+            "launches_by_family": cf["launches_by_family"],
+            "prompt_tokens": sum(len(p) for p in cap["prompts"]),
+            "dispatches": {k: ce.stats[k] for k in
                            ("prefill_dispatches", "decode_dispatches",
                             "spec_dispatches")},
-            "prefix_hits": eng.stats["prefix_hits"],
+            "prefix_hits": ce.stats["prefix_hits"],
+            "captured": cf, "eager": ef,
             "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
                              if torch.device(device).type == "cuda"
                              else None)}
@@ -1085,15 +1170,19 @@ def _hist(store: dict, name: str) -> dict:
 
 def llm_server(model_cfg, device, seed: int = 0, **engine_kw) -> dict:
     """Phase 4c (also rehearsed on the CPU at tiny size): LLMServer over
-    the paged engine (seeded weights) answers phase 4's requests from
-    ``seed`` 2 sent by 11 threads at once through ``completions``, then
+    the paged engine (seeded weights), after a first burst of phase 4's
+    requests from mix seed 1, answers phase 4's requests from mix seed 2
+    sent by 11 threads at once through ``completions``, then
     the first (greedy) prompt once more through ``completions_stream``.
-    Checks each response's shape, the stream against a greedy
-    ``completions`` of the same prompt sent after it (both alone),
-    the rtpu_llm_* series against the engine's counters, the launches and
-    the engine thread's health; then estimate_flops and
-    profile_summary (MFU without attention: the counter cannot see the
-    ragged kernel). Stops the engine thread."""
+    Checks each response's shape, the stream against the greedy
+    request's tokens in the burst (B1's split boundaries do not depend
+    on the batch), the rtpu_llm_* series against the engine's counters,
+    the launches and the engine thread's health; then estimate_flops
+    and profile_summary (MFU without attention: the counter cannot see
+    the ragged kernel). On the card the engine dispatches captured
+    programs: warmup captures the greedy, sampled and top-k modes, and
+    the engine thread captures any other key at its first dispatch while
+    the request threads wait. Stops the engine thread."""
     import threading
     from ray_tpu_torch.llm import LLMConfig, LLMServer, PagedEngineConfig
     from ray_tpu_torch.models import llama
@@ -1131,30 +1220,45 @@ def llm_server(model_cfg, device, seed: int = 0, **engine_kw) -> dict:
         step: the last step's telemetry (shipped at its end) is in."""
         while eng.has_work() or stepping[0]:
             time.sleep(0.001)
-    prompts, sps = _requests(model_cfg.vocab_size, seed=2)
-    bodies = [{"prompt": p, "max_tokens": sp.max_tokens,
-               "temperature": sp.temperature, "top_k": sp.top_k,
-               "logprobs": sp.logprobs} for p, sp in zip(prompts, sps)]
-    resps = [None] * len(bodies)
-    errors = []
+    def bodies_of(mix_seed):
+        ps, ss = _requests(model_cfg.vocab_size, seed=mix_seed)
+        return ps, ss, [{"prompt": p, "max_tokens": sp.max_tokens,
+                         "temperature": sp.temperature, "top_k": sp.top_k,
+                         "logprobs": sp.logprobs} for p, sp in zip(ps, ss)]
 
-    def call(i):
-        try:
-            resps[i] = srv.completions(dict(bodies[i]))
-        except BaseException as e:  # noqa: BLE001 — re-raised below
-            errors.append(e)
-    threads = [threading.Thread(target=call, args=(i,))
-               for i in range(len(bodies))]
-    metrics._reset_registry()
-    rpa.launches = 0                       # main path starts here
-    t1 = time.perf_counter()
-    try:
+    def burst(bodies):
+        """Each body from its own thread, all at once."""
+        out, errors = [None] * len(bodies), []
+
+        def call(i):
+            try:
+                out[i] = srv.completions(dict(bodies[i]))
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+        threads = [threading.Thread(target=call, args=(i,))
+                   for i in range(len(bodies))]
         for t in threads:
             t.start()
         for t in threads:
             t.join()
         if errors:
             raise errors[0]
+        return out
+
+    prompts, sps, bodies = bodies_of(2)
+    try:
+        # a first burst (mix seed 1) makes the engine thread capture the
+        # keys warmup left out (logprob modes), as a server's first
+        # traffic would; the phase's burst then replays only
+        burst(bodies_of(1)[2])
+        quiesce()
+        warm_programs = len(eng._graphs) if eng._graphs is not None else 0
+        served.clear()
+        tokens0 = eng.stats["tokens_out"]
+        metrics._reset_registry()
+        rpa.launches = 0                   # main path starts here
+        t1 = time.perf_counter()
+        resps = burst(bodies)
         greedy_body = {"prompt": prompts[0],
                        "max_tokens": sps[0].max_tokens}
         chunks = list(srv.completions_stream(dict(greedy_body)))
@@ -1162,12 +1266,7 @@ def llm_server(model_cfg, device, seed: int = 0, **engine_kw) -> dict:
         launches = rpa.launches            # main path ends here
         quiesce()
         store = metrics.collect_store()
-        tokens_out = eng.stats["tokens_out"]
-        # the stream against a greedy completions in the same conditions
-        # (alone, prefix cached): in bf16 the tokens depend on the batch
-        # (the table-width bucket changes B1's split count and so its
-        # rounding), so the burst's own greedy request need not match
-        again = srv.completions(dict(greedy_body))
+        tokens_out = eng.stats["tokens_out"] - tokens0
         srv.check_health()
         if srv._error is not None:
             raise AssertionError(f"engine thread error: {srv._error!r}")
@@ -1194,15 +1293,16 @@ def llm_server(model_cfg, device, seed: int = 0, **engine_kw) -> dict:
                 raise AssertionError(f"bad logprobs: {lp}")
         elif "logprobs" in ch:
             raise AssertionError(f"unasked logprobs: {r}")
+    # the burst's greedy request (served first of the two) and the stream
     greedy = [out for p, out in served if p == prompts[0]]
+    burst = resps[0]["choices"][0]
     text = "".join(c["choices"][0]["text"] for c in chunks)
-    if len(greedy) != 3 or greedy[1] != greedy[2] or \
-            text != again["choices"][0]["text"] or \
+    if len(greedy) != 2 or greedy[0] != greedy[1] or \
+            text != burst["text"] or \
             chunks[-1]["choices"][0]["finish_reason"] != \
-            again["choices"][0]["finish_reason"]:
-        raise AssertionError(f"stream differs from the greedy completion: "
-                             f"{greedy}")
-    served = served[:-1]                   # the 12 of the phase
+            burst["finish_reason"]:
+        raise AssertionError(f"stream differs from the burst's greedy "
+                             f"request: {greedy}")
     if not all(0 <= t < vocab for _, out in served for t in out):
         raise AssertionError("token out of the vocabulary")
     requests = sum(store["rtpu_llm_requests_total"]["series"].values())
@@ -1227,7 +1327,13 @@ def llm_server(model_cfg, device, seed: int = 0, **engine_kw) -> dict:
                                      f"FLOPs, matmuls {want:.4g}")
     prof = eng.profile_summary()
     n_out = sum(len(out) for _, out in served)
+    graphs = eng._graphs
     return {"setup_s": setup_s, "wall_s": wall_s, "tokens_out": n_out,
+            "programs_after_first_burst": warm_programs,
+            "programs": len(graphs) if graphs is not None else 0,
+            "capture_s_mean": (statistics.mean(graphs.capture_s)
+                               if graphs is not None and graphs.capture_s
+                               else None),
             "tokens_per_s": n_out / wall_s, "launches": launches,
             "ttft_s": ttft,
             "inter_token_s": _hist(store, "rtpu_llm_inter_token_seconds"),
@@ -1530,25 +1636,40 @@ class _HostClock:
     the trace with record_function("serve::<label>")."""
 
     def __init__(self):
-        self.s, self.n = {}, {}
+        self.s, self.n, self.events = {}, {}, {}
 
     def wrap(self, label: str, fn, sync: bool = False):
+        """With ``sync``, the call is followed by a device synchronise, so
+        "inside" holds the device's work; every call also records CUDA
+        events around it on the current stream (its device span, read by
+        ``device_span_ms`` once the work is done)."""
         from torch.profiler import record_function
 
         def run(*a, **kw):
             with record_function(f"serve::{label}"):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
                 t = time.perf_counter()
+                start.record()
                 out = fn(*a, **kw)
+                end.record()
                 if sync:
                     torch.cuda.synchronize()
                 dt = time.perf_counter() - t
             self.s[label] = self.s.get(label, 0.0) + dt
             self.n[label] = self.n.get(label, 0) + 1
+            self.events.setdefault(label, []).append((start, end))
             return out
         return run
 
+    def device_span_ms(self, label: str) -> float:
+        """Device time between the events around every call of label
+        (idle gaps inside a call included), summed."""
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events.get(label, []))
+
     def reset(self):
-        self.s, self.n = {}, {}
+        self.s, self.n, self.events = {}, {}, {}
 
     def split(self, dispatches: tuple, decode: str,
               decode_steps: int) -> dict:
@@ -1559,11 +1680,14 @@ class _HostClock:
         steps = self.n.get("step", 0)
         nd = self.n.get(decode, 0)
         ms = self.s.get(decode, 0.0) * 1e3
+        span = self.device_span_ms(decode)
         return {"steps": steps, "decode_dispatches": nd,
                 "decode_steps": decode_steps,
                 "inside_ms_per_decode_dispatch": ms / nd if nd else None,
                 "inside_ms_per_decode_step":
                     ms / decode_steps if decode_steps else None,
+                "device_span_ms_per_decode_step":
+                    span / decode_steps if decode_steps else None,
                 "outside_ms_per_step":
                     (self.s.get("step", 0.0) - inside) / steps * 1e3
                     if steps else None}
@@ -1665,10 +1789,13 @@ def profile_serve():
     batch. For each: wall, kernel time and busy share; kernels per decode
     dispatch, step and token; the host ms inside a decode dispatch and
     outside the dispatches per engine step (taken in the untraced runs:
-    the profiler's own host cost would inflate them); the kernel
-    families; the 15 largest kernels. Last, the batch witness
-    (``_batch_witness``): greedy tokens in the mix against alone, with
-    B1's split count as picked and pinned to 1."""
+    the profiler's own host cost would inflate them), and the device
+    span of each decode dispatch from CUDA events around it; the kernel
+    families; the 15 largest kernels. The paged engine dispatches its
+    captured programs (the kernels of a replay are device kernels like
+    any other in the trace). Last, the batch witness
+    (``_batch_witness``): greedy tokens in the mix against alone, under
+    the shipped split rule."""
     from ray_tpu_torch.llm import (EngineConfig, InferenceEngine,
                                    PagedEngineConfig, PagedInferenceEngine,
                                    SamplingParams)
@@ -1693,6 +1820,11 @@ def profile_serve():
         return decode_window(w, *a, **kw)
     eng._decode_window = counted_window
     dispatches = ("prefill", "decode", "verify")
+    # a first pass captures the keys warmup left out (logprob modes), so
+    # no capture lands in the timed passes
+    eng.generate(*_requests(mc.vocab_size, seed=1))
+    clock.reset()
+    windows.clear()
     prompts, sps = _requests(mc.vocab_size, seed=0)
     t = time.perf_counter()
     out = eng.generate(prompts, sps)
@@ -1765,56 +1897,44 @@ def profile_serve():
 
 
 def _batch_witness(mc, device: str = "cuda"):
-    """Does a request's greedy output depend on its batch, and is B1's
-    split count the cause? Phase 4c's weights (seed 0) and mix (seed 2)
-    on phase 4's engine with the prefix cache off, so every run computes
-    every page: the whole mix at once, then each greedy request alone.
-    Once with the split count the wrapper picks, once with it pinned to
-    1. Prints, per case, the split counts used and the greedy requests
-    whose tokens in the mix differ from their tokens alone, with the
-    first position that differs."""
-    import importlib
+    """Does a request's greedy output depend on its batch? Phase 4c's
+    weights (seed 0) and mix (seed 2) on phase 4's engine with the prefix
+    cache off, so every run computes every page, dispatching captured
+    programs under the shipped split rule: the whole mix at once, then
+    each greedy request alone. Prints the greedy requests whose tokens in
+    the mix differ from their tokens alone, with the first position that
+    differs."""
     from ray_tpu_torch.llm import PagedEngineConfig, PagedInferenceEngine
     from ray_tpu_torch.models import llama
-    rpa_mod = importlib.import_module(
-        "ray_tpu_torch.ops.ragged_paged_attention")
+    from ray_tpu_torch.ops.ragged_paged_attention import (SPLIT_KEYS,
+                                                          SPLIT_MAX_Q)
     eng = PagedInferenceEngine(
         PagedEngineConfig(model=mc, page_size=16, num_pages=1024,
                           max_pages_per_seq=64, chunk_size=128,
                           prefill_rows=4, decode_window=8, max_batch_size=8,
                           enable_prefix_caching=False),
         params=llama.init(mc, seed=0, device=device), device=device)
+    eng.warmup(sample_modes=((False, False, False), (True, True, True)))
     prompts, sps = _requests(mc.vocab_size, seed=2)
     greedy = [i for i, sp in enumerate(sps) if sp.temperature == 0]
-    picked = rpa_mod.num_splits
-    report = {}
-    for case, choose in (("picked", picked), ("pinned_1", lambda *a: 1)):
-        seen = set()
-
-        def splits(*a):
-            n = choose(*a)
-            seen.add(n)
-            return n
-        rpa_mod.num_splits = splits
-        try:
-            mixed = eng.generate(prompts, sps)
-            alone = [eng.generate([prompts[i]], [sps[i]])[0] for i in greedy]
-        finally:
-            rpa_mod.num_splits = picked
-        differ = {}
-        for i, one in zip(greedy, alone):
-            a, b = mixed[i]["token_ids"], one["token_ids"]
-            if a != b:
-                differ[i] = next((k for k, (x, y) in enumerate(zip(a, b))
-                                  if x != y), min(len(a), len(b)))
-        report[case] = {"splits_used": sorted(seen),
-                        "greedy_requests": len(greedy),
-                        "differ": len(differ),
-                        "first_difference_at": differ}
+    mixed = eng.generate(prompts, sps)
+    alone = [eng.generate([prompts[i]], [sps[i]])[0] for i in greedy]
+    differ = {}
+    for i, one in zip(greedy, alone):
+        a, b = mixed[i]["token_ids"], one["token_ids"]
+        if a != b:
+            differ[i] = next((k for k, (x, y) in enumerate(zip(a, b))
+                              if x != y), min(len(a), len(b)))
+    report = {"split_rule": f"{SPLIT_KEYS} keys a split at query widths "
+                            f"<= {SPLIT_MAX_Q}, unsplit above",
+              "captured_programs": len(eng._graphs),
+              "greedy_requests": len(greedy), "differ": len(differ),
+              "first_difference_at": differ}
     print("profile-serve batch witness: " + json.dumps(report), flush=True)
     del eng
     gc.collect()
     torch.cuda.empty_cache()
+    return report
 
 
 def _busy_estimate(label: str, traced: dict, untraced: dict):
@@ -1828,10 +1948,13 @@ def _busy_estimate(label: str, traced: dict, untraced: dict):
                           / untraced["decode_dispatches"])
     host = (untraced["inside_ms_per_decode_step"]
             + untraced["outside_ms_per_step"] / steps_per_dispatch)
-    print(f"profile-serve {label} estimate: " + json.dumps(
-        {"decode_kernel_ms_per_step": dev,
-         "untraced_host_ms_per_decode_step": host,
-         "decode_busy_share_est": dev / host}), flush=True)
+    out = {"decode_kernel_ms_per_step": dev,
+           "untraced_host_ms_per_decode_step": host,
+           "decode_busy_share_est": dev / host,
+           "untraced_device_span_ms_per_decode_step":
+               untraced["device_span_ms_per_decode_step"]}
+    print(f"profile-serve {label} estimate: " + json.dumps(out), flush=True)
+    return out
 
 
 def main():

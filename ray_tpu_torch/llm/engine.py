@@ -7,16 +7,22 @@ hooks (``llm/telemetry.py``) at the reference's sites: ``on_submit`` at
 intake, ``on_admit`` / ``on_first_token`` / ``on_step`` in the loop and
 ``on_finish`` at retirement.
 
-Sampling runs on the device of the logits. Random draws come from a
-``torch.Generator`` seeded per dispatch step (``step_generator``), so a
-sampled run is deterministic for a given engine seed; it cannot
-reproduce the reference's ``jax.random`` stream. Greedy rows are exact:
-``torch.argmax`` returns the first maximum, like ``jnp.argmax``.
+Sampling runs on the device of the logits. Random draws are counter
+based, as ``jax.random``'s are: a key is one 32-bit value in an int64
+tensor on the device (``root_key``), ``fold_in`` derives a key from a
+key and a counter, and ``uniform`` hashes (key, element index) into
+uniforms, all with integer tensor ops. A draw is a pure function of
+(engine seed, dispatch counter, window step, row, vocab index), so it
+needs no host-side generator state, and a captured CUDA graph that reads
+the counter from a device buffer draws fresh numbers on every replay,
+the same numbers the eager body draws. It does not reproduce the
+reference's threefry stream. Greedy rows are exact: ``torch.argmax``
+returns the first maximum, like ``jnp.argmax``.
 """
 from __future__ import annotations
 
 import dataclasses
-import hashlib
+import math
 import threading
 import time
 from collections import deque
@@ -85,36 +91,60 @@ class _Request:
         default_factory=threading.Event)
 
 
-def step_generator(base_seed: int, ctr: int, step: int,
-                   device) -> torch.Generator:
-    """The generator for one sampling step: seeded from (base_seed, ctr,
-    step) through blake2b, so each (dispatch counter, window step) pair
-    draws an independent, reproducible stream on ``device``."""
-    raw = b"".join(int(v).to_bytes(8, "little", signed=True)
-                   for v in (base_seed, ctr, step))
-    seed = int.from_bytes(hashlib.blake2b(raw, digest_size=8).digest(),
-                          "little") & ((1 << 63) - 1)
-    g = torch.Generator(device=device)
-    g.manual_seed(seed)
-    return g
+_M32 = 0xFFFFFFFF
 
 
-def sample_logits(logits, gen: Optional[torch.Generator],
-                  temperature: float, top_k: int):
+def _mix32(x):
+    """A 32-bit integer hash of an int64 tensor holding values below
+    2**32: two multiply-xorshift rounds whose multipliers are below
+    2**31, so every product fits in int64 and nothing wraps."""
+    x = x ^ (x >> 16)
+    x = (x * 0x21F0AAAD) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x735A2D97) & _M32
+    return x ^ (x >> 15)
+
+
+def root_key(seed: int, device) -> torch.Tensor:
+    """The key of an engine seed (its low 32 bits), on ``device``."""
+    return torch.tensor([int(seed) & _M32], dtype=torch.int64,
+                        device=device)
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """A new key from ``key`` and ``data`` (a Python int or an integer
+    tensor of one element), the counterpart of ``jax.random.fold_in``."""
+    if torch.is_tensor(data):
+        data = data.to(torch.int64)
+    return _mix32(_mix32(key) ^ (data & _M32))
+
+
+def uniform(key: torch.Tensor, shape) -> torch.Tensor:
+    """f32 uniforms in (0, 1) of ``shape`` on the key's device: element i
+    is a hash of (key, i), with 24 random bits."""
+    n = math.prod(shape)
+    idx = torch.arange(n, dtype=torch.int64,
+                       device=key.device).reshape(shape)
+    h = _mix32(_mix32(idx ^ key) ^ _mix32(key ^ 0x5851F42D))
+    return ((h >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+
+
+def sample_logits(logits, key: Optional[torch.Tensor], temperature: float,
+                  top_k: int):
     """Sampling over [B, V] logits with one set of params (greedy /
     temperature / top-k), on the logits' device. Sampled rows draw by
-    Gumbel-max over ``gen``'s uniforms; greedy ignores ``gen``."""
+    Gumbel-max over ``uniform(key, ...)``; greedy ignores ``key``."""
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1)
     logits = logits / temperature
     if top_k > 0:
         kth = torch.sort(logits, dim=-1).values[:, -top_k][:, None]
         logits = torch.where(logits < kth, -1e30, logits)
-    u = torch.rand(logits.shape, generator=gen, device=logits.device)
+    u = uniform(key, logits.shape)
     return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
 
 
-def sample_logits_batch(logits, gen: Optional[torch.Generator], temps,
+def sample_logits_batch(logits, key: Optional[torch.Tensor], temps,
                         top_ks, *, any_sampled: bool = True,
                         any_topk: bool = True, want_logp: bool = True):
     """Per-ROW sampling over [B, V] f32 logits with per-row params, on the
@@ -123,12 +153,13 @@ def sample_logits_batch(logits, gen: Optional[torch.Generator], temps,
 
     temps[b] <= 0 selects greedy for that row; top_ks[b] > 0 masks to that
     row's top-k scaled logits, exactly for any k (per-row threshold from
-    one full sort). Sampled rows draw by Gumbel-max over ``gen``'s
-    uniforms (argmax of scaled logits + Gumbel noise is a draw from their
-    softmax). any_sampled/any_topk/want_logp are hints from the batch:
-    all-greedy batches skip the draw, no-top-k batches skip the sort,
-    batches without a logprobs request skip the log_softmax. The logprob
-    is the model-natural one, from the RAW logits."""
+    one full sort). Sampled rows draw by Gumbel-max over
+    ``uniform(key, ...)`` (argmax of scaled logits + Gumbel noise is a
+    draw from their softmax). any_sampled/any_topk/want_logp are hints
+    from the batch: all-greedy batches skip the draw, no-top-k batches
+    skip the sort, batches without a logprobs request skip the
+    log_softmax. The logprob is the model-natural one, from the RAW
+    logits."""
     def chosen_logp(tok):
         if not want_logp:
             return None
@@ -146,7 +177,7 @@ def sample_logits_batch(logits, gen: Optional[torch.Generator], temps,
         kth = svals.gather(1, k_idx[:, None].long())
         scaled = torch.where((top_ks[:, None] > 0) & (scaled < kth),
                              -1e30, scaled)
-    u = torch.rand(scaled.shape, generator=gen, device=scaled.device)
+    u = uniform(key, scaled.shape)
     sampled = torch.argmax(scaled - torch.log(-torch.log(u)), dim=-1)
     tok = torch.where(temps <= 0.0, greedy, sampled.to(torch.int32))
     return tok, chosen_logp(tok)
@@ -220,28 +251,32 @@ class _EngineBase:
         self._rng_ctr += 1
         return ctr
 
-    def _generator(self, ctr: int) -> torch.Generator:
-        return step_generator(self._rng_seed, ctr, 0, self.device)
+    def _key(self, ctr: int) -> torch.Tensor:
+        """The sampling key of draw ``ctr``: the engine's key folded with
+        the counter, then with step 0 (the paged engine's first window
+        step)."""
+        return fold_in(fold_in(self._rng_key, ctr), 0)
 
     def _sample_one(self, logits, params: SamplingParams) -> np.ndarray:
         ctr = self._next_rng()
-        gen = self._generator(ctr) if params.temperature > 0 else None
-        return sample_logits(logits, gen, params.temperature,
+        key = self._key(ctr) if params.temperature > 0 else None
+        return sample_logits(logits, key, params.temperature,
                              params.top_k).cpu().numpy()
 
     def _sample_next_tokens(self, logits, ctr: int) -> dict[int, int]:
-        """Per-slot next token, batching slots that share sampling params;
-        one generator for the step, made only when a slot samples."""
+        """Per-slot next token, batching slots that share sampling params
+        (one key for the step, as the reference passes one rng to every
+        group)."""
         by_params: dict[tuple, list[int]] = {}
         for slot, req in self._active.items():
             by_params.setdefault(
                 (req.params.temperature, req.params.top_k), []).append(slot)
-        gen = (self._generator(ctr) if any(t > 0 for t, _ in by_params)
+        key = (self._key(ctr) if any(t > 0 for t, _ in by_params)
                else None)
         next_tokens: dict[int, int] = {}
         for (temp, top_k), slots in by_params.items():
             rows = torch.as_tensor(slots, device=logits.device)
-            sampled = sample_logits(logits[rows], gen, temp, top_k)
+            sampled = sample_logits(logits[rows], key, temp, top_k)
             for s, t in zip(slots, sampled.cpu().tolist()):
                 next_tokens[s] = int(t)
         return next_tokens
@@ -295,7 +330,7 @@ class InferenceEngine(_EngineBase):
         self._active: dict[int, _Request] = {}      # slot -> request
         self._pending: deque[_Request] = deque()
         self._next_rid = 0
-        self._rng_seed = rng_seed ^ 0x5EED
+        self._rng_key = root_key(rng_seed ^ 0x5EED, self.device)
         self._rng_ctr = 0
         self._lock = threading.Lock()
         # dispatch/token counts (paged engine parity)

@@ -20,11 +20,22 @@ Sampling runs on the device inside each dispatch. The Python loop does
 admission, page allocation, the prefix cache and retirement. Forwards
 write K/V into the persistent per-layer cache tensors in place.
 
-PyTorch runs eagerly, so nothing is compiled per shape: dispatches carry
-exactly their real rows (the reference padded row counts to powers of
-two to bound its compiled programs). Block tables are still sliced to
-power-of-two page buckets (``_page_bucket``): the width bounds the plain
-version's gather and keeps every write inside the table.
+Each family runs as one program per static key, as the reference's
+does: (window, sampling mode, table width) for decode, (rows, mode,
+width) for prefill and (rows, tokens per row, width, logprobs) for
+verify. Row counts are padded to powers of two (pad rows have true
+length 0 or a zero table, so their writes land on sink page 0) and
+block tables are sliced to power-of-two page buckets (``_page_bucket``),
+so the set of programs stays bounded; ``warmup`` builds it over the whole
+key ladder before traffic. On the card a program is a CUDA graph
+(``llm/graphs.py``): a dispatch copies its host arrays into the graph's
+static buffers, replays it and reads the ``[B, w]`` or ``[R]`` outputs
+back once. The sampling counter is one of those inputs, so a replay
+draws fresh numbers (``engine.fold_in``). A key first met in traffic is
+captured at its first dispatch, as the reference's jit compiles a new
+key. On the CPU each dispatch runs its body eagerly. ``_eager = True``
+runs the same body eagerly on the card too (tests and the smoke compare
+the two); nothing switches to it by itself.
 
 Observability as in the reference: the telemetry hooks
 (``llm/telemetry.py``: the ``rtpu_llm_*`` series), ``PREFIX_EVICT``
@@ -42,6 +53,7 @@ directory's publish tracking (``prefix_imported_pages`` and
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import threading
 import time
@@ -56,9 +68,10 @@ from ..models import llama
 from ..util.profiling import StepProfiler, compiled_flops
 from . import telemetry
 from .engine import (  # noqa: F401 — SamplingParams re-exported
-    SamplingParams, _EngineBase, _Request, sample_logits_batch,
-    step_generator,
+    SamplingParams, _EngineBase, _Request, fold_in, root_key,
+    sample_logits_batch,
 )
+from .graphs import GraphCache
 from .tokenizer import get_tokenizer
 
 #: config fields of engine features not ported yet: field -> feature
@@ -202,7 +215,7 @@ class PagedInferenceEngine(_EngineBase):
             self.chains = ChainStatsTable(cfg.chain_stats_slots,
                                           page_nbytes)
         self._next_rid = 0
-        self._rng_seed = rng_seed ^ 0x5EED
+        self._rng_key = root_key(rng_seed ^ 0x5EED, self.device)
         self._rng_ctr = 0
         self._lock = threading.Lock()
         self._bucketing = cfg.page_buckets == "on" or (
@@ -231,6 +244,11 @@ class PagedInferenceEngine(_EngineBase):
         # and static key; feeds profile_summary()'s MFU once
         # estimate_flops() has run
         self.profiler = StepProfiler("paged_engine", device=self.device)
+        # one captured program per (family, static key) on the card;
+        # _eager runs the dispatch bodies eagerly there instead
+        self._graphs = (GraphCache(self.device)
+                        if self.device.type == "cuda" else None)
+        self._eager = False
 
     # -- host <-> device ---------------------------------------------------
 
@@ -264,102 +282,174 @@ class PagedInferenceEngine(_EngineBase):
         return min(maxp, max(self._PAGE_BUCKET_FLOOR,
                              1 << (need - 1).bit_length()))
 
+    def _page_bucket_ladder(self) -> list[int]:
+        """Every width _page_bucket can return (ascending): what warmup
+        builds for traffic to meet no new key."""
+        maxp = self.cfg.max_pages_per_seq
+        if not self._bucketing:
+            return [maxp]
+        out = []
+        b = self._PAGE_BUCKET_FLOOR
+        while b < maxp:
+            out.append(b)
+            b <<= 1
+        out.append(maxp)
+        return out
+
+    @staticmethod
+    def _row_bucket(r: int, cap: int) -> int:
+        """Rows a dispatch of r real rows carries: the next power of two,
+        at most cap (pad rows write only sink page 0)."""
+        return min(1 << max(r - 1, 0).bit_length(), cap)
+
     # -- dispatch families -------------------------------------------------
 
-    def _decode_window(self, w: int, mode: tuple, tokens, bt, lengths,
-                       temps, top_ks):
-        """One dispatch = w decode steps for every slot, each step's
-        sampled tokens fed back on the device. Returns host arrays
-        (tokens [B, w], logprobs [B, w] or None)."""
+    def _run(self, tag: tuple, body, arrays) -> list:
+        """One dispatch: the program captured for ``tag`` on the card,
+        else ``body`` eagerly. Returns its outputs as host arrays."""
+        if self._graphs is None or self._eager:
+            return self._run_eager(body, *arrays)
+        return self._graphs.run(tag, body, arrays)
+
+    def _run_eager(self, body, *arrays) -> list:
+        outs = body(*[self._dev(a) for a in arrays])
+        return [None if t is None else t.cpu().numpy() for t in outs]
+
+    def _ctr(self) -> np.ndarray:
+        """The sampling counter as a dispatch input."""
+        return np.asarray([self._rng_ctr & 0x7FFFFFFF], np.int32)
+
+    def _decode_body(self, w: int, mode: tuple, toks, bt, lens, temps,
+                     top_ks, ctr):
+        """w decode steps for every slot on device tensors, each step's
+        sampled tokens fed back on the device; step i draws with
+        fold_in(fold_in(engine key, ctr), i). Returns (tokens [B, w],
+        logprobs [B, w] or None)."""
         any_sampled, any_topk, want_logp = mode
         mc, page = self.cfg.model, self.cfg.page_size
-        toks, bt_d, lens = self._dev(tokens), self._dev(bt), \
-            self._dev(lengths)
-        temps_d, topks_d = self._dev(temps), self._dev(top_ks)
+        key = fold_in(self._rng_key, ctr) if any_sampled else None
         outs, lps = [], []
         for i in range(w):
             logits, _ = llama.decode_paged(
-                self.params, toks[:, None], self.caches, bt_d, lens, mc,
+                self.params, toks[:, None], self.caches, bt, lens, mc,
                 page_size=page)
-            gen = (step_generator(self._rng_seed, self._rng_ctr, i,
-                                  self.device) if any_sampled else None)
             toks, lp = sample_logits_batch(
-                logits, gen, temps_d, topks_d, any_sampled=any_sampled,
-                any_topk=any_topk, want_logp=want_logp)
+                logits, None if key is None else fold_in(key, i), temps,
+                top_ks, any_sampled=any_sampled, any_topk=any_topk,
+                want_logp=want_logp)
             lens = lens + 1
             outs.append(toks)
             lps.append(lp)
-        out = torch.stack(outs, dim=1).cpu().numpy()
+        return (torch.stack(outs, dim=1),
+                torch.stack(lps, dim=1) if want_logp else None)
+
+    def _prefill_body(self, mode: tuple, chunks, bts, sps, tls, temps,
+                      top_ks, ctr):
+        """The chunk-rows in order, then sampling of each row's last-token
+        logits with fold_in(engine key, ctr). Returns (tokens [R],
+        logprobs [R] or None)."""
+        any_sampled, any_topk, want_logp = mode
+        last, _ = llama.prefill_paged_rows(
+            self.params, chunks, self.caches, bts, sps, tls, self.cfg.model,
+            page_size=self.cfg.page_size)
+        key = fold_in(self._rng_key, ctr) if any_sampled else None
+        return sample_logits_batch(
+            last, key, temps, top_ks, any_sampled=any_sampled,
+            any_topk=any_topk, want_logp=want_logp)
+
+    def _verify_body(self, want_logp: bool, toks, bts, starts):
+        """Verify rows of s1 tokens: the greedy next token at each fed
+        position [R, s1] (and its log-probability when asked)."""
+        logits, _ = llama.verify_paged_rows(
+            self.params, toks, self.caches, bts, starts, self.cfg.model,
+            page_size=self.cfg.page_size)
+        y = torch.argmax(logits, dim=-1).to(torch.int32)
         if not want_logp:
-            return out, None
-        return out, torch.stack(lps, dim=1).cpu().numpy()
+            return y, None
+        lp = torch.log_softmax(logits, dim=-1).gather(
+            -1, y[..., None].long())[..., 0]
+        return y, lp
+
+    def _decode_window(self, w: int, mode: tuple, tokens, bt, lengths,
+                       temps, top_ks):
+        """One dispatch = w decode steps for every slot. Returns host
+        arrays (tokens [B, w], logprobs [B, w] or None)."""
+        return self._run(("decode", (w, mode, bt.shape[1])),
+                         functools.partial(self._decode_body, w, mode),
+                         (tokens, bt, lengths, temps, top_ks, self._ctr()))
 
     def _prefill_rows(self, mode: tuple, chunks, bts, sps, tls, temps,
                       top_ks):
         """One dispatch = the given chunk-rows in order, then sampling of
         each row's last-token logits (used for prompt-completing rows)."""
-        any_sampled, any_topk, want_logp = mode
-        last, _ = llama.prefill_paged_rows(
-            self.params, self._dev(chunks), self.caches, self._dev(bts),
-            self._dev(sps), self._dev(tls), self.cfg.model,
-            page_size=self.cfg.page_size)
-        gen = (step_generator(self._rng_seed, self._rng_ctr, 0, self.device)
-               if any_sampled else None)
-        toks, lps = sample_logits_batch(
-            last, gen, self._dev(temps), self._dev(top_ks),
-            any_sampled=any_sampled, any_topk=any_topk, want_logp=want_logp)
-        return (toks.cpu().numpy(),
-                None if lps is None else lps.cpu().numpy())
+        return self._run(("prefill", (chunks.shape[0], mode, bts.shape[1])),
+                         functools.partial(self._prefill_body, mode),
+                         (chunks, bts, sps, tls, temps, top_ks, self._ctr()))
 
     def _verify_rows(self, toks, bts, starts, want_logp: bool):
         """One dispatch = verify rows of s1 = 1+drafts tokens; returns the
         greedy next token AT each fed position [r, s1] (and its
         log-probability when asked)."""
-        logits, _ = llama.verify_paged_rows(
-            self.params, self._dev(toks), self.caches, self._dev(bts),
-            self._dev(starts), self.cfg.model, page_size=self.cfg.page_size)
-        y = torch.argmax(logits, dim=-1).to(torch.int32)
-        if not want_logp:
-            return y.cpu().numpy(), None
-        lp = torch.log_softmax(logits, dim=-1).gather(
-            -1, y[..., None].long())[..., 0]
-        return y.cpu().numpy(), lp.cpu().numpy()
+        r, s1 = toks.shape
+        return self._run(("verify", (r, s1, bts.shape[1], want_logp)),
+                         functools.partial(self._verify_body, want_logp),
+                         (toks, bts, starts))
 
     # -- public API --------------------------------------------------------
 
     def warmup(self, sample_modes=((False, False),)) -> float:
-        """Pay one-time costs before serving traffic; returns seconds.
+        """Build every program this engine dispatches before serving
+        traffic; returns seconds. The reference compiles them here, as
+        vLLM captures its execution graphs at engine start.
 
-        Builds (or loads) the CUDA kernel library when the engine runs on
-        the card, and runs one dummy dispatch per family (verify only
-        with speculation on) and sampling mode, given as (any_sampled,
-        any_topk[, want_logp]), so library handles and allocator pools
-        exist before the first request. Each dummy dispatch is booked in
-        the step profiler through ``record_compile`` at the key it ran
-        under, as the reference books its warmup compiles. Dummy
-        dispatches carry zero block tables and zero true lengths: every
-        write routes to sink page 0 and no visible engine state changes.
-        Eager PyTorch compiles nothing per shape, so one dispatch per
-        family covers every later shape."""
+        Families, over the block-table page-bucket ladder: prefill at
+        each power-of-two row bucket up to ``prefill_rows``, decode
+        windows {1, decode_window}, and with speculation on the verify
+        row buckets up to ``max_batch_size`` (logprobs off), each crossed
+        with the sampling modes (any_sampled, any_topk[, want_logp]). On
+        the card each key is captured as a CUDA graph (and the kernel
+        library built or loaded first); on the CPU each runs eagerly
+        once. Each is booked in the step profiler through
+        ``record_compile`` at the reference's key. Dummy dispatches carry
+        zero block tables and zero true lengths: every write routes to
+        sink page 0 and no visible engine state changes."""
         t0 = time.perf_counter()
         if self.device.type == "cuda":
             from ..ops import _build
             _build.load("ragged_paged_attention")
-        cfg = self.cfg
-        modes = [tuple(m) + (False,) * (3 - len(m)) for m in sample_modes]
-        kinds = [("prefill", (1, m, self._page_bucket(1))) for m in modes] \
-            + [("decode", (1, m, self._page_bucket(1))) for m in modes]
-        if cfg.spec_tokens > 0:
-            kinds.append(("verify", (1, cfg.spec_tokens + 1,
-                                     self._page_bucket(1), False)))
-        for kind, key in kinds:
+        for kind, key in self._warmup_keys(sample_modes):
             tw = time.perf_counter()
-            fn, *args = self._dispatch_for_key(kind, key)
-            fn(*args)
+            self._run((kind, key), *self._dummy(kind, key))
             self.profiler.record_compile(time.perf_counter() - tw, kind, key)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return time.perf_counter() - t0
+
+    def _warmup_keys(self, sample_modes) -> list:
+        """(family, static key) of every program warmup builds, in the
+        reference's order."""
+        cfg = self.cfg
+        modes = [tuple(m) + (False,) * (3 - len(m)) for m in sample_modes]
+        buckets = self._page_bucket_ladder()
+
+        def rows(cap):
+            rb = 1
+            while True:
+                rb = min(rb, cap)
+                yield rb
+                if rb >= cap:
+                    return
+                rb <<= 1
+        keys = []
+        for mode in modes:
+            keys += [("prefill", (rb, mode, maxp)) for maxp in buckets
+                     for rb in rows(cfg.prefill_rows)]
+            keys += [("decode", (w, mode, maxp)) for maxp in buckets
+                     for w in sorted({1, cfg.decode_window})]
+        if cfg.spec_tokens > 0:
+            keys += [("verify", (rb, cfg.spec_tokens + 1, maxp, False))
+                     for maxp in buckets for rb in rows(cfg.max_batch_size)]
+        return keys
 
     def has_work(self) -> bool:
         return bool(self._pending or self._prefilling or self._active)
@@ -668,18 +758,21 @@ class PagedInferenceEngine(_EngineBase):
                 pos += n
             if len(rows) >= cfg.prefill_rows:
                 break
-        r = len(rows)
+        # the row count is padded to a power of two, as the reference's
+        # is, so the programs stay few: pad rows carry true length 0 and
+        # write only sink page 0
+        rb = self._row_bucket(len(rows), cfg.prefill_rows)
         # block-table width bucket: widest logical page any row reads or
         # writes this dispatch (prefix + chunk = pos + n tokens)
         pg = cfg.page_size
         W = self._page_bucket(max(
             (pos + n + pg - 1) // pg for _, pos, n in rows))
-        chunks = np.zeros((r, c), np.int32)
-        bts = np.zeros((r, W), np.int32)
-        sps = np.zeros((r,), np.int32)
-        tls = np.zeros((r,), np.int32)
-        temps = np.zeros((r,), np.float32)
-        topks = np.zeros((r,), np.int32)
+        chunks = np.zeros((rb, c), np.int32)
+        bts = np.zeros((rb, W), np.int32)
+        sps = np.zeros((rb,), np.int32)
+        tls = np.zeros((rb,), np.int32)
+        temps = np.zeros((rb,), np.float32)
+        topks = np.zeros((rb,), np.int32)
         for i, (req, pos, n) in enumerate(rows):
             chunks[i, :n] = req.prompt_ids[pos:pos + n]
             bts[i] = self._block_tables[req.slot][:W]
@@ -687,9 +780,7 @@ class PagedInferenceEngine(_EngineBase):
             temps[i] = req.params.temperature
             topks[i] = req.params.top_k
         mode = self._sampling_mode([q for q, _, _ in rows])
-        # keyed by the exact row count: the port dispatches the real rows
-        # (the reference pads them to a power of two)
-        with self.profiler.step("prefill", (r, mode, W)):
+        with self.profiler.step("prefill", (rb, mode, W)):
             toks, lps = self._prefill_rows(mode, chunks, bts, sps, tls,
                                            temps, topks)
         self._rng_ctr += 1
@@ -765,13 +856,16 @@ class PagedInferenceEngine(_EngineBase):
             self._spec_cooldown = self._spec_cooldown_len
             self._spec_cooldown_len = min(self._spec_cooldown_len * 2, 256)
             return False
+        # rows padded to a power of two, as for prefill: pad rows have a
+        # zero table and write only sink page 0
         r, s1 = len(slots), s + 1
+        rb = self._row_bucket(r, cfg.max_batch_size)
         # table-width bucket: every row writes positions start..start+s1-1
         W = self._page_bucket(max(
             (self._lengths[sl] + s1 - 1) // page + 1 for sl in slots))
-        toks = np.zeros((r, s1), np.int32)
-        bts = np.zeros((r, W), np.int32)
-        starts = np.zeros((r,), np.int32)
+        toks = np.zeros((rb, s1), np.int32)
+        bts = np.zeros((rb, W), np.int32)
+        starts = np.zeros((rb,), np.int32)
         allow: dict[int, int] = {}
         for i, slot in enumerate(slots):
             req = self._active[slot]
@@ -781,7 +875,7 @@ class PagedInferenceEngine(_EngineBase):
             bts[i] = self._block_tables[slot][:W]
             starts[i] = self._lengths[slot]
         want_lp = any(self._active[sl].params.logprobs for sl in slots)
-        with self.profiler.step("verify", (r, s1, W, want_lp)):
+        with self.profiler.step("verify", (rb, s1, W, want_lp)):
             y, ylp = self._verify_rows(toks, bts, starts, want_lp)
         self.stats["spec_dispatches"] += 1
         emitted = 0
@@ -930,11 +1024,12 @@ class PagedInferenceEngine(_EngineBase):
 
     def estimate_flops(self) -> dict:
         """FLOPs per dispatch for the program families, counted by
-        running one dummy dispatch per static key under
-        ``FlopCounterMode`` (``util/profiling.compiled_flops``; run once,
-        after traffic, not per step). The dummies are warmup's: zero
-        block tables and zero true lengths, every write on sink page 0,
-        and no counter, RNG position or profiler count moves.
+        running one dummy dispatch per static key eagerly under
+        ``FlopCounterMode`` (``util/profiling.compiled_flops``: it cannot
+        see a graph replay; run once, after traffic, not per step). The
+        dummies are warmup's: zero block tables and zero true lengths,
+        every write on sink page 0, and no counter, RNG position or
+        profiler count moves.
 
         Length-aware, as the reference: one estimate PER static key
         — (rows/window, sampling mode, block-table page bucket) — for
@@ -962,25 +1057,31 @@ class PagedInferenceEngine(_EngineBase):
                 self.profiler.attach_flops(kind, fl, key=k)
         return out
 
-    def _dispatch_for_key(self, kind: str, key: tuple):
-        """(fn, *dummy_args) reproducing the static shapes of the
-        dispatch behind a profiler step tag — used by warmup and
-        estimate_flops. Zero block tables and zero true lengths / starts:
-        every write lands on sink page 0."""
+    def _dummy(self, kind: str, key: tuple) -> tuple:
+        """(body, host arrays) of a dispatch at a profiler tag's static
+        key, with zero block tables and zero true lengths / starts:
+        every write lands on sink page 0. Used by warmup."""
         cfg = self.cfg
         bs, c = cfg.max_batch_size, cfg.chunk_size
         zi = lambda *s: np.zeros(s, np.int32)                  # noqa: E731
         zf = lambda *s: np.zeros(s, np.float32)                # noqa: E731
         if kind == "decode":
             w, mode, W = key
-            return (self._decode_window, w, mode, zi(bs), zi(bs, W), zi(bs),
-                    zf(bs), zi(bs))
+            return (functools.partial(self._decode_body, w, mode),
+                    (zi(bs), zi(bs, W), zi(bs), zf(bs), zi(bs), zi(1)))
         if kind == "prefill":
             r, mode, W = key
-            return (self._prefill_rows, mode, zi(r, c), zi(r, W), zi(r),
-                    zi(r), zf(r), zi(r))
+            return (functools.partial(self._prefill_body, mode),
+                    (zi(r, c), zi(r, W), zi(r), zi(r), zf(r), zi(r), zi(1)))
         r, s1, W, want_lp = key                       # verify
-        return self._verify_rows, zi(r, s1), zi(r, W), zi(r), want_lp
+        return (functools.partial(self._verify_body, want_lp),
+                (zi(r, s1), zi(r, W), zi(r)))
+
+    def _dispatch_for_key(self, kind: str, key: tuple):
+        """(fn, *args): fn(*args) runs warmup's dummy dispatch at a
+        profiler tag's static key eagerly (estimate_flops counts it)."""
+        body, arrays = self._dummy(kind, key)
+        return (self._run_eager, body, *arrays)
 
     def profile_summary(self) -> dict:
         """Step-profiler view (util/profiling.py): first-dispatch vs

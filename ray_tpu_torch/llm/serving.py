@@ -8,9 +8,13 @@ router exposes (``llm/openai_api.py``).
 
 ``LLMServer`` runs its engine on a background thread; request threads
 call ``completions`` / ``completions_stream`` concurrently and wait on
-per-request events. An exception inside a dispatch ends the engine loop:
-every waiter wakes, ``completions`` raises ``RuntimeError("llm engine
-loop died")`` and ``check_health`` raises.
+per-request events. On the card the paged engine's programs are CUDA
+graphs (``llm/graphs.py``): warmup captures them in the constructor,
+and a key first met in traffic is captured on the engine thread, in
+thread-local capture mode, while request threads only queue and wait
+(they touch no CUDA state). An exception inside a dispatch ends the
+engine loop: every waiter wakes, ``completions`` raises
+``RuntimeError("llm engine loop died")`` and ``check_health`` raises.
 
 Off in the port, each until its part is ported: the Serve deployment
 (``build_llm_deployment``), usage recording and the object store
@@ -49,8 +53,9 @@ class LLMConfig:
     engine: Optional[EngineConfig | PagedEngineConfig] = None
     tpus_per_replica: float = 0.0
     lora_dir: Optional[str] = None
-    # run every engine program family once at init, before the server
-    # takes requests (warmup_sampled adds the sampled and top-k modes)
+    # build every engine program at init, before the server takes
+    # requests: on the card, capture the paged engine's CUDA graphs over
+    # its key ladder (warmup_sampled adds the sampled and top-k modes)
     warmup: bool = True
     warmup_sampled: bool = False
 

@@ -226,8 +226,9 @@ def rope_freqs(cfg: LlamaConfig, positions):
     """positions [B, S] int -> (cos, sin) each [B, S, head_dim/2], f32."""
     exps = torch.arange(0, cfg.head_dim, 2, dtype=torch.float32,
                         device=positions.device) / cfg.head_dim
-    inv = 1.0 / torch.pow(torch.tensor(cfg.rope_theta, dtype=torch.float32,
-                                       device=positions.device), exps)
+    # theta filled on the device: a host tensor copied in would be a
+    # transfer that a CUDA graph capture refuses
+    inv = 1.0 / torch.pow(torch.full_like(exps, cfg.rope_theta), exps)
     ang = positions[..., None].float() * inv
     return torch.cos(ang), torch.sin(ang)
 

@@ -21,6 +21,7 @@ import shutil
 import subprocess
 import threading
 import time
+from collections import deque
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -64,9 +65,9 @@ def _sources_of(name: str) -> list:
     """The source of library ``name`` and every file under csrc/ that it
     includes with ``#include "..."``, transitively, in first-seen order
     (system headers, in angle brackets, are not followed)."""
-    todo, seen = [SOURCES[name]], []
+    todo, seen = deque([SOURCES[name]]), []
     while todo:
-        rel = todo.pop(0)
+        rel = todo.popleft()
         if rel in seen:
             continue
         seen.append(rel)
@@ -190,10 +191,10 @@ def _bind(name: str, lib: ctypes.CDLL):
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "ragged_paged_attention":
         # dtype, q, k_pages, v_pages, block_tables, starts, q_lens, part_o,
-        # part_ml, out, R, Q, H, KVH, D, page, max_pages, n_splits, warps,
-        # scale, stream
+        # part_ml, out, R, Q, H, KVH, D, page, max_pages, n_splits,
+        # split_pages, warps, scale, stream
         lib.rpa_forward.argtypes = [I, P, P, P, P, P, P, P, P, P,
-                                    I, I, I, I, I, I, I, I, I, F, P]
+                                    I, I, I, I, I, I, I, I, I, I, F, P]
         lib.rpa_forward.restype = I
         # warps per bf16 pass-1 block, D -> dynamic smem bytes
         lib.rpa_smem_bytes.argtypes = [I, I]

@@ -55,21 +55,27 @@
 //     only G of the 16 tensor-core rows are live; decode is bound by
 //     bytes, so the idle rows cost tensor-core issue slots, not time
 //     (tensor-core products were taken for all three families, one design).
-//   * Split-KV: when (rows x kv heads x flat tiles) would not fill the
-//     card (decode and verify: 8 rows x 8 kv heads = 64 blocks at
-//     Llama-3-8B), the wrapper asks for n_splits > 1 and each row's live
-//     pages are cut into splits of whole pages, exactly as the decode
-//     kernel B2 (paged_attention.cu) cuts them: every block of both
-//     passes derives the pages per split from the LONGEST live row of the
-//     call (ceil(longest live pages / n_splits)), on the device, with no
-//     host sync. Pass 1 writes each split's unnormalised (m, l, acc) to
-//     f32 scratch [R, n_splits, Q, H] (+ D); blocks whose split starts
-//     past their own keys return at once; pass 2 (one block per query
-//     position and head) merges only the splits that hold keys of that
-//     query and writes 0 for padding positions (i >= q_lens[r]). With one
-//     split, pass 1 writes the output and pass 2 is not launched.
-//   * Deterministic: no atomics on data (one atomicMax on an integer in
-//     shared memory sizes the splits), so two launches give the same bits.
+//   * Split-KV, batch-invariant: at decode and verify widths (Q <= 32)
+//     each row's keys are cut into splits of a fixed number of whole
+//     pages (split_pages, chosen by the wrapper from the page size
+//     alone: 8 pages of 16 keys), split s covering keys [s * span,
+//     (s + 1) * span), span = split_pages * page_size; the wrapper asks
+//     for ceil(table width / split_pages) splits. Which keys a split
+//     holds therefore depends only on the page index, never on the
+//     call's row count, its longest row or its table width, so a row's
+//     output has the same bits in any batch (the Pallas kernel walks a
+//     row's pages in order, whatever else is in the call). Pass 1 writes
+//     each split's unnormalised (m, l, acc) to f32 scratch [R, n_splits,
+//     Q, H] (+ D); blocks whose split starts past their own keys return
+//     at once; pass 2 (one block per query position and head) merges, in
+//     page order, only the splits that hold keys of that query and
+//     writes 0 for padding positions (i >= q_lens[r]). A query whose
+//     keys lie in one split is written as pass 1 writes an unsplit call
+//     (acc / max(l, 1e-30), rounded once), so the table width does not
+//     change its bits either. Prefill widths (Q > 32) run unsplit: a
+//     whole pass in page order, batch-invariant by itself, and pass 2 is
+//     not launched. No host sync: nothing is sized from the data.
+//   * Deterministic: no atomics, so two launches give the same bits.
 //
 // f32 (ragged_paged_attention_kernel): the first design, kept because
 // tensor cores in f32 would mean TF32, three decimal digits, far from the
@@ -329,37 +335,11 @@ struct RpaMmaCfg {
   static constexpr int kSmemBytes = (ROWS + 4 * BK) * LDS * 2;
 };
 
-// Keys row r attends, at most: positions < start + q_len, clamped to the
-// table's capacity (the reference attends the whole table when a row
-// exceeds it).
-__device__ __forceinline__ int live_keys(int start, int q_len, int Q,
-                                         int cap) {
-  return min(max(start + min(max(q_len, 0), Q), 0), cap);
-}
-
-// Keys each split takes: page_size * max(1, ceil(longest live page count
-// / n_splits)), B2's rule (paged_attention.cu split_pages). Every block of
-// both passes computes it from starts and q_lens alone.
-__device__ int split_span(const int* __restrict__ starts,
-                          const int* __restrict__ q_lens, int R, int Q,
-                          int page_size, int cap, int n_splits) {
-  __shared__ int s_longest;
-  if (threadIdx.x == 0) s_longest = 0;
-  __syncthreads();
-  int longest = 0;
-  for (int r = threadIdx.x; r < R; r += blockDim.x) {
-    const int n = live_keys(starts[r], q_lens[r], Q, cap);
-    longest = max(longest, (n + page_size - 1) / page_size);
-  }
-  atomicMax(&s_longest, longest);
-  __syncthreads();
-  return max(1, (s_longest + n_splits - 1) / n_splits) * page_size;
-}
-
 // Pass 1. q, out: [R, Q, H, D] bf16; k_pages, v_pages: [P, page_size, KVH,
 // D] bf16; block_tables: [R, max_pages]; starts, q_lens: [R].
 // part_o: [R, n_splits, Q, H, D] f32, part_ml: [R, n_splits, Q, H, 2] f32
-// (read only when n_splits > 1).
+// (read only when n_splits > 1); split s holds keys [s * span, (s + 1) *
+// span), span = split_pages * page_size.
 // grid = (KVH * n_splits, ceil(Q * G / ROWS), R), block = 32 NW threads;
 // the flat-row tile index runs backwards (the last tiles see the most
 // keys and start first).
@@ -370,8 +350,9 @@ rpa_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k_pages,
                const int* __restrict__ block_tables,
                const int* __restrict__ starts, const int* __restrict__ q_lens,
                bf16* __restrict__ out, float* __restrict__ part_o,
-               float* __restrict__ part_ml, int R, int Q, int H, int KVH,
-               int page_size, int max_pages, int n_splits, float scale) {
+               float* __restrict__ part_ml, int Q, int H, int KVH,
+               int page_size, int max_pages, int n_splits, int split_pages,
+               float scale) {
   using C = RpaMmaCfg<D, NW>;
   constexpr int ROWS = C::ROWS, BK = C::BK, LDS = C::LDS, NT = C::NT;
   constexpr int VPR = D / 8;  // 16-byte chunks per row
@@ -397,14 +378,14 @@ rpa_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k_pages,
   const int i_lo = flat0 / G;
   const int i_hi = min((min(flat0 + ROWS, n_flat) - 1) / G, q_len - 1);
   const int n_keys = i_hi >= i_lo ? min(start + i_hi + 1, cap) : 0;
-  int k_lo = 0, k_hi = n_keys;
-  if (n_splits > 1) {
-    const int span = split_span(starts, q_lens, R, Q, page_size, cap,
-                                n_splits);
-    k_lo = split * span;
-    k_hi = min(k_lo + span, n_keys);
-    if (k_lo >= k_hi) return;  // uniform: pass 2 reads only used splits
-  }
+  // this split's keys (one split: all of them); written without a branch
+  // on n_splits, which ptxas allocates without spilling at D 64
+  const int span = n_splits > 1 ? split_pages * page_size : cap;
+  const int k_lo = split * span;
+  const int k_hi = min(k_lo + span, n_keys);
+  // uniform: pass 2 reads only used splits; an unsplit block writes its
+  // rows even with no keys (zeros)
+  if (n_splits > 1 && k_lo >= k_hi) return;
   const int n_tiles = (k_hi - k_lo + BK - 1) / BK;
 
   // Q: one address per flat row; rows past Q * G are zero-filled
@@ -524,7 +505,9 @@ rpa_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k_pages,
 
 // Pass 2. grid = (H, Q, R), block = D threads: thread d merges dim d of one
 // (row, query position, head) over the splits that hold keys of that
-// query (m = max m_s, l = sum l_s exp(m_s - m), acc likewise). Padding
+// query, in page order (m = max m_s, l = sum l_s exp(m_s - m), acc
+// likewise). A query whose keys lie in one split gets acc / max(l, 1e-30),
+// the expression pass 1 writes when a call is not split. Padding
 // positions (i >= q_lens[r]) get 0.
 template <int D>
 __global__ void __launch_bounds__(D)
@@ -532,12 +515,12 @@ rpa_merge_kernel(const float* __restrict__ part_o,
                  const float* __restrict__ part_ml,
                  const int* __restrict__ starts,
                  const int* __restrict__ q_lens, bf16* __restrict__ out,
-                 int R, int Q, int H, int page_size, int max_pages,
-                 int n_splits) {
+                 int Q, int H, int page_size, int max_pages, int n_splits,
+                 int split_pages) {
   const int head = blockIdx.x, qi = blockIdx.y, r = blockIdx.z;
   const int d = threadIdx.x;
   const int cap = max_pages * page_size;
-  const int span = split_span(starts, q_lens, R, Q, page_size, cap, n_splits);
+  const int span = split_pages * page_size;
   bf16* o = out + (((size_t)r * Q + qi) * H + head) * D + d;
   if (qi >= min(max(q_lens[r], 0), Q)) {
     *o = __float2bfloat16(0.f);
@@ -548,6 +531,12 @@ rpa_merge_kernel(const float* __restrict__ part_o,
   const int row_keys = min(starts[r] + qi + 1, cap);
   const int n_used = (row_keys + span - 1) / span;
   const size_t row = (size_t)r * n_splits;
+  if (n_used == 1) {
+    const size_t at = (row * Q + qi) * H + head;
+    *o = __float2bfloat16(part_o[at * D + d] /
+                          fmaxf(part_ml[at * 2 + 1], 1e-30f));
+    return;
+  }
   float m = kNegInf;
   for (int s = 0; s < n_used; ++s)
     m = fmaxf(m, part_ml[(((row + s) * Q + qi) * H + head) * 2]);
@@ -567,10 +556,11 @@ cudaError_t launch_mma_nw(const void* q, const void* k_pages,
                           const void* starts, const void* q_lens,
                           void* part_o, void* part_ml, void* out, int R,
                           int Q, int H, int KVH, int page_size,
-                          int max_pages, int n_splits, float scale,
-                          cudaStream_t stream) {
+                          int max_pages, int n_splits, int split_pages,
+                          float scale, cudaStream_t stream) {
   using C = RpaMmaCfg<D, NW>;
   const int tiles = (Q * (H / KVH) + C::ROWS - 1) / C::ROWS;
+  // not a stream operation: legal while the stream is being captured
   cudaError_t e = allow_smem(rpa_kernel_mma<D, NW>, C::kSmemBytes);
   if (e != cudaSuccess) return e;
   dim3 grid1(KVH * n_splits, tiles, R);
@@ -579,15 +569,16 @@ cudaError_t launch_mma_nw(const void* q, const void* k_pages,
       static_cast<const bf16*>(v_pages),
       static_cast<const int*>(block_tables), static_cast<const int*>(starts),
       static_cast<const int*>(q_lens), static_cast<bf16*>(out),
-      static_cast<float*>(part_o), static_cast<float*>(part_ml), R, Q, H,
-      KVH, page_size, max_pages, n_splits, scale);
+      static_cast<float*>(part_o), static_cast<float*>(part_ml), Q, H, KVH,
+      page_size, max_pages, n_splits, split_pages, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess || n_splits == 1) return e;
   dim3 grid2(H, Q, R);
   rpa_merge_kernel<D><<<grid2, D, 0, stream>>>(
       static_cast<const float*>(part_o), static_cast<const float*>(part_ml),
       static_cast<const int*>(starts), static_cast<const int*>(q_lens),
-      static_cast<bf16*>(out), R, Q, H, page_size, max_pages, n_splits);
+      static_cast<bf16*>(out), Q, H, page_size, max_pages, n_splits,
+      split_pages);
   return cudaGetLastError();
 }
 
@@ -600,12 +591,16 @@ cudaError_t launch_mma(const void* q, const void* k_pages,
                        const void* starts, const void* q_lens, void* part_o,
                        void* part_ml, void* out, int R, int Q, int H,
                        int KVH, int page_size, int max_pages, int n_splits,
-                       int warps, float scale, cudaStream_t stream) {
-  if (R > 65535 || Q > 65535 || n_splits < 1) return cudaErrorInvalidValue;
+                       int split_pages, int warps, float scale,
+                       cudaStream_t stream) {
+  if (R > 65535 || Q > 65535 || n_splits < 1 || split_pages < 1 ||
+      (n_splits > 1 && (long long)n_splits * split_pages < max_pages))
+    return cudaErrorInvalidValue;
 #define RPA_NW(NW)                                                          \
   return launch_mma_nw<D, NW>(q, k_pages, v_pages, block_tables, starts,    \
                               q_lens, part_o, part_ml, out, R, Q, H, KVH,   \
-                              page_size, max_pages, n_splits, scale, stream)
+                              page_size, max_pages, n_splits, split_pages,  \
+                              scale, stream)
   switch (warps) {
     case 1: RPA_NW(1);
     case 2: RPA_NW(2);
@@ -620,14 +615,16 @@ cudaError_t launch_mma(const void* q, const void* k_pages,
 // dtype: 0 = float32 (n_splits and warps must be 1), 1 = bfloat16.
 // head_dim: 64 or 128. part_o / part_ml: f32 scratch
 // [R, n_splits, Q, H, D] and [R, n_splits, Q, H, 2], read only when
-// n_splits > 1. warps: per bf16 pass-1 block, 1, 2 or 4.
+// n_splits > 1; split s holds keys [s, s + 1) * split_pages * page_size,
+// and n_splits * split_pages must cover max_pages. warps: per bf16 pass-1
+// block, 1, 2 or 4.
 extern "C" int rpa_forward(int dtype, const void* q, const void* k_pages,
                            const void* v_pages, const void* block_tables,
                            const void* starts, const void* q_lens,
                            void* part_o, void* part_ml, void* out, int R,
                            int Q, int H, int KVH, int D, int page_size,
-                           int max_pages, int n_splits, int warps,
-                           float scale, void* stream) {
+                           int max_pages, int n_splits, int split_pages,
+                           int warps, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && n_splits == 1 && warps == 1 && (D == 64 || D == 128)) {
     return (int)(D == 64 ? launch_f32<float, 64>(
@@ -642,8 +639,8 @@ extern "C" int rpa_forward(int dtype, const void* q, const void* k_pages,
 #define RPA_MMA(DIM)                                                         \
   return (int)launch_mma<DIM>(q, k_pages, v_pages, block_tables, starts,    \
                               q_lens, part_o, part_ml, out, R, Q, H, KVH,   \
-                              page_size, max_pages, n_splits, warps, scale,  \
-                              s)
+                              page_size, max_pages, n_splits, split_pages,   \
+                              warps, scale, s)
   if (dtype == 1 && D == 64) RPA_MMA(64);
   if (dtype == 1 && D == 128) RPA_MMA(128);
 #undef RPA_MMA

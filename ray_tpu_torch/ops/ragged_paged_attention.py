@@ -18,13 +18,18 @@ card to the plain version. In bf16 the kernel runs on tensor cores
 ``cp.async``) and, when the call's blocks would not fill the card
 (decode and verify batches), splits each row's live pages over several
 blocks and merges them in a second launch; p is rounded to bf16 before
-P.V there, as the Pallas kernel rounds it. f32 runs on CUDA cores in one
-launch (no TF32). ``ragged_paged_attention.launches`` counts wrapper
-calls that launched the kernel (one per call, both passes).
+P.V there, as the Pallas kernel rounds it. At decode and verify widths
+(``q_width <= SPLIT_MAX_Q``) it splits each row's keys into runs of a
+fixed number of whole pages (``split_pages``) and merges them in a
+second launch, in page order; prefill widths run unsplit. Which keys a
+split holds depends only on the page index and the page size, so a
+row's output has the same bits in any batch, as the Pallas kernel's has.
+f32 runs on CUDA cores in one launch (no TF32).
+``ragged_paged_attention.launches`` counts wrapper calls that launched
+the kernel (one per call, both passes); a replayed CUDA graph adds the
+launches it captured (``llm/graphs.py``).
 """
 from __future__ import annotations
-
-import functools
 
 import torch
 
@@ -32,8 +37,10 @@ from .paged_attention import NEG_INF
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_HEAD_DIMS = (64, 128)
-# pass-1 blocks to aim for, per SM, when a call is split (B2's figure)
-_BLOCKS_PER_SM = 4
+#: keys per split at decode and verify widths, in whole pages (8 of 16)
+SPLIT_KEYS = 128
+#: widest query window the bf16 kernel splits; prefill chunks run unsplit
+SPLIT_MAX_Q = 32
 
 
 def ragged_paged_reference(q, k_pages, v_pages, block_tables, starts,
@@ -121,26 +128,22 @@ def rows_per_block(n_flat: int) -> int:
     return 16 if n_flat <= 16 else 32 if n_flat <= 32 else 64
 
 
-def num_splits(rows: int, q_width: int, n_heads: int, n_kv_heads: int,
-               max_pages: int, sms: int) -> int:
-    """Splits of each row's live pages for the bf16 kernel's pass 1.
+def split_pages(page_size: int) -> int:
+    """Whole pages each split of the bf16 kernel covers: SPLIT_KEYS keys,
+    at least one page. A function of the page size alone."""
+    return max(1, SPLIT_KEYS // page_size)
 
-    One when rows x kv heads x flat-row tiles already give a block per
-    SM; else enough for about _BLOCKS_PER_SM blocks per SM (B2's rule),
-    and never more than the table has pages. The kernel cuts the splits
-    on the device in whole pages: ceil(longest live page count / splits)
-    pages each, from the call's longest live row."""
-    n_flat = q_width * (n_heads // n_kv_heads)
-    tiles = -(-n_flat // rows_per_block(n_flat))
-    blocks = max(1, rows * n_kv_heads * tiles)
-    if blocks >= sms:
+
+def num_splits(q_width: int, max_pages: int, page_size: int) -> int:
+    """Splits of each row's pages for the bf16 kernel's pass 1: one for
+    prefill widths (q_width > SPLIT_MAX_Q), else enough runs of
+    split_pages(page_size) pages to cover the table. Split s covers the
+    pages [s * split_pages, (s + 1) * split_pages): the boundaries do not
+    depend on the row count, the longest row or the other rows, and a
+    wider table only adds splits that short rows leave empty."""
+    if q_width > SPLIT_MAX_Q:
         return 1
-    return max(1, min(max_pages, -(-_BLOCKS_PER_SM * sms // blocks)))
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
+    return max(1, -(-max_pages // split_pages(page_size)))
 
 
 def _launch_kernel(q, k_pages, v_pages, block_tables, starts, q_lens,
@@ -158,8 +161,7 @@ def _launch_kernel(q, k_pages, v_pages, block_tables, starts, q_lens,
     part_o = part_ml = None
     if q.dtype == torch.bfloat16:
         warps = rows_per_block(qw * (h // kvh)) // 16
-        splits = num_splits(r, qw, h, kvh, max_pages,
-                            _sm_count(q.device.index or 0))
+        splits = num_splits(qw, max_pages, page_size)
     if splits > 1:
         part_o = torch.empty((r, splits, qw, h, d), dtype=torch.float32,
                              device=q.device)
@@ -172,8 +174,8 @@ def _launch_kernel(q, k_pages, v_pages, block_tables, starts, q_lens,
         q_lens.data_ptr(),
         None if part_o is None else part_o.data_ptr(),
         None if part_ml is None else part_ml.data_ptr(), out.data_ptr(),
-        r, qw, h, kvh, d, page_size, max_pages, splits, warps,
-        float(scale), stream)
+        r, qw, h, kvh, d, page_size, max_pages, splits,
+        split_pages(page_size), warps, float(scale), stream)
     if err != 0:
         raise RuntimeError(f"ragged_paged_attention kernel launch failed: "
                            f"CUDA error {err}")

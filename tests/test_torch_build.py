@@ -97,25 +97,28 @@ def test_ragged_rows_per_block(n_flat, rows):
     assert rpa.rows_per_block(n_flat) == rows
 
 
-@pytest.mark.parametrize("rows,q,heads,kv_heads,max_pages,want", [
-    (4, 128, 32, 8, 64, 1),    # 8B prefill chunk rows: 256 blocks, full
-    (9, 128, 8, 2, 40, 1),     # 144 blocks on 132 SMs
-    (8, 1, 32, 8, 64, 9),      # 8B decode: 64 blocks -> ~4 per SM
-    (8, 5, 32, 8, 64, 9),      # 8B verify: 20 flat rows, one 2-warp tile
-    (2, 1, 32, 8, 512, 33),    # two long rows: 16 blocks
-    (40, 1, 8, 2, 127, 7),     # 80 blocks
-    (1, 1, 32, 8, 3, 3),       # never more splits than the table has pages
-    (1, 1, 32, 8, 1, 1),
+@pytest.mark.parametrize("q,max_pages,page,want", [
+    (128, 64, 16, 1),    # 8B prefill chunk rows: unsplit
+    (33, 64, 16, 1),     # just past the widest split window
+    (1, 64, 16, 8),      # 8B decode: 8 pages (128 keys) a split
+    (5, 64, 16, 8),      # 8B verify
+    (1, 512, 16, 64),    # long rows
+    (32, 4, 16, 1),      # a table narrower than one split
+    (1, 127, 8, 8),      # page 8: 16 pages a split
+    (1, 3, 256, 3),      # pages wider than SPLIT_KEYS: one page a split
 ])
-def test_ragged_split_count(rows, q, heads, kv_heads, max_pages, want):
-    """One split when rows x kv heads x flat tiles give a block per SM;
-    else about four blocks per SM, capped at the table's page count. The
-    kernel sizes splits in whole pages from the longest live row
-    (ceil(pages / splits) each), so with at most max_pages splits every
-    split holds at least one page and none cuts one."""
-    n = rpa.num_splits(rows, q, heads, kv_heads, max_pages, 132)
+def test_ragged_split_count(q, max_pages, page, want):
+    """Prefill widths run unsplit; decode and verify widths cut every row
+    into runs of split_pages(page) whole pages, enough to cover the
+    table. The pages of split s depend only on s and the page size: the
+    same in a wider table (more splits, left empty by short rows), with
+    any row count and any other rows."""
+    n = rpa.num_splits(q, max_pages, page)
     assert n == want
-    assert 1 <= n <= max_pages
-    for longest in range(max_pages + 1):
-        pages = max(1, -(-longest // n))
-        assert n * pages >= longest            # every live page is covered
+    sp = rpa.split_pages(page)
+    assert sp == max(1, rpa.SPLIT_KEYS // page)
+    assert n == 1 or n * sp >= max_pages > (n - 1) * sp
+    if n > 1:
+        # a table twice as wide keeps every split's pages and adds splits
+        assert rpa.num_splits(q, 2 * max_pages, page) >= n
+        assert rpa.split_pages(page) == sp

@@ -165,31 +165,84 @@ def test_ragged_kernel_long_rows_split_kv(cuda, dtype, d, page, q_width):
 
 
 def test_ragged_kernel_split_count_two_to_eight(cuda):
-    """A decode batch of 40 rows: 80 blocks on a 132-SM card gives 7
-    splits, so each row's live pages are cut in 2 to 7 pieces."""
-    from ray_tpu_torch.ops.ragged_paged_attention import num_splits
+    """A decode batch of 40 rows of 300-2000 keys: splits of 8 pages
+    (128 keys), so each row's live pages are cut in 3 to 16 pieces, most
+    between two and eight, and the table's 126 pages give 16 splits."""
+    from ray_tpu_torch.ops.ragged_paged_attention import (num_splits,
+                                                          split_pages)
     rng = np.random.RandomState(5)
     lengths = rng.randint(300, 2000, 40)
     lengths[0] = 2000
     args = _rpa_case(torch.bfloat16, 128, 1, 4, 16, lengths - 1,
                      np.ones(40), cuda, seed=5)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    if sms == 132:
-        assert num_splits(40, 1, 8, 2, args[3].shape[1], sms) == 7
+    assert split_pages(16) == 8
+    assert num_splits(1, args[3].shape[1], 16) == 16
     _assert_rpa_matches(args, torch.bfloat16)
 
 
 def test_ragged_kernel_one_split_prefill(cuda):
-    """9 rows x 2 kv heads x 8 tiles of 64 flat rows fill a 132-SM card:
-    one split, pass 1 writes the output itself."""
+    """Prefill widths run unsplit whatever the batch: pass 1 writes the
+    output itself."""
     from ray_tpu_torch.ops.ragged_paged_attention import num_splits
     starts = [0, 37, 256, 0, 500, 16, 3, 130, 64]
     q_lens = [128, 128, 77, 0, 128, 1, 100, 128, 128]
     args = _rpa_case(torch.bfloat16, 128, 128, 4, 16, starts, q_lens, cuda,
                      seed=4)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    assert num_splits(9, 128, 8, 2, args[3].shape[1], sms) == 1 or sms > 144
+    assert num_splits(128, args[3].shape[1], 16) == 1
     _assert_rpa_matches(args, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("q_width", [1, 5, 128])
+@pytest.mark.parametrize("width", [4, 16, 64])
+def test_ragged_kernel_is_batch_invariant(cuda, dtype, q_width, width):
+    """A row called alone and inside batches of 1-8 other rows of mixed
+    lengths, at its own table width and at the widest (64 pages), gives
+    the same bits: the split boundaries depend on the page index and the
+    page size only (decode and verify widths), and prefill widths run
+    unsplit. The row fills its table but for 3 keys."""
+    page, kvh, groups, d, P = 16, 2, 4, 128, 700
+    h = kvh * groups
+    rng = np.random.RandomState(width * 1000 + q_width)
+    g = torch.Generator(device=cuda).manual_seed(width + q_width)
+    kp = torch.randn((P, page, kvh, d), generator=g, device=cuda).to(dtype)
+    vp = torch.randn((P, page, kvh, d), generator=g, device=cuda).to(dtype)
+    kv_len = width * page - 3
+    q_len = min(q_width, kv_len)
+    q_row = torch.randn((1, q_width, h, d), generator=g,
+                        device=cuda).to(dtype)
+    pages_row = rng.choice(np.arange(1, P), width, replace=False)
+
+    def call(n_other, w, at):
+        """The row at index ``at`` among n_other rows of random lengths,
+        every table w pages wide."""
+        n = n_other + 1
+        bt = np.zeros((n, w), np.int32)
+        starts = np.zeros(n, np.int32)
+        q_lens = np.zeros(n, np.int32)
+        q = torch.randn((n, q_width, h, d), generator=g,
+                        device=cuda).to(dtype)
+        for r in range(n):
+            if r == at:
+                bt[r, :width] = pages_row
+                starts[r], q_lens[r] = kv_len - q_len, q_len
+                q[r] = q_row[0]
+                continue
+            keys = int(rng.randint(1, w * page + 1))
+            ql = int(rng.randint(0, min(q_width, keys) + 1))
+            bt[r, :-(-keys // page)] = rng.choice(np.arange(1, P),
+                                                  -(-keys // page))
+            starts[r], q_lens[r] = keys - ql, ql
+        as_t = lambda a: torch.as_tensor(a, device=cuda)   # noqa: E731
+        out = ragged_paged_attention(q, kp, vp, as_t(bt), as_t(starts),
+                                     as_t(q_lens))
+        return out[at, :q_len]
+
+    alone = call(0, width, 0)
+    for w in sorted({width, 64}):
+        for n_other in range(1, 9):
+            got = call(n_other, w, int(rng.randint(0, n_other + 1)))
+            assert torch.equal(got, alone), (w, n_other)
 
 
 @pytest.mark.parametrize("q_width", [1, 5, 64])
@@ -262,6 +315,118 @@ def test_engine_on_card_matches_engine_on_cpu(cuda):
     a = PagedInferenceEngine(cfg, on_card, device=cuda).generate(prompts, sp)
     b = PagedInferenceEngine(cfg, params, device="cpu").generate(prompts, sp)
     assert [x["token_ids"] for x in a] == [x["token_ids"] for x in b]
+
+
+def _bf16_engines(cuda, **kw):
+    """A captured and an eager paged engine on one bf16 model (head_dim
+    64, GQA 2), same weights and seed; the captured one warmed up."""
+    from ray_tpu_torch.llm import PagedEngineConfig, PagedInferenceEngine
+    from ray_tpu_torch.models import llama
+    mc = llama.llama_tiny(vocab_size=300, dim=256, n_heads=4, n_kv_heads=2,
+                          mlp_dim=512, max_seq_len=512, dtype=torch.bfloat16)
+    params = llama.init(mc, seed=4, device=cuda)
+    cfg = PagedEngineConfig(model=mc, **{
+        **dict(max_batch_size=4, page_size=16, num_pages=96,
+               max_pages_per_seq=32, chunk_size=32, decode_window=4), **kw})
+    captured = PagedInferenceEngine(cfg, params, rng_seed=3, device=cuda)
+    eager = PagedInferenceEngine(cfg, params, rng_seed=3, device=cuda)
+    eager._eager = True
+    captured.warmup(sample_modes=((False, False), (True, True)))
+    return captured, eager
+
+
+FAMILY_RUNS = {
+    # long prompts, one token: prefill dispatches only
+    "prefill": (dict(), lambda rng: (
+        [[int(t) for t in rng.randint(0, 300, n)] for n in (70, 33, 150, 9)],
+        [dict(max_tokens=1, logprobs=1), dict(max_tokens=1, temperature=0.9),
+         dict(max_tokens=1), dict(max_tokens=1, temperature=1.0, top_k=5)])),
+    # greedy, sampled, top-k and logprobs rows decoding together
+    "decode": (dict(), lambda rng: (
+        [[int(t) for t in rng.randint(0, 300, n)] for n in (5, 40, 17, 60)],
+        [dict(max_tokens=14, logprobs=1), dict(max_tokens=14, temperature=0.8),
+         dict(max_tokens=14), dict(max_tokens=14, temperature=1.2,
+                                   top_k=7)])),
+    # greedy rows with drafts of their last tokens: speculative verify
+    # dispatches (random weights seldom repeat themselves)
+    "verify": (dict(spec_tokens=4, page_buckets="on"), lambda rng: (
+        [[7, 8, 9] * 6, [11, 12] * 8],
+        [dict(max_tokens=30, logprobs=1), dict(max_tokens=30)])),
+}
+
+
+@pytest.mark.parametrize("family", sorted(FAMILY_RUNS))
+def test_captured_dispatch_equals_eager_body(cuda, family):
+    """The same traffic through CUDA graphs and through the eager bodies
+    on the card gives the same bits: tokens, logprobs, every page from 1
+    up, the dispatch counters and the ragged kernel's launches (a replay
+    adds the launches its capture made)."""
+    from ray_tpu_torch.llm import SamplingParams
+    kw, make = FAMILY_RUNS[family]
+    captured, eager = _bf16_engines(cuda, **kw)
+    prompts, params = make(np.random.RandomState(6))
+    sps = [SamplingParams(**p) for p in params]
+    if family == "verify":
+        for eng in (captured, eager):
+            eng._propose_draft = lambda ctx, n, s: [int(t) for t in
+                                                    ctx[-s:]]
+    runs = []
+    for eng in (captured, eager):
+        before = ragged_paged_attention.launches
+        out = eng.generate(prompts, sps)
+        torch.cuda.synchronize()
+        runs.append((out, ragged_paged_attention.launches - before))
+    (a, la), (b, lb) = runs
+    assert [x["token_ids"] for x in a] == [x["token_ids"] for x in b]
+    assert [x["logprobs"] for x in a] == [x["logprobs"] for x in b]
+    assert captured.stats == eager.stats
+    assert la == lb > 0
+    key = {"prefill": "prefill_dispatches", "decode": "decode_dispatches",
+           "verify": "spec_dispatches"}[family]
+    assert captured.stats[key] > 0
+    # the traffic ran replays of programs captured at warmup, and only a
+    # key warmup does not build (a logprobs mode) was captured lazily
+    assert len(captured._graphs) >= len(captured._warmup_keys(
+        ((False, False), (True, True))))
+    for ca, ea in zip(captured.caches, eager.caches):
+        assert torch.equal(ca["k"][1:], ea["k"][1:])
+        assert torch.equal(ca["v"][1:], ea["v"][1:])
+
+
+def test_graph_replay_counts_its_kernel_launches(cuda):
+    """A replayed decode window of w steps adds n_layers x w launches,
+    as the eager body does; capturing adds none. Each row writes and
+    reads its own two pages (never written before, so zero in both
+    engines), so all three dispatches see the same pages."""
+    from ray_tpu_torch.llm.graphs import GraphCache
+    captured, eager = _bf16_engines(cuda)
+    n_layers, w = captured.cfg.model.n_layers, captured.cfg.decode_window
+    mode, width = (True, True, False), captured._page_bucket_ladder()[0]
+    bt = np.zeros((4, width), np.int32)
+    bt[:, :2] = np.arange(1, 9).reshape(4, 2)
+    args = (w, mode, np.asarray([3, 5, 0, 9], np.int32), bt,
+            np.asarray([1, 2, 0, 6], np.int32),
+            np.asarray([0.0, 1.0, 0.0, 0.5], np.float32),
+            np.asarray([0, 4, 0, 0], np.int32))
+    tag = ("decode", (w, mode, width))
+    assert tag in captured._graphs
+    deltas = []
+    for eng in (captured, eager, captured):
+        before = ragged_paged_attention.launches
+        out, _ = eng._decode_window(*args)
+        torch.cuda.synchronize()
+        deltas.append((ragged_paged_attention.launches - before, out))
+    assert [d for d, _ in deltas] == [n_layers * w] * 3
+    assert all(np.array_equal(deltas[0][1], o) for _, o in deltas)
+    cache = GraphCache(cuda)
+    before = ragged_paged_attention.launches
+    cache.run(("decode", "new"), lambda *t: captured._decode_body(w, mode,
+                                                                  *t),
+              list(args[2:]) + [captured._ctr()])
+    # the first dispatch at a key runs the body once (its result) and
+    # captures it: only the run launched
+    assert ragged_paged_attention.launches - before == n_layers * w
+    assert len(cache) == 1 and len(cache.capture_s) == 1
 
 
 # -- decode-only paged attention (split-KV) ---------------------------------

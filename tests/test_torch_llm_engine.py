@@ -21,7 +21,7 @@ from ray_tpu_torch.llm import (EngineConfig, InferenceEngine, LLMPredictor,
 from ray_tpu_torch.llm.batch import (ProcessorConfig, _EngineActor,
                                      _default_engine_cfg, _engine_batch,
                                      _get_engine)
-from ray_tpu_torch.llm.engine import sample_logits
+from ray_tpu_torch.llm.engine import fold_in, root_key, sample_logits
 from ray_tpu_torch.models import llama as tllama
 from ray_tpu_torch.models.convert import params_from_numpy
 
@@ -119,10 +119,10 @@ def test_sample_logits_top_k_and_greedy():
     assert torch.equal(sample_logits(logits, None, 0.0, 5),
                        torch.argmax(logits, -1))
     top3 = torch.topk(logits, 3).indices
-    gen = torch.Generator().manual_seed(1)
+    base = root_key(1, "cpu")
     seen = set()
-    for _ in range(200):
-        tok = sample_logits(logits, gen, 1.5, 3)
+    for i in range(200):
+        tok = sample_logits(logits, fold_in(base, i), 1.5, 3)
         assert all(int(t) in top3[r].tolist() for r, t in enumerate(tok))
         seen.add(int(tok[0]))
     assert len(seen) > 1

@@ -18,7 +18,7 @@ from ray_tpu.llm import SamplingParams as JaxSamplingParams
 from ray_tpu.models import llama as jllama
 from ray_tpu_torch.llm import (PagedEngineConfig, PagedInferenceEngine,
                                SamplingParams)
-from ray_tpu_torch.llm.engine import sample_logits_batch
+from ray_tpu_torch.llm.engine import fold_in, root_key, sample_logits_batch
 from ray_tpu_torch.models import llama as tllama
 from ray_tpu_torch.models.convert import params_from_numpy
 
@@ -162,9 +162,10 @@ def test_sample_logits_batch_honours_top_k_and_softmax():
     top_ks = torch.tensor([0, 3, 0], dtype=torch.int32)
     top3 = set(torch.topk(logits[1], 3).indices.tolist())
     counts = np.zeros(v)
-    gen = torch.Generator().manual_seed(0)
-    for _ in range(4000):
-        tok, lp = sample_logits_batch(logits, gen, temps, top_ks)
+    base = root_key(0, "cpu")
+    for i in range(4000):
+        tok, lp = sample_logits_batch(logits, fold_in(base, i), temps,
+                                      top_ks)
         assert tok.dtype == torch.int32
         assert int(tok[0]) == int(torch.argmax(logits[0]))
         assert int(tok[1]) in top3

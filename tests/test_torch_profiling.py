@@ -8,8 +8,11 @@ FLOPs estimate.
 - On the CPU the peak is unknown, so MFU is None.
 - With warmup off, every dispatch is one profiled step: per family,
   first dispatches at a key plus later ones equal the dispatch count,
-  on both packages (each keys prefill by its own row count: the port
-  dispatches the real rows, the reference pads to a power of two).
+  on both packages, and both book the same keys (prefill and verify rows
+  padded to a power of two, the table width to its page bucket).
+- Warmup books the reference's programs: the same (family, static key)
+  tags over the row and page-bucket ladders, after which the same
+  traffic executes the same tags with no first dispatch left.
 - estimate_flops runs dummy dispatches that write only sink page 0: the
   engine's counters, RNG position, profiler counts and every page from
   1 up are unchanged, and the counted FLOPs match the analytic count,
@@ -39,6 +42,9 @@ SHAPE = dict(vocab_size=258, max_seq_len=512)
 ENGINE = dict(max_batch_size=3, page_size=8, num_pages=64,
               max_pages_per_seq=16, chunk_size=16, prefill_rows=2,
               decode_window=4, spec_tokens=4, page_buckets="on")
+STAT_KEYS = ("prefill_dispatches", "decode_dispatches", "spec_dispatches",
+             "spec_proposed", "spec_accepted", "tokens_out", "prefix_hits",
+             "prefix_misses", "prefix_evictions", "prefix_tokens_saved")
 
 
 def _script(prof):
@@ -141,8 +147,31 @@ def test_profiled_steps_equal_dispatches_on_both_packages():
                                    "decode": want["decode"],
                                    "spec": want["verify"]}
     assert port.stats["spec_dispatches"] > 0
-    assert sum(_per_kind(port.profiler).values()) == \
-        sum(_per_kind(jax_eng.profiler).values())
+    assert _per_kind(port.profiler) == _per_kind(jax_eng.profiler)
+    assert port.profiler._seen == jax_eng.profiler._seen
+    assert port.profiler.executed_tags() == jax_eng.profiler.executed_tags()
+    assert {k: port.stats[k] for k in STAT_KEYS} == \
+        {k: jax_eng.stats[k] for k in STAT_KEYS}
+
+
+def test_warmup_books_the_reference_programs():
+    jax_eng, port = _pair()
+    jax_eng.warmup()
+    port.warmup()
+    assert port.profiler._seen == jax_eng.profiler._seen
+    assert port.profiler.compiles == jax_eng.profiler.compiles == \
+        len(port._warmup_keys(((False, False),)))
+    kinds = {kind for kind, _ in port.profiler._seen}
+    assert kinds == {"prefill", "decode", "verify"}
+    assert _run(port, SamplingParams) == _run(jax_eng, JaxSP)
+    # every key the traffic met was built at warmup
+    for eng in (jax_eng, port):
+        assert eng.profiler.compiles == len(eng.profiler._seen)
+        assert set(eng.profiler.executed_tags()) <= eng.profiler._seen
+    assert port.profiler.executed_tags() == jax_eng.profiler.executed_tags()
+    assert port.profiler.steps_by_kind == jax_eng.profiler.steps_by_kind
+    assert {k: port.stats[k] for k in STAT_KEYS} == \
+        {k: jax_eng.stats[k] for k in STAT_KEYS}
 
 
 def _analytic_flops(mc, cfg, kind, key) -> int:
