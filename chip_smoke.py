@@ -99,10 +99,31 @@ and prints no result line):
    matmuls only: the FLOP counter cannot see the ragged kernel; each
    estimate must match the analytic matmul count within 1%). Stops the
    engine thread.
+4d. tenants and KV mobility: the server freed, PagedInferenceEngine at
+   full Llama-3-8B width (32 layers, bf16, seed-0 weights) with a slot
+   table (3 adapters of rank 8 on wq/wk/wv/wo/lm_head from seeds 1-3,
+   slot 0 base), the host spill tier (512 MiB) and a 256-page pool, on
+   captured programs, serves three waves: base and tenant requests
+   (greedy, sampled, top-k, logprobs; a prefix shared within a tenant
+   and one across tenants), a wave that evicts every page of the first
+   (demoted to the tier), and the first wave again (promoted); then two
+   verify dispatches with tenant rows. Launch counts are reset just
+   before and read just after. Fails unless an eager engine gives the
+   same tokens, logprobs, counters, launches by family and pages; a
+   plain engine (no slot table) the base rows' tokens and logprobs; the
+   tier off the greedy tokens; each tenant's greedy request alone its
+   tokens in the mix; a slot reloaded after capture the new adapter's
+   tokens; promoted pages the bits exported before eviction; and an
+   engine on the same weights tensors, importing a prefill export and a
+   prefix export, A's tokens with the prefix bitwise re-exported. Prints
+   tokens/s per wave LoRA on and off, programs and seconds per capture,
+   ms per demoted and promoted page, ms for one import_prefill, the
+   merged-weights agreement (not held: bf16 merge-then-cast is not the
+   f32 delta) and B1 launches by family.
 5b. dense agreement: phase 5's small f32 model through InferenceEngine on
    the card and on the CPU gives identical greedy tokens.
 
-Phases run in the order 1, 2, 3, 3c, 3b, 4, 4b, 4c, 5, 5b, 6, 7. The
+Phases run in the order 1, 2, 3, 3c, 3b, 4, 4b, 4c, 4d, 5, 5b, 6, 7. The
 second-to-last line is the card from nvidia-smi, the one before it the
 kernels' JSON record, and the last line {"ok": true, "device": ...}.
 
@@ -1350,6 +1371,373 @@ def llm_server(model_cfg, device, seed: int = 0, **engine_kw) -> dict:
                           "matmuls and the plain attention"}
 
 
+# -- phase 4d: tenants and KV mobility at full width -------------------------
+
+#: LoRA rank and targets of phase 4d's adapters (the slot table's)
+TENANT_RANK = 8
+TENANT_TARGETS = ("wq", "wk", "wv", "wo", "lm_head")
+
+
+def _tenant_waves(vocab: int, seed: int):
+    """Phase 4d's traffic: three waves of (prompt, SamplingParams, slot,
+    salt). Wave 1 mixes base and 3 tenants (slots 1-3), greedy and
+    sampled, two requests of tenant 1 sharing a 256-token prefix and
+    tenants 2 and 3 sharing another across tenants (no hits: the salts
+    differ); wave 2 is 12 base prompts of 360 tokens, more pages than the
+    pool holds, so every page of wave 1 is evicted (demoted to the
+    tier); wave 3 is wave 1 again (promoted from the tier)."""
+    from ray_tpu_torch.llm import SamplingParams
+    from ray_tpu_torch.llm.multilora import prefix_salt
+    rng = np.random.RandomState(seed)
+    ids = lambda n: [int(t) for t in rng.randint(0, vocab, n)]  # noqa: E731
+    salt = {s: prefix_salt(f"tenant-{s}", 0) for s in (1, 2, 3)}
+    salt[0] = b""
+    own, cross = ids(256), ids(256)
+    greedy = SamplingParams(max_tokens=16)
+    greedy_lp = SamplingParams(max_tokens=16, logprobs=1)
+    sampled = SamplingParams(max_tokens=16, temperature=0.8)
+    topk = SamplingParams(max_tokens=16, temperature=1.0, top_k=50)
+    rows = [(ids(300), greedy, 0), (ids(200), sampled, 0),
+            (own + ids(60), greedy, 1), (own + ids(90), sampled, 1),
+            (cross + ids(50), greedy_lp, 2), (ids(150), topk, 2),
+            (cross + ids(70), greedy, 3), (ids(120), sampled, 3),
+            (own + ids(40), greedy_lp, 0)]
+    wave1 = [(p, sp, s, salt[s]) for p, sp, s in rows]
+    wave2 = [(ids(360), SamplingParams(max_tokens=4), 0, b"")
+             for _ in range(12)]
+    return [wave1, wave2, list(wave1)]
+
+
+def _submit_wave(eng, wave, as_base: bool = False):
+    """Submit a wave and run it to the end; ``as_base`` sends every
+    request as a base request (slot 0) with its salt kept, so a plain
+    engine schedules the wave exactly as the LoRA engine does."""
+    reqs = [eng.submit(p, sp, adapter_slot=0 if as_base else slot,
+                       prefix_salt=salt) for p, sp, slot, salt in wave]
+    eng.run_until_done(reqs)
+    return [(list(r.out_ids), list(r.out_logps)) for r in reqs]
+
+
+def _gen(eng, prompt, sp, slot=0, salt=b""):
+    req = eng.submit(prompt, sp, adapter_slot=slot, prefix_salt=salt)
+    eng.run_until_done([req])
+    return list(req.out_ids)
+
+
+def _timed(eng, name: str, sink: list, sync, stat: str):
+    """Wrap ``eng.<name>`` (a demote or a promote) to append (seconds,
+    pages) to sink for each call that moved pages, the pages read off
+    ``eng.stats[stat]``, synchronised so the time covers the copies."""
+    fn = getattr(eng, name)
+
+    def run(*a):
+        n0 = eng.stats[stat]
+        t0 = time.perf_counter()
+        out = fn(*a)
+        sync()
+        if eng.stats[stat] > n0:
+            sink.append((time.perf_counter() - t0, eng.stats[stat] - n0))
+        return out
+    setattr(eng, name, run)
+
+
+def _family_counter(eng, fam: dict, rpa):
+    for name, attr in (("prefill", "_prefill_step"),
+                       ("decode", "_decode_step")):
+        fn = getattr(eng, attr)
+
+        def counted(fn=fn, name=name):
+            before = rpa.launches
+            fn()
+            fam[name] += rpa.launches - before
+        setattr(eng, attr, counted)
+
+
+def _tenant_run(params, cfg, adapters, device, seed, eager, waves,
+                as_base=False, warm=True):
+    """One engine of phase 4d over the three waves (then, for the
+    LoRA engines, two verify dispatches with tenant rows). Returns the
+    engine, outputs, B1 launches by family, pages exported before and
+    after the eviction, and the timings."""
+    from ray_tpu_torch.llm import PagedInferenceEngine
+    from ray_tpu_torch.ops.ragged_paged_attention import \
+        ragged_paged_attention as rpa
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    eng = PagedInferenceEngine(cfg, params=params, rng_seed=seed,
+                               device=device)
+    eng._eager = eager
+    for slot, ad in enumerate(adapters, start=1):
+        eng.load_adapter_slot(slot, ad)
+    t0 = time.perf_counter()
+    if warm and not eager:
+        eng.warmup(sample_modes=((False, False, False), (True, True, True)))
+    sync()
+    warm_s = time.perf_counter() - t0
+    demotes, promotes = [], []
+    if eng.spill is not None:
+        _timed(eng, "_maybe_demote", demotes, sync, "spill_pages")
+        _timed(eng, "_promote_for_locked", promotes, sync,
+               "spill_promotions")
+    fam = {"prefill": 0, "decode": 0, "verify": 0}
+    _family_counter(eng, fam, rpa)
+    rpa.launches = 0                       # main path starts here
+    outs, secs, exported = [], [], {}
+    for i, wave in enumerate(waves):
+        t1 = time.perf_counter()
+        outs.append(_submit_wave(eng, wave, as_base))
+        sync()
+        secs.append(time.perf_counter() - t1)
+        if i == 0:
+            # pages of each wave-1 chain before wave 2 evicts them
+            for p, _sp, slot, salt in wave:
+                hs = eng.hash_prompt(p, salt)
+                if hs and eng.cached_prefix_len(hs) == len(hs):
+                    exported[(tuple(p), salt)] = (hs, eng.export_prefix(hs))
+        if i == 1:
+            for hs, _ in exported.values():
+                if eng.cached_prefix_len(hs) != 0:
+                    raise AssertionError("wave 2 left a wave-1 page hot")
+                if eng.spill is not None and \
+                        eng.spill.covered_run(hs) != len(hs):
+                    raise AssertionError("a wave-1 page missed the tier")
+    after = {key: eng.export_prefix(hs) for key, (hs, _) in exported.items()}
+    verify = None
+    if not as_base and eng.lora is not None:
+        # verify family with tenant rows: 4 rows of 5 tokens on pages
+        # taken from the allocator and given back (cached pages keep
+        # their content)
+        R, S1, page = 4, 5, cfg.page_size
+        rng = np.random.RandomState(seed + 1)
+        toks = rng.randint(0, cfg.model.vocab_size, (R, S1)).astype(np.int32)
+        starts = np.asarray([3, 40, 130, 250], np.int32)
+        need = [-(-(int(s) + S1) // page) for s in starts]
+        pids = eng._claim_pages([], sum(need))
+        bts = np.zeros((R, cfg.max_pages_per_seq), np.int32)
+        for r in range(R):
+            o = sum(need[:r])
+            bts[r, :need[r]] = pids[o:o + need[r]]
+        lslots = np.asarray([1, 2, 3, 0], np.int32)
+        before = rpa.launches
+        verify = [eng._verify_rows(toks, bts, starts, True, lslots)
+                  for _ in range(2)]
+        sync()
+        fam["verify"] = rpa.launches - before
+        for pid in pids:
+            eng._decref(pid)
+    launches = rpa.launches                # main path ends here
+    return {"engine": eng, "outs": outs, "secs": secs, "warm_s": warm_s,
+            "fam": dict(fam), "launches": launches, "verify": verify,
+            "exported": {k: v[1] for k, v in exported.items()},
+            "after": after, "demotes": demotes, "promotes": promotes}
+
+
+def _per_page_ms(calls):
+    pages = sum(n for _, n in calls)
+    return 1e3 * sum(s for s, _ in calls) / pages if pages else None
+
+
+def _pages_equal(a: dict, b: dict) -> bool:
+    return a is not None and b is not None and \
+        a["page_hashes"] == b["page_hashes"] and all(
+        np.array_equal(la[kv], lb[kv])
+        for la, lb in zip(a["pages"], b["pages"]) for kv in ("k", "v"))
+
+
+def tenants_and_kv(model_cfg, device, seed: int = 0, num_pages: int = 256,
+                   spill_pages: int = 256, **engine_kw) -> dict:
+    """Phase 4d (also rehearsed on the CPU at tiny size): engine A, the
+    paged engine with a slot table (slot 0 base, 3 adapters of rank 8 on
+    wq/wk/wv/wo/lm_head from seeds 1-3), the host spill tier and a pool
+    the traffic overflows, on captured programs, over three waves
+    (``_tenant_waves``) and two verify dispatches with tenant rows. Each
+    check raises:
+    - captured vs eager: an eager engine on the same traffic gives the
+      same tokens, logprobs, verify outputs, counters, B1 launches by
+      family and pages, bit for bit;
+    - base rows: a plain engine (no slot table) on the same traffic sent
+      as base requests gives every base request's tokens and logprobs;
+    - tenants alone: each tenant's greedy request alone gives its tokens
+      in the mix (the merged-weights engine's agreement is printed);
+    - reload: a slot reloaded after capture serves the new adapter;
+    - spill: tier-off greedy tokens equal tier-on; demotions and
+      promotions > 0; every promoted page is bitwise the page exported
+      before its eviction;
+    - payloads: engine B (same params tensors, no slot table) imports
+      A's prefill export and decodes A's greedy tokens; it imports A's
+      prefix export, re-exports it bitwise and admits the prompt with
+      prefix hits."""
+    from ray_tpu_torch.llm import (PagedEngineConfig, PagedInferenceEngine,
+                                   SamplingParams, lora)
+    from ray_tpu_torch.ops.ragged_paged_attention import \
+        ragged_paged_attention as rpa
+    from ray_tpu_torch.models import llama
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    params = llama.init(model_cfg, seed=seed, device=device)
+    adapters = [lora.random_adapter(s, model_cfg, rank=TENANT_RANK,
+                                    alpha=2.0 * TENANT_RANK,
+                                    targets=TENANT_TARGETS)
+                for s in (1, 2, 3)]
+    page_nbytes = (2 * model_cfg.n_layers * engine_kw["page_size"]
+                   * model_cfg.n_kv_heads * model_cfg.head_dim
+                   * torch.empty((), dtype=model_cfg.dtype).element_size())
+    base_kw = dict(engine_kw, num_pages=num_pages, kv_spill=True,
+                   kv_spill_max_bytes=spill_pages * page_nbytes)
+    lcfg = PagedEngineConfig(model=model_cfg, max_adapters=4,
+                             lora_rank=TENANT_RANK,
+                             lora_targets=TENANT_TARGETS, **base_kw)
+    waves = _tenant_waves(model_cfg.vocab_size, seed + 5)
+    wave1 = waves[0]
+    cap = _tenant_run(params, lcfg, adapters, device, seed, False, waves)
+    eag = _tenant_run(params, lcfg, adapters, device, seed, True, waves)
+    A, E = cap["engine"], eag["engine"]
+    # captured against eager: the same kernels on the same inputs
+    if cap["outs"] != eag["outs"]:
+        raise AssertionError("captured and eager tokens/logprobs differ")
+    for (y, lp), (y2, lp2) in zip(cap["verify"], eag["verify"]):
+        if not (np.array_equal(y, y2) and np.array_equal(lp, lp2)):
+            raise AssertionError("verify outputs differ")
+    if A.stats != E.stats or cap["fam"] != eag["fam"]:
+        raise AssertionError(f"counters or B1 launches differ: "
+                             f"{A.stats} {cap['fam']} / {E.stats} "
+                             f"{eag['fam']}")
+    for a, b in zip(A.caches, E.caches):
+        if not (torch.equal(a["k"][1:], b["k"][1:])
+                and torch.equal(a["v"][1:], b["v"][1:])):
+            raise AssertionError("pages differ between captured and eager")
+    if cuda and (len(A._graphs) <= 0 or min(cap["fam"].values()) <= 0):
+        raise AssertionError(f"captured nothing or a family never "
+                             f"launched B1: {cap['fam']}")
+    # spill: demoted, promoted, and promoted pages bitwise the originals
+    if A.stats["spill_demotions"] <= 0 or A.stats["spill_promotions"] <= 0:
+        raise AssertionError(f"spill tier idle: {A.stats}")
+    for key, before in cap["exported"].items():
+        if not _pages_equal(before, cap["after"][key]):
+            raise AssertionError("a promoted page differs from its export")
+    # tier off: the same greedy tokens (eager, LoRA engine)
+    fcfg = PagedEngineConfig(model=model_cfg, max_adapters=4,
+                             lora_rank=TENANT_RANK,
+                             lora_targets=TENANT_TARGETS,
+                             **dict(base_kw, kv_spill=False))
+    off = _tenant_run(params, fcfg, adapters, device, seed, True, waves)
+    for w, (a_out, f_out) in enumerate(zip(cap["outs"], off["outs"])):
+        for (p, sp, _s, _salt), x, y in zip(waves[w], a_out, f_out):
+            if sp.temperature <= 0 and x[0] != y[0]:
+                raise AssertionError("tier off changed greedy tokens")
+    del off
+    # base rows: a plain engine, LoRA off, captured, same scheduling
+    pcfg = PagedEngineConfig(model=model_cfg, **base_kw)
+    plain = _tenant_run(params, pcfg, [], device, seed, False, waves,
+                        as_base=True)
+    P = plain["engine"]
+    for k in ("prefill_dispatches", "decode_dispatches", "prefix_hits"):
+        if P.stats[k] != A.stats[k]:
+            raise AssertionError(f"plain engine scheduled otherwise: {k}")
+    for w, wave in enumerate(waves):
+        for (p, sp, slot, _salt), x, y in zip(wave, cap["outs"][w],
+                                              plain["outs"][w]):
+            if slot == 0 and x != y:
+                raise AssertionError(f"base row differs with LoRA on: "
+                                     f"{x} != {y}")
+    tps = {"lora_on": [sum(len(o[0]) for o in out) / s for out, s in
+                       zip(cap["outs"], cap["secs"])],
+           "lora_off": [sum(len(o[0]) for o in out) / s for out, s in
+                        zip(plain["outs"], plain["secs"])]}
+    del plain, P
+    # tenants alone, and against merged weights (printed, not held)
+    alone_ok, merged = 0, {}
+    for (p, sp, slot, salt), (toks, _) in zip(wave1, cap["outs"][0]):
+        if slot == 0 or sp.temperature > 0:
+            continue
+        if _gen(A, p, sp, slot, salt) != toks:
+            raise AssertionError(f"tenant {slot}: alone != mixed")
+        alone_ok += 1
+        m = PagedInferenceEngine(
+            PagedEngineConfig(model=model_cfg, **dict(base_kw,
+                                                      kv_spill=False)),
+            params=lora.merge(params, adapters[slot - 1]), device=device)
+        m._eager = True
+        mt = _gen(m, p, sp)
+        same = next((i for i, (a, b) in enumerate(zip(mt, toks)) if a != b),
+                    len(toks))
+        merged[f"tenant-{slot}"] = {"equal_prefix": same,
+                                    "tokens": len(toks)}
+        del m
+    # reload: slot 3 takes adapter 1 after capture
+    ptrs = {k: t.data_ptr() for k, t in A.lora.tree.items()}
+    x = [int(t) for t in np.random.RandomState(seed + 9).randint(
+        0, model_cfg.vocab_size, 100)]
+    g = SamplingParams(max_tokens=16)
+    before = _gen(A, x, g, 3, b"reload-a")
+    t1 = time.perf_counter()
+    A.load_adapter_slot(3, adapters[0])
+    sync()
+    reload_s = time.perf_counter() - t1
+    after = _gen(A, x, g, 3, b"reload-b")
+    if after != _gen(A, x, g, 1, b"reload-c") or after == before or \
+            {k: t.data_ptr() for k, t in A.lora.tree.items()} != ptrs:
+        raise AssertionError("slot reload did not reach the replay")
+    # payloads into engine B: same params tensors, no slot table
+    bcfg = PagedEngineConfig(model=model_cfg, **dict(engine_kw,
+                                                     num_pages=num_pages))
+    B = PagedInferenceEngine(bcfg, params=params, rng_seed=seed,
+                             device=device)
+    pd_prompt = wave1[0][0]
+    whole = _gen(A, pd_prompt, g)
+    _gen(B, [int(t) for t in np.random.RandomState(seed + 11).randint(
+        0, model_cfg.vocab_size, 200)], g)    # B's programs captured
+    pools = [(c["k"].data_ptr(), c["v"].data_ptr()) for c in B.caches]
+    payload = A.prefill_export(pd_prompt, g)
+    sync()
+    t1 = time.perf_counter()
+    req = B.import_prefill(payload, g)
+    sync()
+    import_s = time.perf_counter() - t1
+    B.run_until_done([req])
+    if req.out_ids != whole:
+        raise AssertionError(f"PD tokens {req.out_ids} != {whole}")
+    px = waves[1][0][0]
+    hs = A.hash_prompt(px)
+    A_export = A.export_prefix(hs)
+    if A_export is None:
+        _gen(A, px, g)
+        A_export = A.export_prefix(hs)
+    n_imp = B.import_prefix(A_export, reserve_pages=0)
+    if n_imp <= 0 or not _pages_equal(A_export, B.export_prefix(hs)):
+        raise AssertionError("prefix import/re-export not bitwise")
+    hits0 = B.stats["prefix_hits"]
+    b_toks = _gen(B, px, g)
+    if B.stats["prefix_hits"] - hits0 < len(hs) or \
+            b_toks != _gen(A, px, g):
+        raise AssertionError("B did not admit the imported prefix")
+    if [(c["k"].data_ptr(), c["v"].data_ptr()) for c in B.caches] != pools:
+        raise AssertionError("an import rebound B's pools")
+    graphs = A._graphs
+    return {"launches": cap["launches"], "launches_by_family": cap["fam"],
+            "tokens_per_s_by_wave": tps, "waves_s": cap["secs"],
+            "warmup_s": cap["warm_s"],
+            "programs": len(graphs) if graphs is not None else 0,
+            "capture_s_mean": (statistics.mean(graphs.capture_s)
+                               if graphs is not None and graphs.capture_s
+                               else None),
+            "demote_ms_per_page": _per_page_ms(cap["demotes"]),
+            "promote_ms_per_page": _per_page_ms(cap["promotes"]),
+            "pages_demoted": sum(n for _, n in cap["demotes"]),
+            "pages_promoted": sum(n for _, n in cap["promotes"]),
+            "import_prefill_ms": 1e3 * import_s,
+            "import_prefill_pages": len(payload["pages"][0]["k"]),
+            "reload_ms": 1e3 * reload_s,
+            "prefix_import_pages": n_imp,
+            "tenants_alone_equal": alone_ok, "merged_agreement": merged,
+            "spill": {k: A.stats[k] for k in (
+                "spill_pages", "spill_demotions", "spill_promotions",
+                "spill_expired", "prefix_evictions", "prefix_hits")},
+            "page_bytes": page_nbytes,
+            "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                             if cuda else None)}
+
+
 # -- phase 5b: dense-engine agreement ---------------------------------------
 
 def dense_agreement():
@@ -1997,6 +2385,16 @@ def main():
     print("server: " + json.dumps(served), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
+    tenants = tenants_and_kv(llama.llama3_8b(), "cuda", num_pages=256,
+                             spill_pages=256, page_size=16,
+                             max_pages_per_seq=64, chunk_size=128,
+                             prefill_rows=4, decode_window=8,
+                             max_batch_size=8)
+    print("tenants and kv: " + json.dumps(tenants), flush=True)
+    if tenants["launches"] <= 0:
+        raise AssertionError("the ragged kernel never launched in 4d")
+    gc.collect()
+    torch.cuda.empty_cache()
     agreement()
     dense_agreement()
     tr = train(llama.llama3_8b(n_layers=TRAIN_LAYERS), "cuda",
@@ -2011,6 +2409,7 @@ def main():
         "replaces": "ray_tpu/ops/ragged_paged_attention.py:53",
         "launches": res["launches"],
         "launches_server": served["launches"],
+        "launches_tenants_and_kv": tenants["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in records),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

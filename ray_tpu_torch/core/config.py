@@ -4,7 +4,8 @@ Counterpart of ``ray_tpu/core/config.py`` (the ``RAY_CONFIG`` flag
 system): a flag is a typed descriptor on a singleton, read once at first
 access and cacheable, with ``RTPU_<NAME>`` (upper-cased) as the override
 channel. The port keeps only the flags its modules read — tracing
-(``util/tracing.py``) and the flight recorder (``core/flight.py``) — with
+(``util/tracing.py``), the flight recorder (``core/flight.py``) and the
+multi-LoRA manager's version cache (``llm/multilora/manager.py``) — with
 the reference's defaults.
 
 Usage::
@@ -108,6 +109,11 @@ _FLAGS = [
          "flight-recorder ring capacity in events (rounded up to a "
          "power of two; 44 bytes/event — the default is ~720 KiB per "
          "process, overwritten oldest-first)"),
+    Flag("llm_lora_refresh_s", 0.25,
+         "TTL on a serving replica's cached latest-version lookups in "
+         "the adapter registry: the upper bound on how long a freshly "
+         "published adapter version takes to start serving (the "
+         "hot-swap observation window)"),
 ]
 
 cfg = Config(_FLAGS)

@@ -4,9 +4,10 @@ Counterpart of ``ray_tpu/core/flight.py``, with the same record layout
 and the same integer event codes, so a ring captured from the port
 decodes as the reference's does. In the port the serving engine emits
 into it (``STEP_BEGIN``/``STEP_END`` from ``util/profiling.py``'s step
-profiler, ``PREFIX_EVICT`` from the paged engine): a per-process,
-preallocated, struct-packed ring buffer whose ``evt()`` costs well under
-a microsecond — cheap enough to leave on in production.
+profiler, ``PREFIX_EVICT`` and ``PREFIX_IMPORT`` from the paged
+engine): a per-process, preallocated, struct-packed ring buffer whose
+``evt()`` costs well under a microsecond — cheap enough to leave on in
+production.
 
 Design constraints, in order:
 
@@ -52,6 +53,7 @@ _ZERO8 = bytes(8)                    # ts wipe for torn/dropped records
 
 # llm prefix-cache heat plane (llm/paged_engine.py) — cache churn
 PREFIX_EVICT = 91     # i  (pid, chain_slot)
+PREFIX_IMPORT = 92    # i  (pages, chain_slot)
 
 # step profiling (util/profiling.py)
 STEP_BEGIN = 70       # B  (kind,)

@@ -20,9 +20,12 @@ telemetry (``telemetry.py``):
     pred = LLMPredictor(EngineConfig(llama.llama3_8b()))
     rows = pred({"prompt": ["hello", "world"]})
 
-The Serve deployment and HTTP route, the Dataset stages of batch
-inference and the multi-LoRA, spill-tier, mesh and PD-disaggregation
-features are not ported yet.
+The paged engine also serves many LoRA tenants from one slot table
+(``multilora/``, adapters in ``lora.py``), spills evicted prefix pages
+to a host tier (``tiering.py``) and exports and imports KV payloads
+(PD and cross-engine prefixes). The Serve deployment and HTTP route,
+the Dataset stages of batch inference, mesh serving and the PD
+deployment over channels are not ported yet.
 """
 from .batch import LLMPredictor
 from .engine import EngineConfig, InferenceEngine, SamplingParams

@@ -69,6 +69,11 @@ class _Request:
     slot: int = -1
     pages: list[int] = dataclasses.field(default_factory=list)
     prefill_pos: int = 0          # prompt tokens already prefilled
+    # multi-LoRA (paged engine, cfg.max_adapters): the slot-table row
+    # this request's dispatches gather, 0 = base model. Pinned for the
+    # request's life: a hot-swap to a newer adapter version lands in a
+    # different slot, so in-flight requests finish on their version.
+    adapter_slot: int = 0
     # prefix-cache chain seed: empty for base traffic; a tenant salt keeps
     # cached pages from matching across tenants
     prefix_salt: bytes = b""
@@ -77,6 +82,10 @@ class _Request:
     page_hashes: Optional[list] = None
     # chain-stats slot this request's prompt family resolved to; -1 = none
     chain_slot: int = -1
+    # disaggregated prefill (paged engine, prefill_export): the request
+    # stops after its prompt and leaves its KV pages in export_payload
+    prefill_only: bool = False
+    export_payload: Optional[dict] = None
     done: bool = False
     submit_t: float = 0.0
     first_token_t: float = 0.0    # TTFT = first_token_t - submit_t
@@ -203,6 +212,7 @@ class _EngineBase:
         return [self._result(r) for r in reqs]
 
     def submit(self, prompt, params: SamplingParams,
+               adapter_slot: int = 0,
                prefix_salt: bytes = b"") -> _Request:
         ids = (self.tokenizer.encode(prompt) if isinstance(prompt, str)
                else [int(t) for t in prompt])
@@ -211,12 +221,23 @@ class _EngineBase:
         ids = ids[: self.cfg.max_seq_len - 2]
         if not ids:
             raise ValueError("empty prompt")
+        if adapter_slot:
+            table = getattr(self, "lora", None)
+            if table is None:
+                raise ValueError(
+                    "adapter_slot requires a paged engine with "
+                    "PagedEngineConfig.max_adapters > 0")
+            if not 0 < adapter_slot < table.max_adapters:
+                raise ValueError(
+                    f"adapter_slot {adapter_slot} outside the slot "
+                    f"table [1, {table.max_adapters})")
         capacity = self.cfg.max_seq_len - 1 - len(ids)
         if params.max_tokens > capacity:
             params = dataclasses.replace(params,
                                          max_tokens=max(1, capacity))
         with self._lock:
             req = _Request(self._next_rid, ids, params)
+            req.adapter_slot = int(adapter_slot)
             req.prefix_salt = bytes(prefix_salt)
             req.submit_t = time.perf_counter()
             self._next_rid += 1

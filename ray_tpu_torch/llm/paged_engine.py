@@ -37,18 +37,36 @@ key. On the CPU each dispatch runs its body eagerly. ``_eager = True``
 runs the same body eagerly on the card too (tests and the smoke compare
 the two); nothing switches to it by itself.
 
-Observability as in the reference: the telemetry hooks
-(``llm/telemetry.py``: the ``rtpu_llm_*`` series), ``PREFIX_EVICT``
-flight events on eviction, and a step profiler (``util/profiling.py``)
-around every dispatch, with ``estimate_flops()`` and
-``profile_summary()``.
+Multi-tenant and KV-mobility paths, as in the reference:
+  - batched multi-LoRA (``max_adapters > 0``): a fixed-shape adapter
+    slot table (``llm/multilora/slots.py``) and per-row slot ids, one
+    more int32 input of every program (so the programs stay one per
+    static key, whatever the tenant mix); slot loads write the table in
+    place between dispatches;
+  - the host spill tier (``kv_spill``, ``llm/tiering.py``): an evicted
+    cached page is demoted to host memory (one gather per layer, one
+    device-to-host copy, between dispatches) and promoted back at
+    admission or by ``maybe_rewarm``;
+  - KV payloads: ``prefill_export`` / ``import_prefill`` (prefill and
+    decode on different engines) and ``export_prefix`` /
+    ``import_prefix`` (a prefix cached on one engine seeded into
+    another), with the prefix directory's publish tracking. Payload
+    pages are host numpy arrays per layer, ``[n, page, KVH, D]``:
+    float32 for an f32 cache, and for a bf16 cache the raw 16-bit
+    patterns as ``np.uint16`` (numpy has no bfloat16; the reference's
+    ``ml_dtypes`` bfloat16 arrays are read through the same view).
+Every import, promote and slot load writes the existing tensors in
+place: the captured programs read the addresses they were captured
+with.
 
-Not ported yet (the config fields raise NotImplementedError when set):
-multi-LoRA (``max_adapters``, ``lora_*``), the host spill tier
-(``kv_spill*``) and mesh-parallel serving (``mesh``). Also absent: PD
-export/import, cross-replica prefix import/export and the prefix
-directory's publish tracking (``prefix_imported_pages`` and
-``prefix_exported_pages`` stay 0).
+Observability as in the reference: the telemetry hooks
+(``llm/telemetry.py``: the ``rtpu_llm_*`` series), ``PREFIX_EVICT`` and
+``PREFIX_IMPORT`` flight events, and a step profiler
+(``util/profiling.py``) around every dispatch, with ``estimate_flops()``
+and ``profile_summary()``.
+
+Not ported yet: mesh-parallel serving (``mesh`` raises
+NotImplementedError when set).
 """
 from __future__ import annotations
 
@@ -76,20 +94,24 @@ from .tokenizer import get_tokenizer
 
 #: config fields of engine features not ported yet: field -> feature
 _NOT_PORTED = {
-    "max_adapters": "batched multi-LoRA",
-    "lora_rank": "batched multi-LoRA",
-    "lora_targets": "batched multi-LoRA",
-    "kv_spill": "the tiered KV spill cache",
-    "kv_spill_max_bytes": "the tiered KV spill cache",
-    "kv_spill_min_hits": "the tiered KV spill cache",
-    "kv_spill_max_idle_s": "the tiered KV spill cache",
     "mesh": "mesh-parallel serving",
 }
 
-#: prefix_accounting()'s spill-tier keys (0: the tier is not ported)
-_SPILL_KEYS = ("spill_pages", "spill_bytes", "spill_demotions",
-               "spill_promotions", "spill_expired", "spill_drops",
-               "spill_resident_pages", "spill_resident_bytes")
+
+def _raw_pages(a: np.ndarray, dtype: torch.dtype) -> np.ndarray:
+    """A payload's page array in the host form of a ``dtype`` cache:
+    float32 for f32; for bf16 the raw 16-bit patterns (as int16, which
+    torch takes from numpy) — the port's own bf16 export (``np.uint16``)
+    and the reference's ``ml_dtypes`` bfloat16 arrays both read through
+    this view."""
+    if dtype == torch.bfloat16:
+        if a.dtype.name not in ("uint16", "bfloat16"):
+            raise TypeError(f"bf16 cache: payload pages are {a.dtype}")
+        return a.view(np.int16)
+    want = torch.empty((), dtype=dtype).numpy().dtype
+    if a.dtype != want:
+        raise TypeError(f"{dtype} cache: payload pages are {a.dtype}")
+    return a
 
 
 @dataclasses.dataclass
@@ -118,8 +140,12 @@ class PagedEngineConfig:
     # max_pages_per_seq) covering live pages PLUS the dispatch's writes.
     # "auto" engages at max_pages_per_seq >= 48; "on"/"off" force it.
     page_buckets: str = "auto"
-    # not ported yet: must stay at their defaults (see _NOT_PORTED)
+    # batched multi-LoRA (llm/multilora): > 0 builds a resident-adapter
+    # slot table of this many slots (slot 0 = base) and threads per-row
+    # slot ids through every dispatch; 0 disables (the programs then
+    # run exactly the base math)
     max_adapters: int = 0
+    # rank ceiling of the slot table; lower-rank adapters zero-pad
     lora_rank: int = 8
     lora_targets: tuple = ("wq", "wk", "wv", "wo", "lm_head")
     # automatic prefix caching (vLLM-style block-hash reuse): retired
@@ -133,10 +159,15 @@ class PagedEngineConfig:
     # observation only. 0 disables.
     chain_stats_slots: int = 256
     chain_stats_top_k: int = 8
+    # host spill tier (llm/tiering.py): demote an evicted refcount-0
+    # cached page's KV to host memory instead of freeing it, and promote
+    # spilled runs back at admission before cold prefill. Heat-gated by
+    # the chain-stats table (min_hits / max_idle_s) and byte-budgeted.
     kv_spill: bool = False
     kv_spill_max_bytes: int = 64 << 20
     kv_spill_min_hits: int = 0
     kv_spill_max_idle_s: float = 0.0
+    # not ported yet: must stay None (see _NOT_PORTED)
     mesh: Any = None
     tokenizer: Any = None
 
@@ -156,6 +187,11 @@ class PagedEngineConfig:
         if self.chain_stats_slots < 0 or self.chain_stats_top_k < 1:
             raise ValueError("chain_stats_slots must be >= 0 and "
                              "chain_stats_top_k >= 1")
+        if self.kv_spill and not self.enable_prefix_caching:
+            raise ValueError("kv_spill requires enable_prefix_caching "
+                             "(the tier holds content-hashed pages)")
+        if self.kv_spill and self.kv_spill_max_bytes <= 0:
+            raise ValueError("kv_spill_max_bytes must be > 0")
 
     @property
     def max_seq_len(self) -> int:
@@ -202,6 +238,12 @@ class PagedInferenceEngine(_EngineBase):
         self._hash_to_page: dict[bytes, int] = {}
         self._page_to_hash: dict[int, bytes] = {}
         self._cached_lru: "OrderedDict[int, None]" = OrderedDict()
+        # prefix-directory delta tracking: hashes registered/unregistered
+        # since the last drain (drain_directory_delta), appended only when
+        # track_page_publish is on, from the stepping thread
+        self.track_page_publish = False
+        self._dir_new: list[bytes] = []
+        self._dir_dropped: list[bytes] = []
         # per-chain heat table: observation only. _chain_of maps a
         # registered page to the chain slot it was published under.
         self.chains = None
@@ -214,6 +256,27 @@ class PagedInferenceEngine(_EngineBase):
             from .chainstats import ChainStatsTable
             self.chains = ChainStatsTable(cfg.chain_stats_slots,
                                           page_nbytes)
+        # host spill tier (cfg.kv_spill): mutated under self._lock on the
+        # paths that mutate the prefix cache
+        self.spill = None
+        # longest known head-rooted hash run per chain slot: what
+        # maybe_rewarm promotes
+        self._chain_runs: dict[int, list[bytes]] = {}
+        if self._prefix_on and cfg.kv_spill:
+            from .tiering import SpillPolicy, SpillTier
+            self.spill = SpillTier(
+                cfg.kv_spill_max_bytes, page_nbytes,
+                SpillPolicy(min_hits=cfg.kv_spill_min_hits,
+                            max_idle_s=cfg.kv_spill_max_idle_s))
+            self.spill.bind_chains(self.chains)
+        # resident-adapter slot table (cfg.max_adapters): every dispatch
+        # gathers its rows by slot id; loads write it in place
+        self.lora = None
+        if cfg.max_adapters > 0:
+            from .multilora.slots import AdapterSlotTable
+            self.lora = AdapterSlotTable(mc, cfg.max_adapters,
+                                         cfg.lora_rank, cfg.lora_targets,
+                                         device=self.device)
         self._next_rid = 0
         self._rng_key = root_key(rng_seed ^ 0x5EED, self.device)
         self._rng_ctr = 0
@@ -229,11 +292,19 @@ class PagedInferenceEngine(_EngineBase):
                       # tokens whose prefill was skipped
                       "prefix_hits": 0, "prefix_misses": 0,
                       "prefix_evictions": 0, "prefix_tokens_saved": 0,
-                      # pages seeded from / gathered for another replica
-                      # (cross-replica prefix sharing): 0 until it is
-                      # ported
+                      # pages seeded from another engine's export
+                      # (import_prefix) and cached pages gathered for one
+                      # (export_prefix)
                       "prefix_imported_pages": 0,
-                      "prefix_exported_pages": 0}
+                      "prefix_exported_pages": 0,
+                      # spill tier (cfg.kv_spill): pages/bytes captured
+                      # into the host tier, demote decisions that kept a
+                      # tier copy (captures + clean re-evictions), pages
+                      # promoted back, pages expired (budget/teardown),
+                      # validate-on-promote drops; all 0 with it off
+                      "spill_pages": 0, "spill_bytes": 0,
+                      "spill_demotions": 0, "spill_promotions": 0,
+                      "spill_expired": 0, "spill_drops": 0}
         # speculation controller: EMA of tokens per slot per spec
         # dispatch (starts optimistic) and a cooldown of windowed
         # dispatches before re-probing
@@ -319,20 +390,35 @@ class PagedInferenceEngine(_EngineBase):
         """The sampling counter as a dispatch input."""
         return np.asarray([self._rng_ctr & 0x7FFFFFFF], np.int32)
 
+    def _lora_tree(self, slots):
+        """The slot table's tensors when a dispatch carries slot ids."""
+        return None if slots is None else self.lora.tree
+
+    def _lora_args(self, slots, rows: int) -> tuple:
+        """Trailing host input of a dispatch: the rows' adapter slot ids
+        (``slots``, or slot 0 for every row when None), or nothing when
+        the table is off (the bodies then run exactly the base math)."""
+        if self.lora is None:
+            return ()
+        return (np.zeros((rows,), np.int32) if slots is None
+                else np.asarray(slots, np.int32),)
+
     def _decode_body(self, w: int, mode: tuple, toks, bt, lens, temps,
-                     top_ks, ctr):
+                     top_ks, ctr, slots=None):
         """w decode steps for every slot on device tensors, each step's
         sampled tokens fed back on the device; step i draws with
-        fold_in(fold_in(engine key, ctr), i). Returns (tokens [B, w],
+        fold_in(fold_in(engine key, ctr), i). ``slots`` [B]: the rows'
+        adapter slots (multi-LoRA only). Returns (tokens [B, w],
         logprobs [B, w] or None)."""
         any_sampled, any_topk, want_logp = mode
         mc, page = self.cfg.model, self.cfg.page_size
         key = fold_in(self._rng_key, ctr) if any_sampled else None
+        lora = self._lora_tree(slots)
         outs, lps = [], []
         for i in range(w):
             logits, _ = llama.decode_paged(
                 self.params, toks[:, None], self.caches, bt, lens, mc,
-                page_size=page)
+                page_size=page, lora=lora, slots=slots)
             toks, lp = sample_logits_batch(
                 logits, None if key is None else fold_in(key, i), temps,
                 top_ks, any_sampled=any_sampled, any_topk=any_topk,
@@ -344,25 +430,27 @@ class PagedInferenceEngine(_EngineBase):
                 torch.stack(lps, dim=1) if want_logp else None)
 
     def _prefill_body(self, mode: tuple, chunks, bts, sps, tls, temps,
-                      top_ks, ctr):
+                      top_ks, ctr, slots=None):
         """The chunk-rows in order, then sampling of each row's last-token
         logits with fold_in(engine key, ctr). Returns (tokens [R],
         logprobs [R] or None)."""
         any_sampled, any_topk, want_logp = mode
         last, _ = llama.prefill_paged_rows(
             self.params, chunks, self.caches, bts, sps, tls, self.cfg.model,
-            page_size=self.cfg.page_size)
+            page_size=self.cfg.page_size, lora=self._lora_tree(slots),
+            slots=slots)
         key = fold_in(self._rng_key, ctr) if any_sampled else None
         return sample_logits_batch(
             last, key, temps, top_ks, any_sampled=any_sampled,
             any_topk=any_topk, want_logp=want_logp)
 
-    def _verify_body(self, want_logp: bool, toks, bts, starts):
+    def _verify_body(self, want_logp: bool, toks, bts, starts, slots=None):
         """Verify rows of s1 tokens: the greedy next token at each fed
         position [R, s1] (and its log-probability when asked)."""
         logits, _ = llama.verify_paged_rows(
             self.params, toks, self.caches, bts, starts, self.cfg.model,
-            page_size=self.cfg.page_size)
+            page_size=self.cfg.page_size, lora=self._lora_tree(slots),
+            slots=slots)
         y = torch.argmax(logits, dim=-1).to(torch.int32)
         if not want_logp:
             return y, None
@@ -371,29 +459,33 @@ class PagedInferenceEngine(_EngineBase):
         return y, lp
 
     def _decode_window(self, w: int, mode: tuple, tokens, bt, lengths,
-                       temps, top_ks):
-        """One dispatch = w decode steps for every slot. Returns host
+                       temps, top_ks, lslots=None):
+        """One dispatch = w decode steps for every slot. ``lslots``: the
+        rows' adapter slots (multi-LoRA; None = all base). Returns host
         arrays (tokens [B, w], logprobs [B, w] or None)."""
         return self._run(("decode", (w, mode, bt.shape[1])),
                          functools.partial(self._decode_body, w, mode),
-                         (tokens, bt, lengths, temps, top_ks, self._ctr()))
+                         (tokens, bt, lengths, temps, top_ks, self._ctr())
+                         + self._lora_args(lslots, len(tokens)))
 
     def _prefill_rows(self, mode: tuple, chunks, bts, sps, tls, temps,
-                      top_ks):
+                      top_ks, lslots=None):
         """One dispatch = the given chunk-rows in order, then sampling of
         each row's last-token logits (used for prompt-completing rows)."""
         return self._run(("prefill", (chunks.shape[0], mode, bts.shape[1])),
                          functools.partial(self._prefill_body, mode),
-                         (chunks, bts, sps, tls, temps, top_ks, self._ctr()))
+                         (chunks, bts, sps, tls, temps, top_ks, self._ctr())
+                         + self._lora_args(lslots, chunks.shape[0]))
 
-    def _verify_rows(self, toks, bts, starts, want_logp: bool):
+    def _verify_rows(self, toks, bts, starts, want_logp: bool,
+                     lslots=None):
         """One dispatch = verify rows of s1 = 1+drafts tokens; returns the
         greedy next token AT each fed position [r, s1] (and its
         log-probability when asked)."""
         r, s1 = toks.shape
         return self._run(("verify", (r, s1, bts.shape[1], want_logp)),
                          functools.partial(self._verify_body, want_logp),
-                         (toks, bts, starts))
+                         (toks, bts, starts) + self._lora_args(lslots, r))
 
     # -- public API --------------------------------------------------------
 
@@ -470,14 +562,71 @@ class PagedInferenceEngine(_EngineBase):
         if self._free_pages:
             return self._free_pages.pop()
         pid, _ = self._cached_lru.popitem(last=False)
+        if self.spill is not None:
+            # demote: copy the page's KV to the host tier BEFORE the hash
+            # mapping goes and the page id is handed to its next owner
+            self._maybe_demote(pid)
         self._unregister(pid)
         self.stats["prefix_evictions"] += 1
         return pid
+
+    def _maybe_demote(self, pid: int):
+        h = self._page_to_hash.get(pid)
+        if h is None or self._hash_to_page.get(h) != pid:
+            return      # unpublished page: nothing content-addressed
+        if self.spill.has(h):
+            # content already in the tier (promoted or recomputed, then
+            # evicted again): a clean eviction — refresh recency only
+            self.spill.touch(h)
+            self.stats["spill_demotions"] += 1
+            return
+        slot = self._chain_of.get(pid)
+        now = time.monotonic()
+        if not self.spill.policy.admit(self.chains, slot, now):
+            return      # heat-gated: not worth tier residence — free
+        pages = self._pages_to_host([pid])
+        ks = [layer["k"][0] for layer in pages]
+        vs = [layer["v"][0] for layer in pages]
+        chain = slot if slot is not None else 0
+        expired = self.spill.add(h, chain, ks, vs, now)
+        captured = self.spill.has(h)
+        if captured:
+            self.stats["spill_demotions"] += 1
+            self.stats["spill_pages"] += 1
+            self.stats["spill_bytes"] += self.spill.page_nbytes
+            if self.chains is not None:
+                self.chains.spilled_add(chain)
+        self._spill_expired(expired, skip_accounted=not captured)
+
+    def _spill_expired(self, removed, skip_accounted: bool = False):
+        """Account tier entries expired under the byte budget (or the
+        page refused entry outright, skip_accounted: never counted in)."""
+        for _h, chain in removed:
+            if skip_accounted:
+                skip_accounted = False
+                continue
+            self.stats["spill_expired"] += 1
+            if self.chains is not None:
+                self.chains.spilled_sub(chain)
+
+    def _spill_dropped(self, removed):
+        """Account validate-on-promote failures: stale or malformed tier
+        content purged, costing the request a cold prefill only."""
+        for _h, chain in removed:
+            self.stats["spill_drops"] += 1
+            if self.chains is not None:
+                self.chains.spilled_sub(chain)
 
     def _unregister(self, pid: int):
         h = self._page_to_hash.pop(pid, None)
         if h is not None and self._hash_to_page.get(h) == pid:
             del self._hash_to_page[h]
+            if self.track_page_publish:
+                self._dir_dropped.append(h)
+                if len(self._dir_dropped) > 4 * self.cfg.num_pages:
+                    # nothing drains the log: drop it (stale directory
+                    # entries are hints the importer validates anyway)
+                    del self._dir_dropped[:]
         if self.chains is not None:
             # pages whose chain was never learned fold to the overflow
             # sink, so per-chain evictions sum to prefix_evictions
@@ -654,6 +803,12 @@ class PagedInferenceEngine(_EngineBase):
         if self.chains is not None and chain >= 0:
             self._chain_of[pid] = chain
             self.chains.resident_add(chain)
+        if self.track_page_publish:
+            self._dir_new.append(h)
+            if len(self._dir_new) > 4 * self.cfg.num_pages:
+                # nothing drains the log: compress it to a full resync
+                # so an undrained engine's memory stays bounded
+                self._dir_new = list(self._hash_to_page)
 
     def _register_request_pages(self, req: _Request):
         """Publish req's full, KV-materialized pages into the content
@@ -715,6 +870,12 @@ class PagedInferenceEngine(_EngineBase):
                 # the whole prompt (avoids deadlocking a half-prefilled seq)
                 req = self._pending[0]
                 matched = self._match_prefix(req)
+                if self.spill is not None and \
+                        self._promote_for_locked(req, len(matched)) > 0:
+                    # promoted pages are registered and LRU-parked:
+                    # re-walk so the match (and the hit accounting below)
+                    # sees them like never-evicted pages
+                    matched = self._match_prefix(req)
                 pages = self._claim_pages(
                     matched, self._pages_needed(len(req.prompt_ids) + 1))
                 if pages is None:
@@ -728,6 +889,13 @@ class PagedInferenceEngine(_EngineBase):
                     if hs:
                         req.chain_slot = self.chains.slot_for(
                             hs[0], req.prefix_salt)
+                        if self.spill is not None and req.chain_slot > 0:
+                            # the chain's longest head-rooted hash run:
+                            # what proactive re-warm promotes
+                            prev = self._chain_runs.get(req.chain_slot)
+                            if prev is None or len(hs) > len(prev):
+                                self._chain_runs[req.chain_slot] = \
+                                    list(hs[:self.cfg.max_pages_per_seq])
                 if matched:
                     # chunked prefill starts at the first uncached chunk
                     req.prefill_pos = len(matched) * self.cfg.page_size
@@ -773,16 +941,18 @@ class PagedInferenceEngine(_EngineBase):
         tls = np.zeros((rb,), np.int32)
         temps = np.zeros((rb,), np.float32)
         topks = np.zeros((rb,), np.int32)
+        lslots = np.zeros((rb,), np.int32)
         for i, (req, pos, n) in enumerate(rows):
             chunks[i, :n] = req.prompt_ids[pos:pos + n]
             bts[i] = self._block_tables[req.slot][:W]
             sps[i], tls[i] = pos, n
             temps[i] = req.params.temperature
             topks[i] = req.params.top_k
+            lslots[i] = req.adapter_slot
         mode = self._sampling_mode([q for q, _, _ in rows])
         with self.profiler.step("prefill", (rb, mode, W)):
             toks, lps = self._prefill_rows(mode, chunks, bts, sps, tls,
-                                           temps, topks)
+                                           temps, topks, lslots)
         self._rng_ctr += 1
         self.stats["prefill_dispatches"] += 1
         if self._prefix_on:
@@ -813,6 +983,17 @@ class PagedInferenceEngine(_EngineBase):
             telemetry.on_first_token(self, req)
             self._lengths[req.slot] = len(req.prompt_ids)
             self._prefilling.remove(req)
+            if req.prefill_only:
+                # disaggregated prefill: export the KV pages and the first
+                # token instead of decoding here. Under the pool lock:
+                # _release mutates the allocator a concurrent submit or
+                # import also touches; the finish (telemetry) stays
+                # outside it
+                with self._lock:
+                    req.export_payload = self._export_kv_locked(req, tok)
+                    self._release(req)
+                self._finish_request(req, "export")
+                continue
             self._active[req.slot] = req
             self._maybe_finish(req, tok)
 
@@ -866,6 +1047,7 @@ class PagedInferenceEngine(_EngineBase):
         toks = np.zeros((rb, s1), np.int32)
         bts = np.zeros((rb, W), np.int32)
         starts = np.zeros((rb,), np.int32)
+        lslots = np.zeros((rb,), np.int32)
         allow: dict[int, int] = {}
         for i, slot in enumerate(slots):
             req = self._active[slot]
@@ -874,9 +1056,10 @@ class PagedInferenceEngine(_EngineBase):
             toks[i, 1:1 + len(drafts[slot])] = drafts[slot]
             bts[i] = self._block_tables[slot][:W]
             starts[i] = self._lengths[slot]
+            lslots[i] = req.adapter_slot
         want_lp = any(self._active[sl].params.logprobs for sl in slots)
         with self.profiler.step("verify", (rb, s1, W, want_lp)):
-            y, ylp = self._verify_rows(toks, bts, starts, want_lp)
+            y, ylp = self._verify_rows(toks, bts, starts, want_lp, lslots)
         self.stats["spec_dispatches"] += 1
         emitted = 0
         for i, slot in enumerate(slots):
@@ -944,6 +1127,7 @@ class PagedInferenceEngine(_EngineBase):
         lengths = np.zeros((bs,), np.int32)
         temps = np.zeros((bs,), np.float32)
         topks = np.zeros((bs,), np.int32)
+        lslots = np.zeros((bs,), np.int32)
         # slots not decoding this step keep a zeroed table row: their
         # dummy writes go to sink page 0
         bt = np.zeros((bs, W), np.int32)
@@ -955,10 +1139,11 @@ class PagedInferenceEngine(_EngineBase):
             temps[slot] = req.params.temperature
             topks[slot] = req.params.top_k
             bt[slot] = self._block_tables[slot][:W]
+            lslots[slot] = req.adapter_slot
         mode = self._sampling_mode(self._active.values())
         with self.profiler.step("decode", (w, mode, W)):
             out, lps = self._decode_window(w, mode, tokens, bt, lengths,
-                                           temps, topks)
+                                           temps, topks, lslots)
         self._rng_ctr += 1
         self.stats["decode_dispatches"] += 1
         for slot in list(self._active):
@@ -1020,6 +1205,410 @@ class PagedInferenceEngine(_EngineBase):
         if stop:
             self._retire(req)
 
+    # -- multi-LoRA slot plumbing (cfg.max_adapters; llm/multilora) --------
+
+    def load_adapter_slot(self, slot: int, adapter) -> None:
+        """Install an adapter into a slot-table row in place (None clears
+        it). The caller serializes against the stepping thread (the
+        serving layer's step lock), so a load lands between dispatches."""
+        if self.lora is None:
+            raise ValueError(
+                "engine built without a slot table "
+                "(PagedEngineConfig.max_adapters == 0)")
+        with self._lock:
+            self.lora.load(slot, adapter)
+
+    def adapter_slots_in_use(self) -> dict:
+        """{slot: live request count} over pending+prefilling+active —
+        what the manager's LRU must NOT evict (a resident adapter with
+        in-flight requests is pinned to its admitted version)."""
+        with self._lock:
+            counts: dict[int, int] = {}
+            for req in (list(self._pending) + list(self._prefilling)
+                        + list(self._active.values())):
+                if req.adapter_slot:
+                    counts[req.adapter_slot] = \
+                        counts.get(req.adapter_slot, 0) + 1
+            return counts
+
+    # -- KV pages <-> host payloads -----------------------------------------
+
+    def _pages_to_host(self, pids) -> list:
+        """[{"k", "v": [n, page, KVH, D] host array}] per layer for the
+        pages ``pids``: one gather per layer and one device-to-host copy
+        of them all, between dispatches. bf16 pages come back as their
+        raw 16-bit patterns (``np.uint16``)."""
+        idx = torch.as_tensor(np.asarray(pids, np.int64), device=self.device)
+        t = torch.stack([layer[kv].index_select(0, idx)
+                         for layer in self.caches for kv in ("k", "v")])
+        if t.dtype == torch.bfloat16:
+            host = t.view(torch.int16).cpu().numpy().view(np.uint16)
+        else:
+            host = t.cpu().numpy()
+        return [{"k": host[2 * i], "v": host[2 * i + 1]}
+                for i in range(len(self.caches))]
+
+    def _pages_from_host(self, pids, pages: list, sel) -> None:
+        """Write rows ``sel`` of a payload's per-layer page arrays into
+        the cache pages ``pids``, in place (``index_copy_`` into the
+        existing pool tensors: the captured programs keep reading them),
+        with one host-to-device copy. Caller holds self._lock and
+        serializes against stepping."""
+        dtype = self.caches[0]["k"].dtype
+        want = tuple(self.caches[0]["k"].shape[1:])
+        host = None
+        for i, a in enumerate(np.asarray(layer[kv]) for layer in pages
+                              for kv in ("k", "v")):
+            if tuple(a.shape[1:]) != want:
+                raise ValueError(f"payload page shape {a.shape[1:]} "
+                                 f"!= this engine's {want}")
+            a = _raw_pages(a, dtype)
+            if host is None:
+                host = np.empty((2 * len(pages), len(sel)) + want, a.dtype)
+            np.take(a, sel, axis=0, out=host[i])    # the one host copy
+        t = torch.from_numpy(host)
+        if dtype == torch.bfloat16:
+            t = t.view(torch.bfloat16)
+        t = t.to(self.device)
+        idx = torch.as_tensor(np.asarray(pids, np.int64), device=self.device)
+        for i, layer in enumerate(self.caches):
+            layer["k"].index_copy_(0, idx, t[2 * i])
+            layer["v"].index_copy_(0, idx, t[2 * i + 1])
+
+    # -- prefill/decode disaggregation -------------------------------------
+
+    def _export_kv_locked(self, req: _Request, first_token: int) -> dict:
+        """Gather this request's KV pages to host arrays for a decode
+        engine (the role the KV connector plays in PD deployments)."""
+        return {"prompt_ids": list(req.prompt_ids),
+                "first_token": int(first_token),
+                "page_size": self.cfg.page_size,
+                # chained content hashes of the FULL prompt pages, in page
+                # order: the decode side maps pages it already holds
+                "page_hashes": list(self._prompt_hashes(req)),
+                # the chain's seed, so the decode side's hashes land in
+                # the same (tenant-scoped) key space
+                "prefix_salt": req.prefix_salt,
+                "pages": self._pages_to_host(req.pages)}
+
+    def prefill_export(self, prompt, params: SamplingParams) -> dict:
+        """Chunked-prefill ``prompt`` and return its exported KV payload
+        (drives the engine loop until the export is ready)."""
+        req = self.submit(prompt, params)
+        req.prefill_only = True
+        while req.export_payload is None and not req.done:
+            self.step()
+        if req.export_payload is None:
+            raise RuntimeError("prefill finished without an export "
+                               "(prompt rejected?)")
+        return req.export_payload
+
+    def import_prefill(self, payload: dict, params: SamplingParams,
+                       ) -> _Request:
+        """Seed a decode-ready sequence from an exported KV payload:
+        allocate slot and pages, copy the page data into this engine's
+        pools in place, and place the request directly in the decode
+        set."""
+        if payload["page_size"] != self.cfg.page_size:
+            raise ValueError(
+                f"page_size mismatch: payload {payload['page_size']} vs "
+                f"engine {self.cfg.page_size}")
+        ids = list(payload["prompt_ids"])
+        with self._lock:
+            req = _Request(self._next_rid, ids, params)
+            req.prefix_salt = payload.get("prefix_salt", b"")
+            req.submit_t = time.perf_counter()
+            req.admit_t = req.submit_t
+            telemetry.on_submit(self, req)
+            self._next_rid += 1
+            if not self._free_slots:
+                raise RuntimeError("no free decode slot")
+            req.slot = self._free_slots.popleft()
+            n_pages = self._pages_needed(len(ids) + 1)
+            n_in = len(payload["pages"][0]["k"])
+            if n_in != n_pages:
+                self._release(req)
+                raise ValueError(
+                    f"payload covers {n_in} pages but this engine "
+                    f"needs {n_pages} for the same prompt")
+            # dedupe: payload pages whose content hash this engine holds
+            # are mapped (and pinned) instead of copied in; the chain
+            # property makes the reusable run a prefix of the page list.
+            # The partial tail page is always private.
+            hashes = payload.get("page_hashes")
+            if hashes is None and self._prefix_on:
+                hashes = self._hash_chain(ids, prev=req.prefix_salt)
+            matched: list[int] = []
+            if self._prefix_on and hashes:
+                for h in hashes:
+                    pid = self._hash_to_page.get(h)
+                    if pid is None:
+                        break
+                    matched.append(pid)
+            pages = self._claim_pages(matched, n_pages)
+            if pages is None:
+                self._release(req)
+                raise RuntimeError("page pool exhausted importing prefill")
+            fresh = list(range(len(matched), n_pages))
+            req.pages = pages
+            self._block_tables[req.slot, :n_pages] = pages
+            if self._prefix_on:
+                # deduped imports save the copy, not prefill compute (the
+                # prefill engine counted any skipped prefill), so
+                # tokens_saved stays untouched here
+                self.stats["prefix_hits"] += len(matched)
+                nf = len(ids) // self.cfg.page_size   # full prompt pages
+                self.stats["prefix_misses"] += nf - len(matched)
+                if self.chains is not None and hashes:
+                    req.chain_slot = self.chains.slot_for(
+                        hashes[0], req.prefix_salt)
+                    if matched:
+                        self.chains.hit(req.chain_slot, len(matched))
+                    if nf > len(matched):
+                        self.chains.miss(req.chain_slot,
+                                         nf - len(matched))
+            if fresh:
+                self._pages_from_host([pages[i] for i in fresh],
+                                      payload["pages"], np.asarray(fresh))
+                if self._prefix_on and hashes:
+                    for i in fresh:
+                        if i < len(hashes):
+                            self._register_page(pages[i], hashes[i],
+                                                chain=req.chain_slot)
+            tok = int(payload["first_token"])
+            req.out_ids.append(tok)
+            self.stats["tokens_out"] += 1
+            req.prefill_pos = len(ids)
+            req.first_token_t = time.perf_counter()
+            self._lengths[req.slot] = len(ids)
+            self._active[req.slot] = req
+            self._maybe_finish(req, tok)
+        return req
+
+    # -- cross-engine prefix import/export (the prefix directory's hooks:
+    # the same chained hashes and in-place page copies as import_prefill,
+    # but the imported pages seed the CACHE — refcount 0, LRU-parked) ----
+
+    def cached_prefix_len(self, hashes) -> int:
+        """How many of ``hashes`` (a chain run) this engine's cache
+        covers, walking from the head until the first miss."""
+        with self._lock:
+            n = 0
+            for h in hashes:
+                if h not in self._hash_to_page:
+                    break
+                n += 1
+            return n
+
+    def export_prefix(self, hashes) -> Optional[dict]:
+        """Gather the cached pages for a chain run of hashes to host
+        arrays: the longest covered prefix run, or None when even the
+        first page is gone (directory entries are hints; this engine may
+        have evicted since publishing). The caller serializes against
+        the stepping thread."""
+        with self._lock:
+            pids: list[int] = []
+            for h in hashes:
+                pid = self._hash_to_page.get(h)
+                if pid is None:
+                    break
+                pids.append(pid)
+            if not pids:
+                return None
+            pages = self._pages_to_host(pids)
+            self.stats["prefix_exported_pages"] += len(pids)
+            if self.chains is not None:
+                # peek, never assign: the pages were registered here, so
+                # the chain (or the overflow sink) exists
+                self.chains.exported(self.chains.peek(hashes[0]),
+                                     len(pids))
+            return {"page_size": self.cfg.page_size,
+                    "page_hashes": list(hashes[:len(pids)]),
+                    "pages": pages}
+
+    def import_prefix(self, payload: Optional[dict],
+                      reserve_pages: Optional[int] = None) -> int:
+        """Seed this engine's prefix cache with another engine's exported
+        pages: allocate, copy in place, register under the payload's
+        chain hashes and park refcount-0 in the cached LRU, so the next
+        admission matches them like locally computed pages. Imports stop
+        once the pool would drop below ``reserve_pages`` allocatable
+        pages (default one per slot). Returns pages imported. The caller
+        serializes against the stepping thread."""
+        if payload is None or not self._prefix_on:
+            return 0
+        if payload["page_size"] != self.cfg.page_size:
+            raise ValueError(
+                f"page_size mismatch: payload {payload['page_size']} vs "
+                f"engine {self.cfg.page_size}")
+        with self._lock:
+            if reserve_pages is None:
+                reserve_pages = self.cfg.max_batch_size
+            return self._import_payload_locked(payload,
+                                               int(reserve_pages))
+
+    def _import_payload_locked(self, payload: dict, reserve_pages: int,
+                               chain: Optional[int] = None) -> int:
+        """The allocate/copy/register/LRU-park core behind import_prefix
+        and the spill tier's promotes (same payload format: a promoted
+        page is bit-identical to a never-evicted one). ``chain`` pins
+        the heat attribution (promotes know their chain); None means
+        cross-engine import accounting: the slot from the payload's head
+        hash, the imported-pages counters, a flight event. Caller holds
+        self._lock and serializes against stepping."""
+        hashes = payload["page_hashes"]
+        take_idx: list[int] = []
+        take_pids: list[int] = []
+        budget = self._pages_avail() - reserve_pages
+        for i, h in enumerate(hashes):
+            if h in self._hash_to_page:
+                continue    # already cached locally (either source)
+            if budget <= 0:
+                break
+            pid = self._pop_free_page()
+            self._page_refs[pid] = 0
+            take_idx.append(i)
+            take_pids.append(pid)
+            budget -= 1
+        if not take_pids:
+            return 0
+        self._pages_from_host(take_pids, payload["pages"],
+                              np.asarray(take_idx))
+        slot = -1
+        if chain is not None:
+            slot = chain
+        elif self.chains is not None:
+            # the exporter's head hash carries the tenant salt inside
+            # the digest; cross-engine imports are keyed by content alone
+            slot = self.chains.slot_for(hashes[0])
+        if chain is None and self.chains is not None:
+            self.chains.imported(slot, len(take_pids))
+            flight.evt(flight.PREFIX_IMPORT, len(take_pids), slot)
+        for i, pid in zip(take_idx, take_pids):
+            self._register_page(pid, hashes[i], chain=slot)
+            self._cached_lru[pid] = None
+        if chain is None:
+            self.stats["prefix_imported_pages"] += len(take_pids)
+        return len(take_pids)
+
+    def drain_directory_delta(self) -> tuple:
+        """-> (new_hashes, dropped_hashes) since the last drain, filtered
+        against the current cache so a publish-then-evict (or
+        evict-then-republish) nets out. Only meaningful with
+        track_page_publish on; called serialized with stepping."""
+        if not self._dir_new and not self._dir_dropped:
+            return (), ()
+        new, self._dir_new = self._dir_new, []
+        dropped, self._dir_dropped = self._dir_dropped, []
+        with self._lock:
+            new = [h for h in dict.fromkeys(new)
+                   if h in self._hash_to_page]
+            dropped = [h for h in dict.fromkeys(dropped)
+                       if h not in self._hash_to_page]
+        return new, dropped
+
+    # -- spill tier (cfg.kv_spill, llm/tiering.py) -------------------------
+
+    def _promote_for_locked(self, req: _Request, have: int) -> int:
+        """Admission-time promote: when the hot cache's longest-prefix
+        match ends but the tier holds the next consecutive pages of the
+        request's chain, copy them back onto the card before cold
+        prefill. Runs under self._lock on the stepping thread (from
+        _admit). Returns pages promoted; the caller re-matches."""
+        page = self.cfg.page_size
+        limit = self._reuse_limit(req) // page
+        if have >= limit:
+            return 0
+        need = self._pages_needed(len(req.prompt_ids) + 1)
+        if self._pages_avail() < need:
+            return 0    # admission would stall regardless: no churn
+        hashes = self._prompt_hashes(req)
+        run = self.spill.covered_run(hashes[have:limit])
+        if run <= 0:
+            return 0
+        want = hashes[have:have + run]
+        chain = self.spill.chain_of(want[0])
+        payload, dropped = self.spill.payload_for(want, page)
+        if dropped:
+            self._spill_dropped(dropped)
+        if payload is None:
+            return 0
+        n = self._import_payload_locked(payload, 0, chain=chain)
+        if n > 0:
+            self.stats["spill_promotions"] += n
+            if self.chains is not None:
+                self.chains.promoted(chain, n)
+        return n
+
+    def maybe_rewarm(self, max_pages: Optional[int] = None) -> int:
+        """Proactive re-warm: promote the hottest spilled chain's known
+        head run back onto the card while the pool has idle headroom
+        (SpillPolicy.rewarm_slot). Called by the serving loop between
+        steps; a no-op without headroom. Returns pages promoted."""
+        if self.spill is None or self.chains is None:
+            return 0
+        with self._lock:
+            pool = self.cfg.num_pages - 1
+            free_frac = len(self._free_pages) / max(pool, 1)
+            slot = self.spill.policy.rewarm_slot(
+                self.chains, self.spill.spilled_slots(), free_frac)
+            if slot is None:
+                return 0
+            run = self._chain_runs.get(slot)
+            if not run:
+                return 0
+            # the head-rooted usable run: hot pages pass through,
+            # tier-resident pages promote, the first page in neither
+            # tier ends the run
+            want: list[bytes] = []
+            for h in run:
+                if h in self._hash_to_page or self.spill.has(h):
+                    want.append(h)
+                else:
+                    break
+            want = [h for h in want if h not in self._hash_to_page]
+            if max_pages is not None:
+                want = want[:max(int(max_pages), 0)]
+            if not want:
+                return 0
+            payload, dropped = self.spill.payload_for(
+                want, self.cfg.page_size)
+            if dropped:
+                self._spill_dropped(dropped)
+            if payload is None:
+                return 0
+            n = self._import_payload_locked(
+                payload, self.cfg.max_batch_size, chain=slot)
+            if n > 0:
+                self.stats["spill_promotions"] += n
+                self.chains.promoted(slot, n)
+            return n
+
+    def note_spill_promotion(self, head: bytes, pages: int) -> None:
+        """Cross-engine promote accounting: pages seeded from another
+        engine's spilled payload count as spill promotions here, on top
+        of the imported pages the copy already counted."""
+        with self._lock:
+            self.stats["spill_promotions"] += int(pages)
+            if self.chains is not None:
+                self.chains.promoted(self.chains.peek(head), int(pages))
+
+    def note_spill_drops(self, n: int) -> None:
+        """Cross-engine validate-on-promote failures: a stale spilled
+        payload cost a cold prefill."""
+        with self._lock:
+            self.stats["spill_drops"] += int(n)
+
+    def spill_teardown(self) -> int:
+        """Drop every tier entry with exact accounting. Returns entries
+        dropped."""
+        if self.spill is None:
+            return 0
+        with self._lock:
+            removed = self.spill.clear()
+            self._spill_expired(removed)
+            return len(removed)
+
     # -- stats -------------------------------------------------------------
 
     def estimate_flops(self) -> dict:
@@ -1068,14 +1657,16 @@ class PagedInferenceEngine(_EngineBase):
         if kind == "decode":
             w, mode, W = key
             return (functools.partial(self._decode_body, w, mode),
-                    (zi(bs), zi(bs, W), zi(bs), zf(bs), zi(bs), zi(1)))
+                    (zi(bs), zi(bs, W), zi(bs), zf(bs), zi(bs), zi(1))
+                    + self._lora_args(None, bs))
         if kind == "prefill":
             r, mode, W = key
             return (functools.partial(self._prefill_body, mode),
-                    (zi(r, c), zi(r, W), zi(r), zi(r), zf(r), zi(r), zi(1)))
+                    (zi(r, c), zi(r, W), zi(r), zi(r), zf(r), zi(r), zi(1))
+                    + self._lora_args(None, r))
         r, s1, W, want_lp = key                       # verify
         return (functools.partial(self._verify_body, want_lp),
-                (zi(r, s1), zi(r, W), zi(r)))
+                (zi(r, s1), zi(r, W), zi(r)) + self._lora_args(None, r))
 
     def _dispatch_for_key(self, kind: str, key: tuple):
         """(fn, *args): fn(*args) runs warmup's dummy dispatch at a
@@ -1097,9 +1688,8 @@ class PagedInferenceEngine(_EngineBase):
     def prefix_accounting(self) -> dict:
         """THE accounting source for prefix-cache counters: pool_stats()
         and the telemetry gauges (llm/telemetry.py) derive from this one
-        snapshot, so the surfaces cannot drift from each other. The
-        spill-tier keys stay 0 (the tier is not ported), as the
-        reference reports them with the tier off."""
+        snapshot, so the surfaces cannot drift from each other. The spill
+        keys are all 0 while the tier is off."""
         hits = self.stats["prefix_hits"]
         misses = self.stats["prefix_misses"]
         return {
@@ -1112,7 +1702,13 @@ class PagedInferenceEngine(_EngineBase):
             "cached_pages": len(self._cached_lru),
             "hit_rate": round(hits / (hits + misses), 4)
             if hits + misses else 0.0,
-            **dict.fromkeys(_SPILL_KEYS, 0),
+            **{k: self.stats[k] for k in (
+                "spill_pages", "spill_bytes", "spill_demotions",
+                "spill_promotions", "spill_expired", "spill_drops")},
+            "spill_resident_pages": self.spill.resident_pages()
+            if self.spill is not None else 0,
+            "spill_resident_bytes": self.spill.resident_bytes
+            if self.spill is not None else 0,
         }
 
     def pool_stats(self) -> dict:

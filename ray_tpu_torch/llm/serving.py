@@ -16,18 +16,29 @@ thread-local capture mode, while request threads only queue and wait
 engine loop: every waiter wakes, ``completions`` raises
 ``RuntimeError("llm engine loop died")`` and ``check_health`` raises.
 
+LoRA, two modes, as in the reference: batched multi-LoRA on a paged
+engine with ``max_adapters > 0`` (a request naming ``"lora": "<id>"``
+or ``model="<model_id>:<id>"`` resolves the adapter's latest version in
+the registry at admission and rides a slot-table row of the shared
+engine), else merged engines over ``lora_dir`` (``<id>.npz`` merged into
+a weight copy, one engine per resident adapter, LRU up to
+``max_loras``). With the spill tier on, the loop re-warms the hottest
+spilled chain every 0.25 s; ``export_prefix`` serves another engine's
+prefix import.
+
 Off in the port, each until its part is ported: the Serve deployment
 (``build_llm_deployment``), usage recording and the object store
-(``params_ref`` is the params dict itself, or None), the cluster prefix
-directory, batched and merged multi-LoRA (a request naming a LoRA raises),
-the spill tier's re-warm, and cross-replica prefix export
-(``export_prefix``, ``set_replica_handle``).
+(``params_ref`` is the params dict itself, or None), and the cluster
+prefix directory (``set_replica_handle`` is a no-op).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
-from typing import Optional
+import time
+from collections import OrderedDict
+from typing import Any, Optional
 
 import torch
 
@@ -43,16 +54,19 @@ class LLMConfig:
     PagedEngineConfig (paged-KV continuous batching — the production
     path); the default is paged. ``tpus_per_replica`` is kept for the
     reference's surface and does nothing until the Serve deployment is
-    ported. LoRA serving is not ported: a request naming a LoRA raises
-    ``ValueError`` without ``lora_dir`` and ``NotImplementedError`` with
-    it. The reference's ``num_replicas`` and ``max_ongoing_requests``
-    (read by the Serve deployment) and ``max_loras`` and
-    ``lora_namespace`` (read by LoRA serving) are left out until what
-    reads them is ported."""
+    ported. LoRA: batched on a paged engine with ``max_adapters > 0``
+    (registry namespace ``lora_namespace``, default the model_id), else
+    merged engines over ``lora_dir``, at most ``max_loras`` resident (the
+    module docstring). The reference's ``num_replicas`` and
+    ``max_ongoing_requests`` (read by the Serve deployment) are left out
+    until it is ported."""
     model_id: str = "llama-tiny"
     engine: Optional[EngineConfig | PagedEngineConfig] = None
     tpus_per_replica: float = 0.0
     lora_dir: Optional[str] = None
+    max_loras: int = 2
+    # registry namespace for batched multi-LoRA (None -> model_id)
+    lora_namespace: Optional[str] = None
     # build every engine program at init, before the server takes
     # requests: on the card, capture the paged engine's CUDA graphs over
     # its key ladder (warmup_sampled adds the sampled and top-k modes)
@@ -77,10 +91,28 @@ class LLMServer:
         self.engine_cfg = cfg.engine or PagedEngineConfig(
             model=llama.llama_tiny())
         self.engine = self._build_engine(params_ref)
+        self.base_params = self.engine.params
         self.model_id = cfg.model_id
+        # adapter id -> engine over merged weights; the OrderedDict is the
+        # LRU. _lora_lock guards every mutation and the loop's snapshot:
+        # request threads race the engine thread here
+        self._lora_engines: "OrderedDict[str, Any]" = OrderedDict()
+        self._lora_lock = threading.Lock()
         self._wake = threading.Event()
         self._stop = False
+        self._last_rewarm = 0.0   # spill-tier re-warm cadence (loop)
         self._error: Optional[BaseException] = None
+        # serializes engine stepping against slot loads, page imports
+        # and exports: those write or read the tensors a dispatch uses
+        self._steplock = threading.Lock()
+        # batched multi-LoRA: the manager resolves adapter ids to
+        # resident slot-table rows at admission
+        self._multilora = None
+        if getattr(self.engine, "lora", None) is not None:
+            from .multilora import AdapterRegistry, MultiLoraManager
+            self._multilora = MultiLoraManager(
+                self.engine,
+                AdapterRegistry(cfg.lora_namespace or cfg.model_id))
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
@@ -96,30 +128,9 @@ class LLMServer:
             return eng
         return InferenceEngine(self.engine_cfg, params, device=self.device)
 
-    def _loop(self):
-        try:
-            if self.device.type == "cuda":
-                # a new thread starts on device 0: make the engine's
-                # device current, so kernels launch where its tensors live
-                torch.cuda.set_device(self.device)
-            while not self._stop:
-                worked = False
-                if self.engine.has_work():
-                    self.engine.step()
-                    worked = True
-                if not worked:
-                    self._wake.wait(timeout=0.05)
-                    self._wake.clear()
-        except BaseException as e:  # noqa: BLE001 — engine died: fail fast
-            self._error = e
-            # unblock every waiter; completions() re-raises the error and
-            # check_health reports the dead loop
-            eng = self.engine
-            for req in (list(eng._active.values()) + list(eng._pending)
-                        + list(getattr(eng, "_prefilling", []))):
-                req.event.set()
-
-    # -- OpenAI-ish surface ------------------------------------------------
+    def _engines(self):
+        with self._lora_lock:
+            return [self.engine, *self._lora_engines.values()]
 
     @staticmethod
     def _lora_id(request: dict) -> Optional[str]:
@@ -128,6 +139,79 @@ class LLMServer:
         if not lora_id and ":" in model:
             lora_id = model.split(":", 1)[1]
         return lora_id or None
+
+    def _engine_for(self, request: dict):
+        """The engine for a request's LoRA id (None -> base): an engine
+        over the adapter's merged weights, built on first use."""
+        lora_id = self._lora_id(request)
+        if not lora_id:
+            return self.engine
+        with self._lora_lock:
+            eng = self._lora_engines.get(lora_id)
+            if eng is not None:
+                self._lora_engines.move_to_end(lora_id)
+                return eng
+        if not self.cfg.lora_dir:
+            raise ValueError(
+                f"request names LoRA {lora_id!r} but this deployment has "
+                f"no lora_dir configured")
+        from . import lora
+        adapter = lora.load_adapter(os.path.join(self.cfg.lora_dir,
+                                                 lora_id))
+        eng = self._build_engine(lora.merge(self.base_params, adapter))
+        with self._lora_lock:
+            raced = self._lora_engines.get(lora_id)
+            if raced is not None:  # another thread built it concurrently
+                return raced
+            self._lora_engines[lora_id] = eng
+            # evict only IDLE engines: evicting one with in-flight
+            # requests would orphan them; if all are busy, exceed the cap
+            # for now and retry on the next load
+            if len(self._lora_engines) > self.cfg.max_loras:
+                for lid in list(self._lora_engines):
+                    if lid == lora_id:
+                        continue
+                    if not self._lora_engines[lid].has_work():
+                        del self._lora_engines[lid]
+                        if len(self._lora_engines) <= self.cfg.max_loras:
+                            break
+        return eng
+
+    def _loop(self):
+        try:
+            if self.device.type == "cuda":
+                # a new thread starts on device 0: make the engine's
+                # device current, so kernels launch where its tensors live
+                torch.cuda.set_device(self.device)
+            while not self._stop:
+                worked = False
+                for eng in self._engines():
+                    if eng.has_work():
+                        with self._steplock:
+                            eng.step()
+                        worked = True
+                if getattr(self.engine, "spill", None) is not None:
+                    now = time.monotonic()
+                    if now - self._last_rewarm >= 0.25:
+                        # promote the hottest spilled chain into idle
+                        # pool headroom, a bounded run per tick, between
+                        # steps (under the step lock: it writes pages)
+                        self._last_rewarm = now
+                        with self._steplock:
+                            self.engine.maybe_rewarm(max_pages=32)
+                if not worked:
+                    self._wake.wait(timeout=0.05)
+                    self._wake.clear()
+        except BaseException as e:  # noqa: BLE001 — engine died: fail fast
+            self._error = e
+            # unblock every waiter; completions() re-raises the error and
+            # check_health reports the dead loop
+            for eng in self._engines():
+                for req in (list(eng._active.values()) + list(eng._pending)
+                            + list(getattr(eng, "_prefilling", []))):
+                    req.event.set()
+
+    # -- OpenAI-ish surface ------------------------------------------------
 
     def _submit(self, request: dict):
         prompt = request.get("prompt", "")
@@ -138,14 +222,32 @@ class LLMServer:
             logprobs=int(request.get("logprobs") or 0),
         )
         lora_id = self._lora_id(request)
-        if lora_id:
-            if not self.cfg.lora_dir:
+        if lora_id and self._multilora is not None:
+            # batched multi-LoRA: resolve the adapter's latest version at
+            # ADMISSION (in-flight requests stay pinned to it), ride a
+            # slot-table row of the shared engine, and salt every
+            # prefix-cache key with (adapter_id, version). pin=True holds
+            # the slot against eviction until submit. Errors stay typed:
+            # unknown adapter -> ValueError, all slots live ->
+            # RuntimeError("overloaded: ...").
+            try:
+                slot, _version, salt = self._multilora.resolve(
+                    lora_id, self._steplock, pin=True)
+            except KeyError as e:
                 raise ValueError(
-                    f"request names LoRA {lora_id!r} but this deployment "
-                    f"has no lora_dir configured")
-            raise NotImplementedError(
-                "LoRA serving is not ported to ray_tpu_torch yet")
-        eng = self.engine
+                    f"unknown LoRA adapter {lora_id!r} for model "
+                    f"{self.model_id!r}: {e}") from e
+            eng = self.engine
+            try:
+                prompt = (eng.tokenizer.encode(prompt)
+                          if isinstance(prompt, str) else list(prompt))
+                req = eng.submit(prompt, sp, adapter_slot=slot,
+                                 prefix_salt=salt)
+            finally:
+                self._multilora.unpin(slot)
+            self._wake.set()
+            return eng, req
+        eng = self._engine_for(request)
         prompt = (eng.tokenizer.encode(prompt)
                   if isinstance(prompt, str) else list(prompt))
         if sp.logprobs and not isinstance(eng, PagedInferenceEngine):
@@ -155,7 +257,14 @@ class LLMServer:
             raise ValueError(
                 "logprobs requires the paged engine "
                 "(LLMConfig(engine=PagedEngineConfig(...)))")
-        req = eng.submit(prompt, sp)
+        # submit UNDER the lora lock: eviction (also under it) removes
+        # only idle engines, so once submit lands the engine has work and
+        # stays; re-insert if an eviction won the race since selection
+        with self._lora_lock:
+            if eng is not self.engine and \
+                    eng not in self._lora_engines.values():
+                self._lora_engines[lora_id] = eng
+            req = eng.submit(prompt, sp)
         self._wake.set()
         return eng, req
 
@@ -231,10 +340,13 @@ class LLMServer:
         until the directory is ported."""
 
     def export_prefix(self, hashes):
-        """Cross-replica prefix export is not ported yet."""
-        raise NotImplementedError(
-            "export_prefix (cross-replica prefix sharing) is not ported "
-            "to ray_tpu_torch yet")
+        """Serve another engine's prefix import: gather the cached KV
+        pages for ``hashes`` (a chain run) to host arrays. None when
+        nothing is cached any more (the caller prefills cold)."""
+        if not getattr(self.engine, "_prefix_on", False):
+            return None
+        with self._steplock:
+            return self.engine.export_prefix(list(hashes))
 
     def engine_stats(self) -> dict:
         """Counter snapshot for ops introspection: the engine's stats
@@ -245,8 +357,13 @@ class LLMServer:
         return st
 
     def loaded_loras(self) -> list:
-        """Resident adapters: none until LoRA serving is ported."""
-        return []
+        """Resident adapters: merged-engine ids plus the slot table's
+        (adapter_id, version) pairs."""
+        out = list(self._lora_engines)
+        if self._multilora is not None:
+            out.extend(f"{aid}@{v}" for aid, v in
+                       self._multilora.resident().values())
+        return out
 
     def __call__(self, request: dict) -> dict:
         return self.completions(request or {})

@@ -16,8 +16,7 @@ it, replicas of the same engine kind would overwrite each other. When
 tracing is enabled each request carries the trace context it was
 submitted under (``util/tracing.py``); the reference's ``llm.request``
 span, recorded into its runtime's timeline, waits for the runtime's
-port, as do the multi-LoRA series (``rtpu_llm_lora_*``) and the exit
-hook that zeroes a replica's gauges.
+port, as does the exit hook that zeroes a replica's gauges.
 
 Metric names (all prefixed ``rtpu_llm_``):
   ttft_seconds           histogram  submit -> first generated token
@@ -46,6 +45,13 @@ Metric names (all prefixed ``rtpu_llm_``):
       replica's export (cross-replica prefix sharing)
   prefix_cache_exported_pages_total counter  cached pages gathered to host
       for another replica's import
+  prefix_spill_{pages,bytes,demotions,promotions,expired,drops}_total
+      counters  the host spill tier (llm/tiering.py), from engine.stats
+  prefix_spill_resident_{pages,bytes} gauges  what the tier holds now
+  lora_{requests,hits,loads,evictions,swaps}_total counters  the
+      multi-LoRA manager's resolves (llm/multilora/manager.py)
+  lora_publishes_total   counter    registry publishes, by namespace
+  lora_resident_adapters gauge      slot-table rows holding an adapter
 
 Cache heat plane (llm/chainstats.py) — per-chain series, bounded to the
 engine's top-K chains plus the ``__overflow__`` sink so label
@@ -374,3 +380,56 @@ def _ship_chain_stats(engine, gtags: dict) -> None:
     _gauge("rtpu_llm_prefix_chain_tracked",
            "chains holding dedicated heat-table slots").set(
         engine.chains.stats()["tracked"], tags=gtags)
+
+
+# --------------------------------------------------------------------- #
+# multi-LoRA (llm/multilora) — the rtpu_llm_lora_* family
+# --------------------------------------------------------------------- #
+#   lora_requests_total        counter  adapter-routed requests resolved
+#   lora_hits_total            counter  resolves served by a resident slot
+#   lora_loads_total           counter  cold slot loads (registry fetch +
+#       the in-place copy into the slot table)
+#   lora_evictions_total       counter  LRU slots reclaimed for a load
+#   lora_swaps_total           counter  hot-swaps: a newer version loaded
+#       while an older one stayed resident (pinned by in-flight requests)
+#   lora_publishes_total       counter  registry publishes, by namespace
+#   lora_resident_adapters     gauge    slots currently holding an adapter
+
+def lora_publishes() -> Counter:
+    return _counter("rtpu_llm_lora_publishes_total",
+                    "adapter versions published to the registry",
+                    tag_keys=("namespace",))
+
+
+_LORA_COUNTERS = (
+    ("requests", "rtpu_llm_lora_requests_total",
+     "requests resolved to an adapter slot"),
+    ("hits", "rtpu_llm_lora_hits_total",
+     "adapter resolves served by an already-resident slot"),
+    ("loads", "rtpu_llm_lora_loads_total",
+     "cold adapter loads into the slot table"),
+    ("evictions", "rtpu_llm_lora_evictions_total",
+     "resident slots LRU-reclaimed to load another adapter"),
+    ("swaps", "rtpu_llm_lora_swaps_total",
+     "hot-swaps (newer version loaded beside a pinned older one)"),
+)
+
+
+@_never_raise
+def on_lora_stats(manager) -> None:
+    """Ship the manager's counter deltas + residency gauge (called on
+    every resolve — a handful of dict updates, same budget as
+    on_step)."""
+    last = getattr(manager, "_telem_shipped", None)
+    if last is None:
+        last = manager._telem_shipped = {}
+    for key, name, desc in _LORA_COUNTERS:
+        cur = manager.stats.get(key, 0)
+        delta = cur - last.get(key, 0)
+        if delta > 0:
+            last[key] = cur
+            _counter(name, desc).inc(float(delta), tags={"engine": "paged"})
+    _gauge("rtpu_llm_lora_resident_adapters",
+           "slot-table rows currently holding an adapter").set(
+        float(len(manager._resident)),
+        tags={"engine": "paged", "proc": _proc()})

@@ -240,13 +240,80 @@ def apply_rope(x, cos, sin):
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 
 
-def _qkv(h, p, cfg: LlamaConfig, cos, sin):
-    """Projections + RoPE. h [B, S, dim] -> q [B,S,H,D], k/v [B,S,KVH,D]."""
+def _qkv(h, p, cfg: LlamaConfig, cos, sin, lora=None, slots=None):
+    """Projections + RoPE. h [B, S, dim] -> q [B,S,H,D], k/v [B,S,KVH,D].
+
+    ``lora``/``slots``: one layer of the adapter slot table
+    (``_lora_at_layer``) and the rows' slot ids — the batched multi-LoRA
+    serving path adds scale·(h@A[slot])@B[slot] to each projection.
+    None (training, base serving) leaves the math untouched."""
     b, s, _ = h.shape
-    q = (h @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = (h @ p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = (h @ p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = h @ p["wq"]
+    k = h @ p["wk"]
+    v = h @ p["wv"]
+    if lora is not None:
+        q = _lora_add(q, h, lora, "wq", slots)
+        k = _lora_add(k, h, lora, "wk", slots)
+        v = _lora_add(v, h, lora, "wv", slots)
+    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+# ---------------------------------------------------------------------------
+# Batched multi-LoRA (llm/multilora): slot-table deltas on the serving paths
+# ---------------------------------------------------------------------------
+# The slot table (llm/multilora/slots.py) is a dict of fixed-shape f32
+# tensors:
+#   "<t>.A" [S, L, in_t, R]  "<t>.B" [S, L, R, out_t]   t in wq/wk/wv/wo
+#   "lm_head.A" [S, d, R]    "lm_head.B" [S, R, V]
+#   "scale" [S] (alpha/rank per slot; slot 0 = base, all-zero A/B)
+# so a dispatch's shapes do not depend on which tenants are in its batch;
+# per-row slot ids (device tensors, gathered with index_select: no host
+# sync, so a captured program reads them like any input) select each
+# row's adapter. Slot 0, rank padding and absent targets add an exact
+# zero.
+
+_LORA_LAYER_TARGETS = ("wq", "wk", "wv", "wo")
+
+
+def _lora_at_layer(lora, layer: int):
+    """The [S, L, ...] layer-stacked tables at one layer (views)."""
+    if lora is None:
+        return None
+    out = {"scale": lora["scale"]}
+    for t in _LORA_LAYER_TARGETS:
+        a = lora.get(f"{t}.A")
+        if a is not None:
+            out[f"{t}.A"] = a[:, layer]
+            out[f"{t}.B"] = lora[f"{t}.B"][:, layer]
+    return out
+
+
+def _lora_add(y, x, lora, target: str, slots):
+    """y + scale[slot]·(x @ A[slot]) @ B[slot] for one projection.
+
+    x [..., in]; ``slots`` is a scalar (one row's chunk or verify window:
+    every position shares the row's adapter) or [B] with x [B, S, in]
+    (batched decode: two batched products). The low-rank math runs in
+    f32 — as ``lora.merge`` merges in f32 before casting — and the delta
+    is cast back to y's dtype. Absent targets return y unchanged."""
+    a = lora.get(f"{target}.A")
+    if a is None:
+        return y
+    b = lora[f"{target}.B"]
+    slots = torch.as_tensor(slots, device=x.device)
+    xf = x.float()
+    if slots.dim() == 0:
+        idx = slots.reshape(1)
+        d = (xf @ a.index_select(0, idx)[0]) @ b.index_select(0, idx)[0]
+        d = d * lora["scale"].index_select(0, idx)
+    else:
+        d = torch.bmm(torch.bmm(xf, a.index_select(0, slots)),
+                      b.index_select(0, slots))
+        d = d * lora["scale"].index_select(0, slots)[:, None, None]
+    return y + d.to(y.dtype)
 
 
 def _mlp_block(x, p, cfg: LlamaConfig):
@@ -399,7 +466,8 @@ def _as_i32(x, device):
 
 
 def decode_paged(params: dict, tokens, caches: list[dict], block_tables,
-                 lengths, cfg: LlamaConfig, *, page_size: int):
+                 lengths, cfg: LlamaConfig, *, page_size: int, lora=None,
+                 slots=None):
     """One decode step over paged caches.
 
     tokens [B, 1]; block_tables [B, max_pages] int32; lengths [B] int32 =
@@ -407,7 +475,11 @@ def decode_paged(params: dict, tokens, caches: list[dict], block_tables,
     ``lengths``). Returns (logits [B, V] f32, caches) — the caches are
     updated in place and returned for the reference's calling shape.
     Inactive rows: pass length 0 with a zeroed table row and mask the
-    output; their writes land in sink page 0."""
+    output; their writes land in sink page 0.
+
+    ``lora``/``slots`` [B]: batched multi-LoRA — each row's projections
+    (and logits, for lm_head adapters) get its slot's low-rank delta
+    (``_lora_add``)."""
     _dense_only(cfg)
     b = tokens.shape[0]
     dev = tokens.device
@@ -420,21 +492,40 @@ def decode_paged(params: dict, tokens, caches: list[dict], block_tables,
     attend_len = lengths + 1
     for layer in range(cfg.n_layers):
         p = _layer_params(params, layer)
+        ll = _lora_at_layer(lora, layer)
         cache = caches[layer]
         h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
-        q, k, v = _qkv(h, p, cfg, cos, sin)                   # q [B,1,H,D]
+        q, k, v = _qkv(h, p, cfg, cos, sin, ll, slots)       # q [B,1,H,D]
         cache["k"][page_ids, offsets] = k[:, 0].to(cache["k"].dtype)
         cache["v"][page_ids, offsets] = v[:, 0].to(cache["v"].dtype)
         attn = ragged_decode_attention(q[:, 0], cache["k"], cache["v"],
                                        block_tables, attend_len)
-        x = x + attn.reshape(b, 1, -1) @ p["wo"]
+        x = x + _out_proj(attn.reshape(b, 1, -1), p, ll, slots)
         x = _mlp_block(x, p, cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _logits(x, params["lm_head"])[:, 0], caches
+    return _lm_head(x, params, lora, slots)[:, 0], caches
+
+
+def _out_proj(proj, p, lora, slots):
+    """proj @ wo, plus the wo adapter delta on the LoRA path."""
+    y = proj @ p["wo"]
+    if lora is not None:
+        y = _lora_add(y, proj, lora, "wo", slots)
+    return y
+
+
+def _lm_head(x, params, lora, slots):
+    """f32 logits of x, plus the lm_head adapter delta on the LoRA
+    path."""
+    logits = _logits(x, params["lm_head"])
+    if lora is not None and "lm_head.A" in lora:
+        logits = _lora_add(logits, x, lora, "lm_head", slots)
+    return logits
 
 
 def _prefill_chunk_hidden(params, chunk, caches, block_table_row, start_pos,
-                          cfg: LlamaConfig, page_size: int, true_chunk_len):
+                          cfg: LlamaConfig, page_size: int, true_chunk_len,
+                          lora=None, slot=None):
     """prefill_paged_chunk up to the final norm: returns hidden [C, dim]."""
     _dense_only(cfg)
     c = chunk.shape[1]
@@ -463,9 +554,10 @@ def _prefill_chunk_hidden(params, chunk, caches, block_table_row, start_pos,
     x = params["embed"][chunk].to(cfg.dtype)                  # [1, C, D]
     for layer in range(cfg.n_layers):
         p = _layer_params(params, layer)
+        ll = _lora_at_layer(lora, layer)
         cache = caches[layer]
         h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
-        q, k, v = _qkv(h, p, cfg, cos, sin)                   # [1,C,H/KVH,D]
+        q, k, v = _qkv(h, p, cfg, cos, sin, ll, slot)         # [1,C,H/KVH,D]
         shape = (n_chunk_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
         cache["k"][chunk_page_ids] = k[0].reshape(shape).to(cache["k"].dtype)
         cache["v"][chunk_page_ids] = v[0].reshape(shape).to(cache["v"].dtype)
@@ -473,14 +565,15 @@ def _prefill_chunk_hidden(params, chunk, caches, block_table_row, start_pos,
         # reads pages only (prefix + causal window in one predicate)
         attn = ragged_paged_attention(q, cache["k"], cache["v"], bt1,
                                       starts1, qlens1, scale=scale)
-        x = x + attn.to(cfg.dtype).reshape(1, c, -1) @ p["wo"]
+        x = x + _out_proj(attn.to(cfg.dtype).reshape(1, c, -1), p, ll, slot)
         x = _mlp_block(x, p, cfg)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)[0]
 
 
 def prefill_paged_chunk(params: dict, chunk, caches: list[dict],
                         block_table_row, start_pos, cfg: LlamaConfig, *,
-                        page_size: int, true_chunk_len=None):
+                        page_size: int, true_chunk_len=None, lora=None,
+                        slot=None):
     """Prefill ONE page-aligned chunk of one sequence.
 
     chunk [1, C] (C a multiple of page_size, right-padded); block_table_row
@@ -488,45 +581,59 @@ def prefill_paged_chunk(params: dict, chunk, caches: list[dict],
     true_chunk_len = real tokens in this chunk (default C). Writes the
     chunk's K/V into its pages (pad pages and pages past the table go to
     sink page 0), attends the paged prefix plus the chunk causally, and
-    returns (logits [C, V] f32, caches)."""
+    returns (logits [C, V] f32, caches). ``lora``/``slot`` (a scalar):
+    the chunk's adapter, as in ``decode_paged``."""
     hidden = _prefill_chunk_hidden(params, chunk, caches, block_table_row,
-                                   start_pos, cfg, page_size, true_chunk_len)
-    return _logits(hidden, params["lm_head"]), caches
+                                   start_pos, cfg, page_size, true_chunk_len,
+                                   lora, slot)
+    return _lm_head(hidden, params, lora, slot), caches
 
 
 def prefill_paged_rows(params: dict, chunks, caches: list[dict], bt_rows,
                        start_pos, true_lens, cfg: LlamaConfig, *,
-                       page_size: int):
+                       page_size: int, lora=None, slots=None):
     """Prefill R chunk-rows in order: chunks [R, C], bt_rows [R, max_pages],
     start_pos/true_lens [R]. Rows run one after another in a Python loop,
     so row i+1 sees row i's page writes (consecutive rows may be
     consecutive chunks of one sequence). Rows with true_lens == 0 are
     padding (all writes to the sink page). Returns (last_logits [R, V] f32
     — each row's logits at its last real token — and caches). Only that
-    one position goes through the lm_head."""
+    one position goes through the lm_head. ``lora``/``slots`` [R]: each
+    row's adapter, as in ``decode_paged``; the row's lm_head delta is
+    taken on that row alone, so a row's logits do not depend on how many
+    rows its dispatch carries."""
     c = chunks.shape[1]
     dev = chunks.device
     true_lens = _as_i32(true_lens, dev)
     start_pos = _as_i32(start_pos, dev)
+    if lora is not None and slots is None:
+        slots = torch.zeros((chunks.shape[0],), dtype=torch.int32,
+                            device=dev)
     last = []
     for i in range(chunks.shape[0]):
-        hidden = _prefill_chunk_hidden(params, chunks[i:i + 1], caches,
-                                       bt_rows[i], start_pos[i], cfg,
-                                       page_size, true_lens[i])
+        hidden = _prefill_chunk_hidden(
+            params, chunks[i:i + 1], caches, bt_rows[i], start_pos[i], cfg,
+            page_size, true_lens[i], lora, None if lora is None else slots[i])
         # index_select with a device index: no host round trip per row
         last.append(hidden.index_select(
             0, (true_lens[i] - 1).clamp(0, c - 1).reshape(1))[0])
-    return _logits(torch.stack(last), params["lm_head"]), caches
+    logits = _logits(torch.stack(last), params["lm_head"])
+    if lora is not None and "lm_head.A" in lora:
+        logits = torch.stack([
+            _lora_add(logits[i], last[i], lora, "lm_head", slots[i])
+            for i in range(len(last))])
+    return logits, caches
 
 
 def verify_paged_rows(params: dict, tokens, caches: list[dict], bt_rows,
-                      starts, cfg: LlamaConfig, *, page_size: int):
+                      starts, cfg: LlamaConfig, *, page_size: int,
+                      lora=None, slots=None):
     """Speculative-verification forward: for each of R rows feed
     S1 = 1 + n_draft tokens at positions starts[r] .. starts[r]+S1-1,
     writing their K/V in place, and return (logits [R, S1, V] f32,
     caches). Positions past the block table write to sink page 0 (their
     logits are garbage the engine discards). Rows run in order, like
-    prefill_paged_rows."""
+    prefill_paged_rows; ``lora``/``slots`` [R] as there."""
     _dense_only(cfg)
     dev = tokens.device
     maxp = bt_rows.shape[1]
@@ -534,10 +641,14 @@ def verify_paged_rows(params: dict, tokens, caches: list[dict], bt_rows,
     scale = cfg.head_dim ** -0.5
     starts = _as_i32(starts, dev)
     qlens1 = torch.full((1,), s1, dtype=torch.int32, device=dev)
+    if lora is not None and slots is None:
+        slots = torch.zeros((tokens.shape[0],), dtype=torch.int32,
+                            device=dev)
     out = []
     for i in range(tokens.shape[0]):
         bt = bt_rows[i]
         start = starts[i]
+        sl = None if lora is None else slots[i]
         positions = start + torch.arange(s1, device=dev)           # [S1]
         cos, sin = rope_freqs(cfg, positions[None])
         pidx = positions // page_size
@@ -546,18 +657,20 @@ def verify_paged_rows(params: dict, tokens, caches: list[dict], bt_rows,
         x = params["embed"][tokens[i]][None].to(cfg.dtype)         # [1,S1,D]
         for layer in range(cfg.n_layers):
             p = _layer_params(params, layer)
+            ll = _lora_at_layer(lora, layer)
             cache = caches[layer]
             h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
-            q, k, v = _qkv(h, p, cfg, cos, sin)
+            q, k, v = _qkv(h, p, cfg, cos, sin, ll, sl)
             cache["k"][page_ids, offsets] = k[0].to(cache["k"].dtype)
             cache["v"][page_ids, offsets] = v[0].to(cache["v"].dtype)
             attn = ragged_paged_attention(q, cache["k"], cache["v"],
                                           bt[None], start.reshape(1),
                                           qlens1, scale=scale)
-            x = x + attn.to(cfg.dtype).reshape(1, s1, -1) @ p["wo"]
+            x = x + _out_proj(attn.to(cfg.dtype).reshape(1, s1, -1), p,
+                              ll, sl)
             x = _mlp_block(x, p, cfg)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        out.append(_logits(x, params["lm_head"])[0])
+        out.append(_lm_head(x, params, lora, sl)[0])
     return torch.stack(out), caches
 
 

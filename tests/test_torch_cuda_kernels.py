@@ -429,6 +429,83 @@ def test_graph_replay_counts_its_kernel_launches(cuda):
     assert len(cache) == 1 and len(cache.capture_s) == 1
 
 
+def _tenant_engines(cuda, **kw):
+    """A captured (warmed up) and an eager LoRA-enabled paged engine on
+    _bf16_engines' model, prefix cache off so a repeat recomputes."""
+    from ray_tpu_torch.llm import PagedEngineConfig, PagedInferenceEngine
+    from ray_tpu_torch.models import llama
+    mc = llama.llama_tiny(vocab_size=300, dim=256, n_heads=4, n_kv_heads=2,
+                          mlp_dim=512, max_seq_len=512, dtype=torch.bfloat16)
+    params = llama.init(mc, seed=4, device=cuda)
+    cfg = PagedEngineConfig(model=mc, **{
+        **dict(max_batch_size=4, page_size=16, num_pages=96,
+               max_pages_per_seq=32, chunk_size=32, decode_window=4,
+               max_adapters=3, lora_rank=4), **kw})
+    captured = PagedInferenceEngine(cfg, params, rng_seed=3, device=cuda)
+    eager = PagedInferenceEngine(cfg, params, rng_seed=3, device=cuda)
+    eager._eager = True
+    captured.warmup()
+    return mc, captured, eager
+
+
+def test_captured_slot_reload_changes_the_next_replay(cuda):
+    """load_adapter_slot after the programs are captured writes the table
+    in place: the next replay serves the new adapter (the eager engine's
+    tokens with it), not the one the programs were captured beside."""
+    from ray_tpu_torch.llm import SamplingParams, lora
+    mc, captured, eager = _tenant_engines(cuda, enable_prefix_caching=False)
+    ptrs = {k: t.data_ptr() for k, t in captured.lora.tree.items()}
+    ad_a = lora.random_adapter(1, mc, rank=4, alpha=64.0,
+                               targets=("wq", "wv", "wo", "lm_head"))
+    ad_b = lora.random_adapter(2, mc, rank=4, alpha=64.0,
+                               targets=("wq", "wv", "wo", "lm_head"))
+    prompt = [int(t) for t in np.random.RandomState(2).randint(0, 300, 40)]
+    sp = SamplingParams(max_tokens=12, logprobs=1)
+
+    def tenant(eng):
+        req = eng.submit(prompt, sp, adapter_slot=1)
+        eng.run_until_done([req])
+        return req.out_ids, req.out_logps
+
+    n_programs = len(captured._graphs)
+    captured.load_adapter_slot(1, ad_a)
+    first = tenant(captured)
+    captured.load_adapter_slot(1, ad_b)
+    eager.load_adapter_slot(1, ad_b)
+    second = tenant(captured)
+    assert {k: t.data_ptr() for k, t in captured.lora.tree.items()} == ptrs
+    assert second == tenant(eager)
+    assert second[0] != first[0]
+    # the reload replayed programs: only logprob modes were captured new
+    assert len(captured._graphs) - n_programs <= 2
+
+
+def test_captured_import_writes_the_captured_pools(cuda):
+    """import_prefill and import_prefix after capture copy pages into the
+    pool tensors the programs were captured with: a captured decode
+    engine gives the tokens of one engine serving the request whole."""
+    from ray_tpu_torch.llm import SamplingParams
+    _, captured, eager = _tenant_engines(cuda)
+    ptrs = [(c["k"].data_ptr(), c["v"].data_ptr()) for c in captured.caches]
+    prompt = [int(t) for t in np.random.RandomState(3).randint(0, 300, 77)]
+    sp = SamplingParams(max_tokens=10)
+    whole = eager.generate([prompt], sp)[0]["token_ids"]
+    req = captured.import_prefill(eager.prefill_export(prompt, sp), sp)
+    captured.run_until_done([req])
+    assert captured._result(req)["token_ids"] == whole
+    hashes = eager.hash_prompt(prompt)
+    payload = eager.export_prefix(hashes)
+    assert captured.import_prefix(payload) == 0      # already cached
+    _, fresh, _ = _tenant_engines(cuda)
+    assert fresh.import_prefix(payload) == len(hashes)
+    back = fresh.export_prefix(hashes)
+    for la, lb in zip(payload["pages"], back["pages"]):
+        assert np.array_equal(la["k"], lb["k"])
+    assert fresh.generate([prompt], sp)[0]["token_ids"] == whole
+    assert [(c["k"].data_ptr(), c["v"].data_ptr())
+            for c in captured.caches] == ptrs
+
+
 # -- decode-only paged attention (split-KV) ---------------------------------
 
 def _decode_case(dtype, d, groups, page, device, lengths, maxp, seed=0):

@@ -1,8 +1,9 @@
 """Import contract of the PyTorch port.
 
-ray_tpu_torch and chip_smoke.py import neither JAX nor anything of the
-ray_tpu package (ray_tpu_torch's own name shares the prefix, so the
-check matches module names exactly: ``ray_tpu`` or ``ray_tpu.*``), and
+ray_tpu_torch and chip_smoke.py import neither JAX (nor its
+``ml_dtypes``) nor anything of the ray_tpu package (ray_tpu_torch's own
+name shares the prefix, so the check matches module names exactly:
+``ray_tpu`` or ``ray_tpu.*``), and
 the entry points that default to the card raise on a machine without
 one instead of running on the CPU."""
 import ast
@@ -25,7 +26,7 @@ for m in pkgutil.walk_packages(ray_tpu_torch.__path__, "ray_tpu_torch."):
     names.append(m.name)
 def banned(n):
     return any(n == p or n.startswith(p + ".")
-               for p in ("jax", "jaxlib", "ray_tpu"))
+               for p in ("jax", "jaxlib", "ml_dtypes", "ray_tpu"))
 print("MODULES=" + ",".join(names))
 print("BANNED=" + ",".join(sorted(n for n in sys.modules if banned(n))))
 """
@@ -33,7 +34,7 @@ print("BANNED=" + ",".join(sorted(n for n in sys.modules if banned(n))))
 
 def _banned(name: str) -> bool:
     return any(name == p or name.startswith(p + ".")
-               for p in ("jax", "jaxlib", "ray_tpu"))
+               for p in ("jax", "jaxlib", "ml_dtypes", "ray_tpu"))
 
 
 def test_port_modules_load_no_jax_and_no_ray_tpu():
@@ -58,7 +59,13 @@ def test_port_modules_load_no_jax_and_no_ray_tpu():
                  "ray_tpu_torch.core.flight", "ray_tpu_torch.util.metrics",
                  "ray_tpu_torch.util.tracing",
                  "ray_tpu_torch.util.profiling",
-                 "ray_tpu_torch.serve.context"):
+                 "ray_tpu_torch.serve.context", "ray_tpu_torch.core.ids",
+                 "ray_tpu_torch.dag", "ray_tpu_torch.dag.channel",
+                 "ray_tpu_torch.llm.lora", "ray_tpu_torch.llm.tiering",
+                 "ray_tpu_torch.llm.multilora",
+                 "ray_tpu_torch.llm.multilora.slots",
+                 "ray_tpu_torch.llm.multilora.registry",
+                 "ray_tpu_torch.llm.multilora.manager"):
         assert want in modules, (want, sorted(modules))
     assert lines["BANNED"] == "", lines["BANNED"]
 

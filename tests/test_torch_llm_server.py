@@ -243,7 +243,9 @@ def test_dense_config_refuses_logprobs_like_the_reference():
 
 
 def test_lora_requests_raise():
-    """No lora_dir: the reference's ValueError. With one: not ported."""
+    """No lora_dir: the reference's ValueError; a lora_dir without the
+    adapter's file: its FileNotFoundError. export_prefix of hashes no
+    engine holds is None."""
     eng = PagedEngineConfig(model=tllama.llama_tiny(**SHAPE), **ENGINE)
     port = LLMServer(LLMConfig(engine=eng, warmup=False), device="cpu")
     with_dir = LLMServer(LLMConfig(engine=eng, warmup=False,
@@ -253,14 +255,92 @@ def test_lora_requests_raise():
                      {"prompt": "hi", "model": "tiny:tenant-a"}):
             with pytest.raises(ValueError, match="no lora_dir configured"):
                 port.completions(dict(body))
-            with pytest.raises(NotImplementedError, match="LoRA"):
+            with pytest.raises(FileNotFoundError):
                 with_dir.completions(dict(body))
         assert port.loaded_loras() == []
-        with pytest.raises(NotImplementedError, match="export_prefix"):
-            port.export_prefix([b"x"])
+        assert port.export_prefix([b"x" * 16]) is None
     finally:
         _stop(port)
         _stop(with_dir)
+
+
+def _lora_servers(tmp_path, batched: bool):
+    """(reference server, port server) on the same weights serving two
+    adapters from the reference's random_adapter: batched (a slot table,
+    adapters published to each package's registry) or merged engines
+    over a lora_dir of .npz files."""
+    from ray_tpu.llm import lora as jlora
+    from ray_tpu.llm.multilora import AdapterRegistry as JaxRegistry
+    from ray_tpu_torch.llm.multilora import AdapterRegistry
+    mc = jllama.llama_tiny(**SHAPE)
+    ads = {"tenant-a": jlora.random_adapter(
+               jax.random.PRNGKey(7), mc, rank=4, alpha=64.0,
+               targets=("wq", "wv", "lm_head")),
+           "tenant-b": jlora.random_adapter(
+               jax.random.PRNGKey(9), mc, rank=2, alpha=32.0,
+               targets=("wq", "wk", "wv", "wo"))}
+    ns = f"t-server-{tmp_path.name}"
+    if batched:
+        kw = dict(max_adapters=3, lora_rank=4)
+        for reg in (JaxRegistry(ns), AdapterRegistry(ns)):
+            for name, ad in ads.items():
+                reg.publish(name, ad)
+        extra = dict(lora_namespace=ns)
+    else:
+        kw = {}
+        for name, ad in ads.items():
+            jlora.save_adapter(ad, str(tmp_path / name))
+        extra = dict(lora_dir=str(tmp_path), max_loras=1)
+    jax_rcfg.override(serve_prefix_directory=False)
+    try:
+        ref = JaxLLMServer(JaxLLMConfig(
+            model_id="tiny", warmup=False, **extra,
+            engine=JaxPagedConfig(model=mc, **ENGINE, **kw)))
+    finally:
+        jax_rcfg.reset("serve_prefix_directory")
+    port = LLMServer(LLMConfig(
+        model_id="tiny", warmup=False, **extra,
+        engine=PagedEngineConfig(model=tllama.llama_tiny(**SHAPE),
+                                 **ENGINE, **kw)),
+        params_ref=_port_params(ref.engine.params), device="cpu")
+    return ref, port
+
+
+LORA_REQUESTS = [
+    {"prompt": "the quick brown fox", "max_tokens": 8, "lora": "tenant-a"},
+    {"prompt": SHARED + "first question?", "max_tokens": 6,
+     "model": "tiny:tenant-b", "logprobs": 1},
+    {"prompt": "the quick brown fox", "max_tokens": 8},
+    {"prompt": SHARED + "second question!", "max_tokens": 7,
+     "lora": "tenant-a"},
+]
+
+
+@pytest.mark.parametrize("mode", ["merged", "batched"])
+def test_lora_completions_match_reference(tmp_path, mode):
+    """Requests naming an adapter (by "lora" or "model:<id>") and base
+    requests, one at a time: the reference's greedy text, usage and
+    finish reason, logprobs within 1e-4; the adapters change the tokens;
+    loaded_loras() lists what the reference's lists."""
+    ref, port = _lora_servers(tmp_path, batched=mode == "batched")
+    try:
+        a = [ref.completions(dict(r)) for r in LORA_REQUESTS]
+        b = [port.completions(dict(r)) for r in LORA_REQUESTS]
+        for body, x, y in zip(LORA_REQUESTS, a, b):
+            x, xlp = _strip_logprobs(x)
+            y, ylp = _strip_logprobs(y)
+            assert y == x, body
+            if xlp is not None:
+                np.testing.assert_allclose(ylp["token_logprobs"],
+                                           xlp["token_logprobs"], atol=1e-4)
+        assert b[0]["choices"][0]["text"] != b[2]["choices"][0]["text"]
+        assert port.loaded_loras() == ref.loaded_loras()
+        if mode == "batched":
+            with pytest.raises(ValueError, match="unknown LoRA adapter"):
+                port.completions({"prompt": "hi", "lora": "nobody"})
+    finally:
+        _stop(ref)
+        _stop(port)
 
 
 def test_dispatch_failure_ends_the_loop_and_raises():
