@@ -9,20 +9,22 @@ and prints no result line):
    limit; TF32 off for f32 matrix products and convolutions.
 2. build: compiles every CUDA kernel from the sources in the checkout
    (one nvcc per source, all started together) and prints the time.
-   Then each kernel of the flash and ragged libraries: registers and
-   spill bytes (ptxas -v), dynamic shared memory per block, and its HMMA
-   (tensor-core), LDGSTS (cp.async) and LDSM (ldmatrix) instruction
-   counts in the built SASS (cuobjdump). Every bf16 flash kernel
-   (forward, dq, dkv) and every bf16 ragged pass-1 kernel (1, 2 and 4
-   warps), at D 64 and 128, must have all three and no spills.
+   Then each kernel of the flash, ragged and paged decode libraries:
+   registers and spill bytes (ptxas -v), dynamic shared memory per
+   block, and its HMMA (tensor-core), LDGSTS (cp.async) and LDSM
+   (ldmatrix) instruction counts in the built SASS (cuobjdump). Every
+   bf16 flash kernel (forward, dq, dkv) and every bf16 ragged pass-1
+   kernel (1, 2 and 4 warps), at D 64 and 128, must have all three and
+   no spills; the f32 ragged pass-1 kernel and the paged decode kernel
+   (both dtypes) must stage by cp.async and not spill.
 3. kernels: the ragged kernel against its plain PyTorch version on the
    card at the shapes the serving path gives it (Llama-3-8B attention:
    H=32, KVH=8, D=128, page 16) for decode, prefill and verify, and at
    two long rows (4,000 and 8,000 keys) at decode and verify widths,
    which the bf16 kernel splits several ways; in bf16 and f32, with
    block-table tails naming a NaN-filled page. Prints the split count
-   (bf16 at decode and verify widths: runs of 8 pages, whatever the
-   batch), the max error, the kernel's, the plain version's and one
+   (both dtypes at decode and verify widths: runs of 8 pages, whatever
+   the batch), the max error, the kernel's, the plain version's and one
    library call's median time, and the card's lower bound for the same
    work.
 4. serve: PagedInferenceEngine at full Llama-3-8B width (random weights
@@ -63,18 +65,24 @@ and prints no result line):
 7. train agreement: a small f32 model (head_dim 128, GQA 2) trained for
    2 steps on the card (kernels) and on the CPU (plain versions):
    losses and every gradient agree.
-3c. paged decode: the decode-only kernel (split-KV, two launches) on its
-   own entry point paged_decode_attention, whose path no model runs.
-   The launch count is reset, the entry point is called once per case
-   and dtype, and the count read: that is the kernel's path. Cases:
-   phase 3's decode shape plus a length-0 row, and one row with an
-   8,192-token context (512 pages); table tails name a NaN page and the
-   slots past each length in its last page are NaN. Each output is held
-   against the plain version and against the ragged kernel at q_len 1
-   (live rows; length-0 rows must be exactly 0) within phase 3's TOL,
-   its atol cut to 2^-7 of each row's largest value, and the kernel, the
-   plain version, the ragged kernel and scaled_dot_product_attention are
-   timed beside the card's bound.
+3c. paged decode: the decode-only kernel (split-KV over runs of 8 pages,
+   the merge in the last block to finish) on its own entry point
+   paged_decode_attention, whose path no model runs. The launch count is
+   reset, the entry point is called once per case and dtype, and the
+   count read: that is the kernel's path. Cases: phase 3's decode shape
+   plus a length-0 row, and one row with an 8,192-token context (512
+   pages); table tails name a NaN page and the slots past each length in
+   its last page are NaN. Each output is held against the plain version
+   and against the ragged kernel at q_len 1 (live rows; length-0 rows
+   must be exactly 0) within phase 3's TOL, its atol cut to 2^-7 of each
+   row's largest value; bitwise against a second launch, against the
+   merge in a second launch, and row by row against the row alone (the
+   batch reversed, 4 more rows, the table 8 pages wider). The kernel, its
+   two-launch form, the plain version, the ragged kernel (through
+   ragged_decode_attention, and alone on inputs clamped once outside the
+   timed call) and scaled_dot_product_attention are timed beside the
+   card's bound and a cold read (a sum) of as many contiguous bytes as
+   the bound counts.
 4b. dense serve: the paged engine freed, LLMPredictor (the dense-slot
    InferenceEngine) at full Llama-3-8B width (32 layers, bf16, random
    weights from seed 0, batch 8, max_seq_len 1024) answers one batch of
@@ -208,50 +216,55 @@ def build():
 
 
 # mangled kernel name -> (kernel, dtype, head_dim, warps or None), for the
-# flash library and the ragged library
+# flash, ragged and paged decode libraries
 _KERNEL_SYMBOL = re.compile(
-    r"(flash_(?:fwd|dq|dkv)_kernel(?:_mma)?|rpa_kernel_mma|rpa_merge_kernel"
-    r"|ragged_paged_attention_kernel)I(f|13__nv_bfloat16)?Li(\d+)E"
-    r"(?:Li(\d+)E)?")
+    r"(flash_(?:fwd|dq|dkv)_kernel(?:_mma)?|rpa_kernel_mma|rpa_kernel_f32"
+    r"|rpa_merge_kernel|pda_kernel)"
+    r"I(f|13__nv_bfloat16)?Li(\d+)E(?:Li(\d+)E)?")
 _SASS_OPS = ("HMMA", "LDGSTS", "LDSM")
+_KERNEL_LIBS = ("flash_attention", "ragged_paged_attention", "paged_attention")
 
 
 def _kernel_symbol(mangled: str):
     m = _KERNEL_SYMBOL.search(mangled)
     if m is None:
         return None
-    dtype = "float32" if m.group(2) == "f" else "bfloat16"
-    return m.group(1), dtype, int(m.group(3)), \
+    f32 = m.group(2) == "f" or m.group(1) == "rpa_kernel_f32"
+    return m.group(1), "float32" if f32 else "bfloat16", int(m.group(3)), \
         int(m.group(4)) if m.group(4) else None
 
 
 def _smem_bytes(kernel, dtype, d, nw) -> int:
     """Dynamic shared memory per block as launched (0: static only)."""
     from ray_tpu_torch.ops import _build
+    code = 1 if dtype == "bfloat16" else 0
     if kernel.startswith("flash_"):
         which = {"fwd": 0, "dq": 1, "dkv": 2}[kernel.split("_")[1]]
-        return _build.load("flash_attention").flash_smem_bytes(
-            which, 1 if dtype == "bfloat16" else 0, d)
-    if kernel == "rpa_kernel_mma":
-        return _build.load("ragged_paged_attention").rpa_smem_bytes(nw, d)
+        return _build.load("flash_attention").flash_smem_bytes(which, code, d)
+    if kernel in ("rpa_kernel_mma", "rpa_kernel_f32"):
+        return _build.load("ragged_paged_attention").rpa_smem_bytes(
+            code, nw or 1, d)
+    if kernel == "pda_kernel":
+        return _build.load("paged_attention").pda_smem_bytes(code, d)
     return 0
 
 
 def check_kernel_build(build_info) -> dict:
-    """Phase 2, the flash and ragged libraries: each kernel's registers
-    and spill bytes (ptxas -v), dynamic shared memory per block
-    (flash_smem_bytes, rpa_smem_bytes) and its count of tensor-core
-    (HMMA), asynchronous-copy (LDGSTS) and ldmatrix (LDSM) instructions in
-    the built SASS (cuobjdump). Raises unless every bf16 flash kernel
+    """Phase 2, every kernel library: each kernel's registers and spill
+    bytes (ptxas -v), dynamic shared memory per block (flash_smem_bytes,
+    rpa_smem_bytes, pda_smem_bytes) and its count of tensor-core (HMMA),
+    asynchronous-copy (LDGSTS) and ldmatrix (LDSM) instructions in the
+    built SASS (cuobjdump). Raises unless every bf16 flash kernel
     (forward, dq, dkv) and every bf16 ragged pass-1 kernel (1, 2 and 4
-    warps) is the tensor-core one, uses all three and spills nothing, at
-    D 64 and 128; the ragged merge pass must not spill.
-    Returns {"kernel dtype D[ NW]": record}."""
+    warps) is the tensor-core one, uses all three and spills nothing, and
+    the f32 ragged pass-1 kernel and the paged decode kernel (both dtypes)
+    stage K/V by cp.async and spill nothing, at D 64 and 128; the merge
+    passes must not spill. Returns {"kernel dtype D[ NW]": record}."""
     from ray_tpu_torch.ops import _build
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
                              "cuobjdump")
     report = {}
-    for lib in ("flash_attention", "ragged_paged_attention"):
+    for lib in _KERNEL_LIBS:
         for mangled, rec in _build.ptxas_kernels(
                 build_info[lib]["log"]).items():
             sym = _kernel_symbol(mangled)
@@ -289,15 +302,22 @@ def check_kernel_build(build_info) -> dict:
                     not all(rec[op] for op in _SASS_OPS):
                 raise AssertionError(f"{label}: want tensor cores, cp.async, "
                                      f"ldmatrix and no spills, got {rec}")
-        if kernel == "rpa_merge_kernel" and spills:
+        if kernel in ("rpa_kernel_f32", "pda_kernel") and (
+                spills or not rec["LDGSTS"]):
+            raise AssertionError(f"{label}: want cp.async and no spills, "
+                                 f"got {rec}")
+        if kernel.endswith("merge_kernel") and spills:
             raise AssertionError(f"{label}: spills {rec}")
     want = [f"flash_{k}_kernel_mma bfloat16 D{d}" for k in ("fwd", "dq", "dkv")
             for d in (64, 128)] + \
         [f"rpa_kernel_mma bfloat16 D{d} NW{nw}" for d in (64, 128)
-         for nw in (1, 2, 4)]
+         for nw in (1, 2, 4)] + \
+        [f"rpa_kernel_f32 float32 D{d}" for d in (64, 128)] + \
+        [f"pda_kernel {t} D{d}" for t in ("float32", "bfloat16")
+         for d in (64, 128)]
     missing = [k for k in want if k not in out]
     if missing:
-        raise AssertionError(f"tensor-core kernels not built: {missing}")
+        raise AssertionError(f"kernels not built: {missing}")
     return out
 
 
@@ -459,8 +479,7 @@ def check_kernels() -> list:
                                   flush)
             library_ms = _device_ms(lib, flush)
             bound_ms, bound_by = _bound_ms(args, kv_len, dtype)
-            splits = 1 if dtype == torch.float32 else num_splits(
-                q.shape[1], bt.shape[1], kp.shape[1])
+            splits = num_splits(q.shape[1], bt.shape[1], kp.shape[1])
             rec = {"family": family, "dtype": str(dtype).split(".")[-1],
                    "shape": list(q.shape), "kv_len_max": int(kv_len.max()),
                    "splits": splits, "max_abs_err": err,
@@ -530,14 +549,50 @@ def _as_ragged(args):
             torch.clamp(lengths - 1, min=0), torch.clamp(lengths, max=1))
 
 
+def _paged_decode_batched(args, seed: int):
+    """Phase 3c's batch check: each live row of ``args`` alone (its own
+    table row and length) and inside a batch of the case's rows in
+    reversed order plus 4 rows of random lengths on the same pool, every
+    table 8 pages wider (tails naming the poison page), must give the same
+    bits. Returns the rows checked."""
+    from ray_tpu_torch.ops.paged_attention import paged_decode_attention
+    q, kp, vp, bt, lengths = args
+    rng = np.random.RandomState(seed)
+    n, maxp = bt.shape
+    P, page = kp.shape[0], kp.shape[1]
+    poison = P - 1
+    wide = torch.full((n + 4, maxp + 8), poison, dtype=torch.int32,
+                      device="cuda")
+    wide[:n, :maxp] = bt.flip(0)
+    extra = rng.randint(0, maxp * page + 1, 4)
+    for i, keys in enumerate(extra):
+        live = -(-int(keys) // page)
+        wide[n + i, :live] = torch.as_tensor(
+            rng.randint(1, poison, live), dtype=torch.int32)
+    lens = torch.cat([lengths.flip(0), torch.as_tensor(
+        extra, dtype=torch.int32, device="cuda")])
+    qb = torch.cat([q.flip(0), torch.randn(
+        (4,) + tuple(q.shape[1:]), device="cuda").to(q.dtype)])
+    batched = paged_decode_attention(qb, kp, vp, wide, lens)
+    rows = [r for r in range(n) if int(lengths[r]) > 0]
+    for r in rows:
+        alone = paged_decode_attention(q[r:r + 1], kp, vp, bt[r:r + 1],
+                                       lengths[r:r + 1])
+        if not torch.equal(alone[0], batched[n - 1 - r]):
+            raise AssertionError(f"paged decode row {r}: alone differs from "
+                                 f"batched")
+    return len(rows)
+
+
 def check_paged_decode() -> dict:
     """Phase 3c. Returns {"launches": kernel launches of the path run,
     "records": one per (case, dtype)}."""
     from ray_tpu_torch.ops.paged_attention import (
-        paged_decode_attention, paged_decode_reference,
+        decode_splits, paged_decode_attention, paged_decode_reference,
     )
-    from ray_tpu_torch.ops.ragged_paged_attention import \
-        ragged_decode_attention
+    from ray_tpu_torch.ops.ragged_paged_attention import (
+        ragged_decode_attention, ragged_paged_attention,
+    )
     flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
     cases = [(case, dtype, seed) for dtype in (torch.bfloat16, torch.float32)
              for seed, case in enumerate(("main", "long"), start=20)]
@@ -552,16 +607,20 @@ def check_paged_decode() -> dict:
         raise AssertionError(f"paged_decode_attention launched {launches} "
                              f"times for {len(cases)} calls")
     records = []
-    for (case, dtype, _), args, got in zip(cases, inputs, outs):
+    for (case, dtype, seed), args, got in zip(cases, inputs, outs):
         label = f"paged decode {case} {str(dtype).split('.')[-1]}"
         want = paged_decode_reference(*args)
         ragged = ragged_decode_attention(*args)
+        again = paged_decode_attention(*args)
         torch.cuda.synchronize()
         live = args[4] > 0
         if not torch.isfinite(got).all():
             raise AssertionError(f"{label}: non-finite output")
         if got[~live].any():
             raise AssertionError(f"{label}: a length-0 row is not 0")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{label}: a second launch changed bits")
+        batched_rows = _paged_decode_batched(args, seed)
         atol, rtol = TOL[dtype]
         g = got[live].float()
         errs, worst = {}, {}
@@ -578,23 +637,35 @@ def check_paged_decode() -> dict:
                                      f"min(atol {atol}, {ROW_ATOL_REL} x "
                                      f"row max) + rtol {rtol}; max abs "
                                      f"{errs[name]}")
+        # B1 on the same inputs, its starts and q_lens clamped once here,
+        # outside the timed call (ragged_decode_attention clamps per call)
         rargs = _as_ragged(args)
         lib = _sdpa_call(rargs)
         rec = {"case": case, "dtype": str(dtype).split(".")[-1],
                "shape": list(args[0].shape),
                "lengths_max": int(args[4].max()),
+               "splits": decode_splits(args[3].shape[1], args[1].shape[1]),
                "max_abs_err": errs["plain"],
                "max_abs_err_vs_ragged": errs["ragged"],
                "atol_rtol": TOL[dtype], "row_atol_rel": ROW_ATOL_REL,
                "worst_err_over_limit": worst,
+               "bitwise_rows_alone_vs_batched": batched_rows,
                "ms": _device_ms(lambda: paged_decode_attention(*args), flush),
                "plain_ms": _device_ms(lambda: paged_decode_reference(*args),
                                       flush),
                "ragged_ms": _device_ms(
                    lambda: ragged_decode_attention(*args), flush),
+               "ragged_kernel_ms": _device_ms(
+                   lambda: ragged_paged_attention(*rargs), flush),
                "library_ms": _device_ms(lib, flush)}
         rec["bound_ms"], rec["bound_by"] = _bound_ms(
             rargs, args[4].cpu().numpy().astype(np.int64), dtype)
+        # a yardstick for the bound: one cold read (a sum) of as many
+        # contiguous bytes as the bound counts
+        stream = torch.zeros(int(rec["bound_ms"] * 1e-3 * HBM_BYTES_PER_S)
+                             // 4, device="cuda")
+        rec["read_ms"] = _device_ms(stream.sum, flush)
+        del stream
         print("paged_decode: " + json.dumps(rec), flush=True)
         records.append(rec)
     return {"launches": launches, "records": records}
@@ -2421,13 +2492,17 @@ def main():
                                "max_abs_err", "ms", "plain_ms", "library_ms",
                                "bound_ms", "bound_by")} for r in records],
     }]
-    # the bf16 D 128 pass-1 builds (1 warp: decode; 2: verify; 4: prefill)
+    # the D 128 pass-1 builds: bf16 by warps (1: decode; 2: verify; 4:
+    # prefill), and f32
+    keys = ("registers", "spill_stores", "smem_bytes", "HMMA", "LDGSTS")
     kernels[0]["builds"] = {
         nw: {k: kernel_build[f"rpa_kernel_mma bfloat16 D128 NW{nw}"].get(k)
-             for k in ("registers", "spill_stores", "smem_bytes", "HMMA",
-                       "LDGSTS")} for nw in (1, 2, 4)}
+             for k in keys} for nw in (1, 2, 4)}
+    kernels[0]["builds"]["f32"] = {
+        k: kernel_build["rpa_kernel_f32 float32 D128"].get(k) for k in keys}
     b2 = next(r for r in decode["records"]
               if r["case"] == "main" and r["dtype"] == "bfloat16")
+    b2_built = kernel_build["pda_kernel bfloat16 D128"]
     kernels.append({
         "name": PAGED_DECODE[0], "route": "cuda",
         "source": "ray_tpu_torch/ops/csrc/paged_attention.cu",
@@ -2438,6 +2513,16 @@ def main():
         "library_ms": b2["library_ms"],
         "timed_at": "decode bf16 B=9 (lengths 0-1000) H=32 KVH=8 D=128 "
                     "page=16",
+        # every case and dtype of phase 3c, each held to its plain version
+        "timed_cases": [
+            {k: r[k] for k in ("case", "dtype", "shape", "splits",
+                               "max_abs_err", "ms",
+                               "plain_ms", "ragged_ms", "ragged_kernel_ms",
+                               "library_ms", "read_ms", "bound_ms",
+                               "bound_by")}
+            for r in decode["records"]],
+        **{k: b2_built.get(k) for k in ("registers", "spill_stores",
+                                         "smem_bytes", "LDGSTS")},
     })
     main_case = flash["timed"]["bfloat16"]
     for name, replaces in FLASH_KERNELS:

@@ -196,8 +196,8 @@ def _bind(name: str, lib: ctypes.CDLL):
         lib.rpa_forward.argtypes = [I, P, P, P, P, P, P, P, P, P,
                                     I, I, I, I, I, I, I, I, I, I, F, P]
         lib.rpa_forward.restype = I
-        # warps per bf16 pass-1 block, D -> dynamic smem bytes
-        lib.rpa_smem_bytes.argtypes = [I, I]
+        # dtype, warps per bf16 pass-1 block, D -> dynamic smem bytes
+        lib.rpa_smem_bytes.argtypes = [I, I, I]
         lib.rpa_smem_bytes.restype = I
     elif name == "flash_attention":
         # dtype, q, k, v, then the outputs / backward operands, then
@@ -213,8 +213,11 @@ def _bind(name: str, lib: ctypes.CDLL):
         lib.flash_smem_bytes.restype = I
     elif name == "paged_attention":
         # dtype, q, k_pages, v_pages, block_table, lengths, part_o,
-        # part_ml, out, B, H, KVH, D, page, max_pages, n_splits, scale,
-        # stream
-        lib.pda_forward.argtypes = [I, P, P, P, P, P, P, P, P,
-                                    I, I, I, I, I, I, I, F, P]
+        # part_ml, counters, out, B, H, KVH, D, page, max_pages, n_splits,
+        # split_pages, scale, stream
+        lib.pda_forward.argtypes = [I, P, P, P, P, P, P, P, P, P,
+                                    I, I, I, I, I, I, I, I, F, P]
         lib.pda_forward.restype = I
+        # dtype, D -> dynamic smem bytes
+        lib.pda_smem_bytes.argtypes = [I, I]
+        lib.pda_smem_bytes.restype = I

@@ -1,5 +1,6 @@
-// Decode-only paged attention for Hopper (sm_90a), split over the KV
-// sequence ("split-KV") in two launches.
+// Decode-only paged attention for Hopper (sm_90a): split-KV over fixed runs
+// of whole pages, a ring of cp.async stages, and the merge in the same
+// launch.
 //
 // Replaces the TPU kernel `_paged_decode_kernel` of
 // ray_tpu/ops/paged_attention.py (Pallas). It computes the same function,
@@ -12,63 +13,79 @@
 //   dtype before p.V, as the reference rounds it; the output is
 //   acc / max(l, 1e-30) in q's dtype, so a row of length 0 gives exact 0.
 //
-// What bounds it on this card: the bytes of the live K/V pages. One decode
-// step does ~1 FLOP per byte of K/V it reads (4 * D FLOPs per key and
-// query head, 2 * D * elt bytes per key and kv head, G = 4 query heads per
-// kv head at Llama-3-8B), far below the H100's ~295 FLOP/B ridge.
+// What bounds it on this card: the bytes of the live K/V pages. A decode
+// step does 4 * D FLOPs per key and query head and moves 2 * D * elt bytes
+// per key and kv head: with G = 4 (Llama-3-8B) that is 4 FLOPs a byte in
+// bf16 and 2 in f32, far below the ridge of the CUDA cores' f32 rate
+// (67e12 / 3.35e12 = 20 FLOPs a byte), so CUDA cores keep up with the
+// bytes and the design is about keeping enough loads in flight on all
+// 132 SMs.
 //
-// What the design does about that: reaching the HBM rate needs enough
-// loads in flight on all 132 SMs, and a decode batch gives few blocks
-// when each (row, kv head) walks its whole context alone (8 rows x 8 kv heads = 64
-// blocks at 8B widths: the ragged kernel's decode case). So each row's
-// live pages are cut into splits:
-//   * pass 1, grid (split, kv head x row tile, row): a block takes up to
-//     four query heads of one kv head (one per warp; G = 4 at Llama-3-8B,
-//     and larger groups take ceil(G / 4) row tiles) and walks only its
-//     split's share of that row's LIVE pages, in tiles of 32 keys staged
-//     in shared memory with 16-byte loads (the next tile's loads in flight
-//     while the current one is computed); every query head of the tile
-//     reads K/V from there, so K/V leave device memory once per block. A
-//     warp keeps m, l and acc of its head in f32 registers and writes them
-//     to an f32 scratch
-//     [B, n_splits, H, D] (+ [B, n_splits, H, 2] for m and l);
-//   * pass 2, grid (head, row): merges the row's used splits
-//     (m = max m_s, l = sum l_s exp(m_s - m), acc likewise) and writes out.
-// The wrapper fixes the number of splits from the SM count and the table
-// width, so that rows x kv heads x row tiles x splits give about four
-// blocks per SM;
-// on the device every block derives the pages per split from the LONGEST
-// live length of the call (ceil(longest pages / n_splits)), so the
-// longest row is spread over all splits, no host sync is needed, and a
-// split never cuts a page. Blocks whose split starts past their row's
-// live pages return at once, and pass 2 reads only the splits that hold
-// keys.
+// The split rule (batch-invariant): a row's keys are cut into splits of
+// split_pages whole pages (SPLIT_KEYS = 128 keys: 8 pages of 16), split s
+// holding keys [s * span, (s + 1) * span), span = split_pages * page_size,
+// and the wrapper launches ceil(table width / split_pages) of them. Which
+// keys a split holds depends only on the page index and the page size:
+// never on the batch, the other rows' lengths or the table width, so a
+// row's output has the same bits alone and in any batch, and at any table
+// width that covers it (the Pallas kernel walks a row's pages in order,
+// whatever else is in the call). The first design sized its splits from
+// the call's longest row (an atomicMax prologue in every block of both
+// passes) and chose their count from the batch and the SM count, so a
+// row's bits changed with its neighbours.
 //
-// Never read: block-table entries past a row's live page count (table
-// tails may be stale or name poisoned pages) and slots past lengths[b]
-// inside the last live page. Keys are loaded only below lengths[b].
+// One launch, grid (split, kv head x row tile, row), 128 threads:
+//   * a block takes up to four query heads of one kv head (one per warp;
+//     G = 4 at Llama-3-8B, larger groups take ceil(G / 4) row tiles) and
+//     one split of one row; a split that starts past the row's live keys
+//     returns at once;
+//   * K/V move in stages of 32 keys gathered through the block table by
+//     16-byte cp.async.cg into a ring of kStages (3) slots of shared
+//     memory: the block's first two stages are in flight before it reads
+//     q, and each stage it computes is replaced by the one three on, so
+//     at the 8B shape a 128-key split has all of its K/V requested by its
+//     second stage; keys past the split's end are zero-filled and never
+//     addressed, and block-table entries past a row's live pages are never
+//     read (table tails may name stale or poisoned pages);
+//   * lane j of each warp scores key j of the stage with 16-byte reads of
+//     its K row (rows padded by 16 bytes, so the reads do not conflict)
+//     and of the warp's query (a broadcast); the warp reduces max and sum
+//     with shuffles; each lane accumulates P.V for its D / 32 output dims;
+//   * a row whose live keys fit in one split is written by that block:
+//     acc / max(l, 1e-30). Otherwise each block writes its split's
+//     unnormalised (m, l, acc) to f32 scratch [B, n_splits, H] (+ D),
+//     then counts itself in an arrival counter of its (row, kv head
+//     tile); the last block to arrive resets the counter to 0 (for the
+//     next call, or the next replay of a captured graph) and merges the
+//     row's splits in split order (m = max m_s, l = sum l_s exp(m_s - m),
+//     acc likewise). The order is fixed, so two launches give the same
+//     bits whichever block arrives last. The counters are one buffer per
+//     (device, stream) in the wrapper: launches in order on one stream
+//     reuse it safely; two launches that may run at once must not share
+//     it. Merging in the last block beat a second launch for the merge at
+//     every timed shape on the H100.
 //
-// Products and sums run on CUDA cores in f32; tensor-core tiles are later
-// work (PERF.md has the times).
+// Products and sums on CUDA cores in f32.
 //
 // C interface (bound with ctypes, see ray_tpu_torch/ops/_build.py):
-// pda_forward launches both passes on `stream` and returns
-// cudaGetLastError() after each launch, or cudaErrorInvalidValue for a
-// dtype/head_dim it was not built for.
+// pda_forward launches on `stream` and returns cudaGetLastError() after
+// each launch (or the error of setting the dynamic shared-memory size),
+// or cudaErrorInvalidValue for a dtype/head_dim it was not built for, a
+// split count that does not cover the table or a grid it cannot launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_sm90.cuh"  // cp.async wrappers, kNegInf, kFull, allow_smem
+
 namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kRows = kWarps;                 // query heads per block: one
-                                              // per warp
-constexpr int kKeyTile = 32;                  // keys per tile: one per lane
-constexpr float kNegInf = -1e30f;             // NEG_INF of the paged family
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kRows = kWarps;    // query heads per block: one per warp
+constexpr int kKeyTile = 32;     // keys per stage: one per lane
+constexpr int kStages = 3;       // stages of the cp.async ring
 
 // Element access by 32-bit words: a word holds one f32 or two bf16.
 template <typename T>
@@ -78,7 +95,6 @@ template <>
 struct Elem<float> {
   static constexpr int kPerWord = 1;
   __device__ static float to_float(float x) { return x; }
-  __device__ static float from_float(float x) { return x; }
   __device__ static float round(float x) { return x; }
   __device__ static void unpack(uint32_t w, float* out) {
     out[0] = __uint_as_float(w);
@@ -86,25 +102,24 @@ struct Elem<float> {
 };
 
 template <>
-struct Elem<__nv_bfloat16> {
+struct Elem<bf16> {
   static constexpr int kPerWord = 2;
-  __device__ static float to_float(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-  }
-  __device__ static __nv_bfloat16 from_float(float x) {
-    return __float2bfloat16(x);
-  }
+  __device__ static float to_float(bf16 x) { return __bfloat162float(x); }
   // p rounded to V's dtype before p.V, where the reference rounds it
   __device__ static float round(float x) {
     return __bfloat162float(__float2bfloat16(x));
   }
+  // a bf16 is the top half of an f32: element 0 is the word's low half
   __device__ static void unpack(uint32_t w, float* out) {
-    __nv_bfloat162 b = *reinterpret_cast<__nv_bfloat162*>(&w);
-    float2 f = __bfloat1622float2(b);
-    out[0] = f.x;
-    out[1] = f.y;
+    out[0] = __uint_as_float(w << 16);
+    out[1] = __uint_as_float(w & 0xffff0000u);
   }
 };
+
+__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_out(bf16* p, float x) {
+  *p = __float2bfloat16(x);
+}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -118,6 +133,34 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// N consecutive 32-bit words of shared memory in one load (N = 1, 2, 4;
+// p aligned to 4 N bytes)
+template <int N>
+__device__ __forceinline__ void lds_words(uint32_t (&w)[N],
+                                          const uint32_t* p) {
+  if constexpr (N == 4) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+  } else if constexpr (N == 2) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = v.x;
+    w[1] = v.y;
+  } else {
+    w[0] = *p;
+  }
+}
+
+template <typename T, int D>
+struct PdaCfg {
+  static constexpr int KW = D * (int)sizeof(T) / 4;  // words per K/V row
+  static constexpr int KLD = KW + 4;  // K row stride in words (+16 bytes)
+  static constexpr int kStage = kKeyTile * (KLD + KW);  // words: K then V
+  static constexpr int kSmemBytes = (kRows * D + kStages * kStage) * 4;
+};
+
 // Live keys of a row: lengths[b] clamped to the table's capacity (the
 // reference attends the whole table when a length exceeds it).
 __device__ __forceinline__ int live_keys(int len, int page_size,
@@ -125,51 +168,79 @@ __device__ __forceinline__ int live_keys(int len, int page_size,
   return min(max(len, 0), max_pages * page_size);
 }
 
-// Pages each split takes: ceil(longest live page count / n_splits), at
-// least 1. Every block of both passes computes it from `lengths` alone.
-__device__ int split_pages(const int* __restrict__ lengths, int B,
-                           int page_size, int max_pages, int n_splits) {
-  __shared__ int s_longest;
-  if (threadIdx.x == 0) s_longest = 0;
-  __syncthreads();
-  int longest = 0;
-  for (int b = threadIdx.x; b < B; b += blockDim.x) {
-    const int n = live_keys(lengths[b], page_size, max_pages);
-    longest = max(longest, (n + page_size - 1) / page_size);
+// Merge one query head's n_used splits (row b), in split order, and write
+// its output; lane owns dims [lane * DPL, lane * DPL + DPL). The splits
+// were written by other blocks: read through L2 (ld.cg), never a stale L1.
+template <typename T, int D>
+__device__ __forceinline__ void merge_splits(const float* part_o,
+                                             const float* part_ml, T* out,
+                                             int b, int H, int head,
+                                             int n_splits, int n_used,
+                                             int lane) {
+  constexpr int DPL = D / 32;
+  const size_t row = (size_t)b * n_splits;
+  float m = kNegInf;
+  for (int s = 0; s < n_used; ++s)
+    m = fmaxf(m, __ldcg(part_ml + ((row + s) * H + head) * 2));
+  float l = 0.f, acc[DPL];
+#pragma unroll
+  for (int e = 0; e < DPL; ++e) acc[e] = 0.f;
+#pragma unroll 4
+  for (int s = 0; s < n_used; ++s) {
+    const size_t at = (row + s) * H + head;
+    const float2 ml = __ldcg(reinterpret_cast<const float2*>(part_ml) + at);
+    const float w = expf(ml.x - m);
+    l += ml.y * w;
+    const float* o = part_o + at * D + lane * DPL;
+    float v[DPL];
+    if constexpr (DPL == 4) {
+      const float4 v4 = __ldcg(reinterpret_cast<const float4*>(o));
+      v[0] = v4.x;
+      v[1] = v4.y;
+      v[2] = v4.z;
+      v[3] = v4.w;
+    } else {
+      const float2 v2 = __ldcg(reinterpret_cast<const float2*>(o));
+      v[0] = v2.x;
+      v[1] = v2.y;
+    }
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) acc[e] += v[e] * w;
   }
-  atomicMax(&s_longest, longest);
-  __syncthreads();
-  return max(1, (s_longest + n_splits - 1) / n_splits);
+  const float denom = fmaxf(l, 1e-30f);
+  T* dst = out + ((size_t)b * H + head) * D + lane * DPL;
+#pragma unroll
+  for (int e = 0; e < DPL; ++e) store_out(dst + e, acc[e] / denom);
 }
 
-// Pass 1. q, out: [B, H, D]; k_pages, v_pages: [P, page_size, KVH, D];
+// q, out: [B, H, D]; k_pages, v_pages: [P, page_size, KVH, D];
 // block_table: [B, max_pages] int32; lengths: [B] int32.
-// part_o: [B, n_splits, H, D] f32; part_ml: [B, n_splits, H, 2] f32.
-// grid = (n_splits, KVH * ceil(G / kRows), B), block = kThreads.
+// part_o: [B, n_splits, H, D] f32; part_ml: [B, n_splits, H, 2] f32;
+// counters: [B, KVH * ceil(G / kRows)] int32, zero between calls.
+// grid = (n_splits, KVH * ceil(G / kRows), B), block = kThreads, dynamic
+// shared memory PdaCfg<T, D>::kSmemBytes.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_split_kernel(const T* __restrict__ q,
-                          const T* __restrict__ k_pages,
-                          const T* __restrict__ v_pages,
-                          const int* __restrict__ block_table,
-                          const int* __restrict__ lengths,
-                          float* __restrict__ part_o,
-                          float* __restrict__ part_ml, int B, int H, int KVH,
-                          int page_size, int max_pages, int n_splits,
-                          float scale) {
+pda_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
+           const T* __restrict__ v_pages, const int* __restrict__ block_table,
+           const int* __restrict__ lengths, float* __restrict__ part_o,
+           float* __restrict__ part_ml, int* __restrict__ counters,
+           T* __restrict__ out, int H, int KVH, int page_size, int max_pages,
+           int n_splits, int split_pages, float scale) {
   using E = Elem<T>;
+  using C = PdaCfg<T, D>;
   constexpr int PW = E::kPerWord;
-  constexpr int DW = D / PW;      // words per K/V row
-  constexpr int DPL = D / 32;     // output dims per lane
-  constexpr int WPL = DPL / PW;   // V words per lane
-  constexpr int VPR = DW / 4;     // 16-byte vectors per K/V row
-  constexpr int kLoads = kKeyTile * VPR / kThreads;  // per thread per tile
+  constexpr int KW = C::KW, KLD = C::KLD;
+  constexpr int VPR = KW / 4;       // 16-byte vectors per K/V row
+  constexpr int DPL = D / 32;       // output dims per lane
+  constexpr int WPL = DPL / PW;     // V words per lane
+  constexpr int kCopies = kKeyTile * VPR / kThreads;  // per thread, stage
   static_assert(D % 64 == 0, "head_dim must be a multiple of 64");
-  static_assert(kKeyTile * VPR % kThreads == 0, "tile split");
-
-  __shared__ float q_s[kRows][D];
-  __shared__ uint32_t k_s[kKeyTile][DW + 1];  // odd stride: lane j -> bank j
-  __shared__ __align__(16) uint32_t v_s[kKeyTile][DW];
+  static_assert(kKeyTile * VPR % kThreads == 0, "stage split");
+  extern __shared__ __align__(16) uint32_t smem_w[];
+  float* q_s = reinterpret_cast<float*>(smem_w);  // [kRows][D]
+  uint32_t* ring = smem_w + kRows * D;  // kStages x {K [32][KLD], V [32][KW]}
+  __shared__ int s_last;
 
   const int split = blockIdx.x;
   const int G = H / KVH;
@@ -180,193 +251,224 @@ paged_decode_split_kernel(const T* __restrict__ q,
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const bool active = g0 + warp < G;  // this warp's query head exists
+  const int head = h * G + g0 + warp;
 
-  const int pps = split_pages(lengths, B, page_size, max_pages, n_splits);
   const int n_live = live_keys(lengths[b], page_size, max_pages);
-  const int k_lo = split * pps * page_size;
-  const int k_hi = min(k_lo + pps * page_size, n_live);
-  if (k_lo >= k_hi) return;  // uniform: pass 2 reads only used splits
+  const int span = split_pages * page_size;
+  const int n_used = (n_live + span - 1) / span;  // splits holding keys
+  const int k_lo = split * span;
+  const int k_hi = min(k_lo + span, n_live);
+  if (k_lo >= k_hi) {  // uniform
+    // a row with no live key is written 0 by its first split's block
+    if (n_used == 0 && split == 0 && active) {
+      T* dst = out + ((size_t)b * H + head) * D + lane * DPL;
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) store_out(dst + e, 0.f);
+    }
+    return;
+  }
+  const int n_tiles = (k_hi - k_lo + kKeyTile - 1) / kKeyTile;
+
+  // Stage s of this split into ring slot s % kStages: each key's page from
+  // the block table; keys >= k_hi are zero-filled and never addressed.
+  const int* bt_row = block_table + (size_t)b * max_pages;
+  auto stage = [&](int s) {
+    const int kb = k_lo + s * kKeyTile;
+    uint32_t* ks = ring + (s % kStages) * C::kStage;
+    uint32_t* vs = ks + kKeyTile * KLD;
+#pragma unroll
+    for (int it = 0; it < kCopies; ++it) {
+      const int idx = threadIdx.x + it * kThreads;
+      const int j = idx / VPR, c = idx - j * VPR;
+      const int key = kb + j;
+      const bool ok = key < k_hi;
+      size_t off = 0;  // in elements
+      if (ok) {
+        const int pid = bt_row[key / page_size];
+        off = (((size_t)pid * page_size + key % page_size) * KVH + h) * D +
+              c * (16 / (int)sizeof(T));
+      }
+      cp_async16(smem_addr(ks + j * KLD + c * 4), k_pages + off, ok);
+      cp_async16(smem_addr(vs + j * KW + c * 4), v_pages + off, ok);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_tiles) stage(s);
+    cp_async_commit();
+  }
 
   for (int idx = threadIdx.x; idx < kRows * D; idx += kThreads) {
     const int k = idx / D, d = idx % D;
     const int g = g0 + k;
-    q_s[k][d] = g < G ? E::to_float(q[((size_t)b * H + h * G + g) * D + d])
-                      : 0.f;
+    q_s[idx] = g < G ? E::to_float(q[((size_t)b * H + h * G + g) * D + d])
+                     : 0.f;
   }
 
   float m = kNegInf, l = 0.f, acc[DPL];
 #pragma unroll
   for (int e = 0; e < DPL; ++e) acc[e] = 0.f;
 
-  const uint4* k_vec = reinterpret_cast<const uint4*>(k_pages);
-  const uint4* v_vec = reinterpret_cast<const uint4*>(v_pages);
-  const int* bt_row = block_table + (size_t)b * max_pages;
-
-  // A key tile moves as kLoads independent 16-byte loads of K and of V per
-  // thread, all started before any is used; the next tile's loads start
-  // right after the current tile is in shared memory. Only keys < k_hi
-  // (<= lengths[b]) are touched, so only live table entries are read.
-  uint4 k_reg[kLoads], v_reg[kLoads];
-  auto load_tile = [&](int kb) {
-    const int nt = min(kKeyTile, k_hi - kb);
+  for (int t = 0; t < n_tiles; ++t) {
+    // refill the slot stage t - 1 used (every warp left it at the barrier
+    // that ended the last iteration)
+    if (t + kStages - 1 < n_tiles) stage(t + kStages - 1);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();  // this thread's copies of stage t landed
+    __syncthreads();               // everyone's; q_s staged
+    if (active) {                  // uniform across the warp
+      const int kb = k_lo + t * kKeyTile;
+      const int nt = min(kKeyTile, k_hi - kb);
+      const uint32_t* ks = ring + (t % kStages) * C::kStage;
+      const uint32_t* vs = ks + kKeyTile * KLD;
+      // lane j scores key kb + j
+      const bool keep = lane < nt;
+      float s = kNegInf;
+      if (keep) {
+        const uint4* kr = reinterpret_cast<const uint4*>(ks + lane * KLD);
+        const float4* qr = reinterpret_cast<const float4*>(q_s + warp * D);
+        float dot[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < kLoads; ++i) {
-      const int idx = threadIdx.x + i * kThreads;
-      const int j = idx / VPR, c = idx % VPR;
-      if (j < nt) {
-        const int key = kb + j;
-        const int pid = bt_row[key / page_size];
-        const size_t off =
-            (((size_t)pid * page_size + key % page_size) * KVH + h) * VPR + c;
-        k_reg[i] = k_vec[off];
-        v_reg[i] = v_vec[off];
+        for (int c = 0; c < VPR; ++c) {
+          const uint4 kv = kr[c];
+          const uint32_t kw[4] = {kv.x, kv.y, kv.z, kv.w};
+          float kf[4 * PW];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) E::unpack(kw[i], kf + i * PW);
+#pragma unroll
+          for (int i = 0; i < PW; ++i) {
+            const float4 qv = qr[c * PW + i];
+            float& dd = dot[c & 1];
+            dd = fmaf(qv.x, kf[4 * i], dd);
+            dd = fmaf(qv.y, kf[4 * i + 1], dd);
+            dd = fmaf(qv.z, kf[4 * i + 2], dd);
+            dd = fmaf(qv.w, kf[4 * i + 3], dd);
+          }
+        }
+        s = (dot[0] + dot[1]) * scale;
+      }
+      const float m_new = fmaxf(m, warp_max(s));
+      const float p = keep ? expf(s - m_new) : 0.f;
+      const float alpha = expf(m - m_new);
+      l = l * alpha + warp_sum(p);
+      m = m_new;
+      const float pv = E::round(p);
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) acc[e] *= alpha;
+      // keys past the stage's end are zero-filled and their p is 0: they
+      // add exactly nothing, and a fixed trip count lets the shuffles and
+      // reads of all 32 keys overlap
+#pragma unroll
+      for (int j = 0; j < kKeyTile; ++j) {
+        const float pj = __shfl_sync(kFull, pv, j);
+        uint32_t vw[WPL];
+        lds_words<WPL>(vw, vs + j * KW + lane * WPL);
+#pragma unroll
+        for (int ww = 0; ww < WPL; ++ww) {
+          float vf[PW];
+          E::unpack(vw[ww], vf);
+#pragma unroll
+          for (int e = 0; e < PW; ++e)
+            acc[ww * PW + e] = fmaf(pj, vf[e], acc[ww * PW + e]);
+        }
       }
     }
-  };
-
-  const float* qr = q_s[warp];
-  load_tile(k_lo);
-  for (int kb = k_lo; kb < k_hi; kb += kKeyTile) {
-    const int nt = min(kKeyTile, k_hi - kb);
-    __syncthreads();  // q_s staged / previous tile consumed
-#pragma unroll
-    for (int i = 0; i < kLoads; ++i) {
-      const int idx = threadIdx.x + i * kThreads;
-      const int j = idx / VPR, c = idx % VPR;
-      if (j < nt) {
-        uint32_t* kd = &k_s[j][c * 4];
-        kd[0] = k_reg[i].x;
-        kd[1] = k_reg[i].y;
-        kd[2] = k_reg[i].z;
-        kd[3] = k_reg[i].w;
-        *reinterpret_cast<uint4*>(&v_s[j][c * 4]) = v_reg[i];
-      }
-    }
-    __syncthreads();
-    if (kb + kKeyTile < k_hi) load_tile(kb + kKeyTile);
-    if (!active) continue;  // uniform across the warp; it still stages
-
-    // lane j scores key kb + j
-    const bool keep = lane < nt;
-    float s = kNegInf;
-    if (keep) {
-      float dot = 0.f;
-#pragma unroll 8
-      for (int w = 0; w < DW; ++w) {
-        float kf[PW];
-        E::unpack(k_s[lane][w], kf);
-#pragma unroll
-        for (int e = 0; e < PW; ++e) dot += qr[w * PW + e] * kf[e];
-      }
-      s = dot * scale;
-    }
-    const float m_new = fmaxf(m, warp_max(s));
-    const float p = keep ? expf(s - m_new) : 0.f;
-    const float alpha = expf(m - m_new);
-    l = l * alpha + warp_sum(p);
-    m = m_new;
-    const float pv = E::round(p);
-    // lane owns output dims [lane * DPL, lane * DPL + DPL)
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) acc[e] *= alpha;
-    for (int j = 0; j < nt; ++j) {
-      const float pj = __shfl_sync(kFull, pv, j);
-#pragma unroll
-      for (int ww = 0; ww < WPL; ++ww) {
-        float vf[PW];
-        E::unpack(v_s[j][lane * WPL + ww], vf);
-#pragma unroll
-        for (int e = 0; e < PW; ++e) acc[ww * PW + e] += pj * vf[e];
-      }
-    }
+    __syncthreads();  // this slot is refilled at the next iteration
   }
+  cp_async_wait<0>();
 
-  if (!active) return;
-  const int head = h * G + g0 + warp;
-  const size_t at = ((size_t)b * n_splits + split) * H + head;
-  float* o = part_o + at * D + lane * DPL;
+  if (n_used == 1) {  // uniform: this block holds all of the row's keys
+    if (active) {
+      const float denom = fmaxf(l, 1e-30f);
+      T* dst = out + ((size_t)b * H + head) * D + lane * DPL;
 #pragma unroll
-  for (int e = 0; e < DPL; ++e) o[e] = acc[e];
-  if (lane == 0) {
-    part_ml[at * 2] = m;
-    part_ml[at * 2 + 1] = l;
+      for (int e = 0; e < DPL; ++e) store_out(dst + e, acc[e] / denom);
+    }
+    return;
   }
-}
-
-// Pass 2. grid = (H, B), block = D threads: thread d merges dim d of one
-// (row, head) over the splits that hold keys. A row with no live key
-// merges nothing and writes 0 / 1e-30 = 0.
-template <typename T, int D>
-__global__ void __launch_bounds__(D)
-paged_decode_merge_kernel(const float* __restrict__ part_o,
-                          const float* __restrict__ part_ml,
-                          const int* __restrict__ lengths,
-                          T* __restrict__ out, int B, int H, int page_size,
-                          int max_pages, int n_splits) {
-  const int head = blockIdx.x;
-  const int b = blockIdx.y;
-  const int d = threadIdx.x;
-  const int pps = split_pages(lengths, B, page_size, max_pages, n_splits);
-  const int n_live = live_keys(lengths[b], page_size, max_pages);
-  const int n_used = ((n_live + page_size - 1) / page_size + pps - 1) / pps;
-  const size_t row = (size_t)b * n_splits;
-  float m = kNegInf;
-  for (int s = 0; s < n_used; ++s)
-    m = fmaxf(m, part_ml[((row + s) * H + head) * 2]);
-  float l = 0.f, acc = 0.f;
-  for (int s = 0; s < n_used; ++s) {
-    const size_t at = (row + s) * H + head;
-    const float w = expf(part_ml[at * 2] - m);
-    l += part_ml[at * 2 + 1] * w;
-    acc += part_o[at * D + d] * w;
+  if (active) {
+    const size_t at = ((size_t)b * n_splits + split) * H + head;
+    float* o = part_o + at * D + lane * DPL;
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) o[e] = acc[e];
+    if (lane == 0)
+      *reinterpret_cast<float2*>(part_ml + at * 2) = make_float2(m, l);
   }
-  out[((size_t)b * H + head) * D + d] =
-      Elem<T>::from_float(acc / fmaxf(l, 1e-30f));
+  // the last of the row's used splits to arrive merges them all
+  __threadfence();  // this block's partials are visible before it counts
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int* counter = counters + (size_t)b * gridDim.y + blockIdx.y;
+    s_last = atomicAdd(counter, 1) == n_used - 1;
+    if (s_last) atomicExch(counter, 0);  // every other split has counted
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  if (active)
+    merge_splits<T, D>(part_o, part_ml, out, b, H, head, n_splits, n_used,
+                       lane);
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
                    const void* block_table, const void* lengths,
-                   void* part_o, void* part_ml, void* out, int B, int H,
-                   int KVH, int page_size, int max_pages, int n_splits,
-                   float scale, cudaStream_t stream) {
-  const int G = H / KVH;
-  const int row_tiles = (G + kRows - 1) / kRows;
-  dim3 grid1(n_splits, KVH * row_tiles, B);
-  paged_decode_split_kernel<T, D><<<grid1, kThreads, 0, stream>>>(
+                   void* part_o, void* part_ml, void* counters, void* out,
+                   int B, int H, int KVH, int page_size, int max_pages,
+                   int n_splits, int split_pages, float scale,
+                   cudaStream_t stream) {
+  using C = PdaCfg<T, D>;
+  // not a stream operation: legal while the stream is being captured
+  cudaError_t e = allow_smem(pda_kernel<T, D>, C::kSmemBytes);
+  if (e != cudaSuccess) return e;
+  const int tiles = KVH * ((H / KVH + kRows - 1) / kRows);
+  dim3 grid1(n_splits, tiles, B);
+  pda_kernel<T, D><<<grid1, kThreads, C::kSmemBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pages),
       static_cast<const T*>(v_pages), static_cast<const int*>(block_table),
       static_cast<const int*>(lengths), static_cast<float*>(part_o),
-      static_cast<float*>(part_ml), B, H, KVH, page_size, max_pages,
-      n_splits, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  dim3 grid2(H, B);
-  paged_decode_merge_kernel<T, D><<<grid2, D, 0, stream>>>(
-      static_cast<const float*>(part_o), static_cast<const float*>(part_ml),
-      static_cast<const int*>(lengths), static_cast<T*>(out), B, H,
-      page_size, max_pages, n_splits);
+      static_cast<float*>(part_ml), static_cast<int*>(counters),
+      static_cast<T*>(out), H, KVH, page_size, max_pages, n_splits,
+      split_pages, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. head_dim: 64 or 128.
+// dtype: 0 = float32, 1 = bfloat16. head_dim: 64 or 128. Split s holds
+// keys [s, s + 1) * split_pages * page_size; n_splits * split_pages must
+// cover max_pages. counters: int32 [B * KVH * ceil(H / KVH / 4)], zero
+// on entry and zero again when the launch ends.
 extern "C" int pda_forward(int dtype, const void* q, const void* k_pages,
                            const void* v_pages, const void* block_table,
                            const void* lengths, void* part_o, void* part_ml,
-                           void* out, int B, int H, int KVH, int D,
-                           int page_size, int max_pages, int n_splits,
-                           float scale, void* stream) {
+                           void* counters, void* out, int B, int H, int KVH,
+                           int D, int page_size, int max_pages, int n_splits,
+                           int split_pages, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PDA_CASE(T, DIM)                                                   \
-  return (int)launch<T, DIM>(q, k_pages, v_pages, block_table, lengths,   \
-                             part_o, part_ml, out, B, H, KVH, page_size,  \
-                             max_pages, n_splits, scale, s)
+  const long long tiles = (long long)KVH * ((H / KVH + kRows - 1) / kRows);
+  if (B > 65535 || tiles > 65535 || n_splits < 1 || split_pages < 1 ||
+      (long long)n_splits * split_pages < max_pages)
+    return (int)cudaErrorInvalidValue;
+#define PDA_CASE(T, DIM)                                                  \
+  return (int)launch<T, DIM>(q, k_pages, v_pages, block_table, lengths,  \
+                             part_o, part_ml, counters, out, B, H, KVH,  \
+                             page_size, max_pages, n_splits, split_pages, \
+                             scale, s)
   if (dtype == 0 && D == 64) PDA_CASE(float, 64);
   if (dtype == 0 && D == 128) PDA_CASE(float, 128);
-  if (dtype == 1 && D == 64) PDA_CASE(__nv_bfloat16, 64);
-  if (dtype == 1 && D == 128) PDA_CASE(__nv_bfloat16, 128);
+  if (dtype == 1 && D == 64) PDA_CASE(bf16, 64);
+  if (dtype == 1 && D == 128) PDA_CASE(bf16, 128);
 #undef PDA_CASE
   return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory per block (dtype 0 = float32, 1 = bfloat16), at
+// head_dim D; -1 for what is not built.
+extern "C" int pda_smem_bytes(int dtype, int D) {
+  if (dtype == 0 && D == 64) return PdaCfg<float, 64>::kSmemBytes;
+  if (dtype == 0 && D == 128) return PdaCfg<float, 128>::kSmemBytes;
+  if (dtype == 1 && D == 64) return PdaCfg<bf16, 64>::kSmemBytes;
+  if (dtype == 1 && D == 128) return PdaCfg<bf16, 128>::kSmemBytes;
+  return -1;
 }

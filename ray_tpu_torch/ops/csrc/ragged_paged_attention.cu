@@ -77,21 +77,42 @@
 //     not launched. No host sync: nothing is sized from the data.
 //   * Deterministic: no atomics, so two launches give the same bits.
 //
-// f32 (ragged_paged_attention_kernel): the first design, kept because
-// tensor cores in f32 would mean TF32, three decimal digits, far from the
-// f32 reference: a warp owns up to kRowsPerWarp flat rows with m, l and
-// acc in registers; for a tile of 32 keys staged in shared memory by
-// 16-byte loads (the next tile's loads in flight while the current one is
-// computed), lane j scores key j (odd word stride: 32 banks), the warp
-// reduces max and sum with shuffles, and each lane accumulates P.V for its
-// D/32 output dims. Products and sums on CUDA cores in f32; no split-KV.
+// f32 (rpa_kernel_f32, rpa_merge_kernel<float>): CUDA cores, split-KV.
+// Tensor cores in f32 would mean TF32, three decimal digits, far from the
+// f32 reference, so products and sums stay on CUDA cores in f32; at
+// decode and verify widths a call is bound by the bytes of K/V (4 bytes an
+// element: 2 FLOP per byte at decode with G = 4, against a CUDA-core ridge
+// of 67e12 / 3.35e12 = 20). What held the first
+// f32 design far below that bound: it never split, so two long
+// rows gave 16 blocks for 132 SMs, each walking thousands of keys with one
+// 32-key tile of loads in flight, staged through registers. Now:
+//   * the bf16 kernel's split rule (above): at Q <= 32 runs of split_pages
+//     whole pages fixed by the page index (batch-invariant), merged in
+//     page order by rpa_merge_kernel<float>, a query whose keys lie in
+//     one split written as an unsplit call writes it; prefill unsplit;
+//   * K/V stages of 16 keys gathered through the block table by 16-byte
+//     cp.async.cg into a ring of kStages (4) slots of shared memory (K
+//     rows padded by 16 bytes), so three stages are in flight while one
+//     is computed, and nothing passes through registers; keys past the
+//     block's range are zero-filled, never addressed. 16-key stages keep
+//     the block at 74.8 KB (D 128), three blocks an SM: on CUDA cores
+//     the warps an SM holds hide the softmax's shuffle and exp latencies,
+//     and three 16 KB stages in flight per block already cover the
+//     memory latency;
+//   * a warp owns up to kRowsPerWarp flat rows (m, l, acc in registers);
+//     lanes j and j + 16 score key j, each over one half of D with
+//     16-byte reads of its K row and of the query (a broadcast), and add
+//     their halves with one shuffle; a row whose query precedes the stage
+//     skips it (its m, l, acc would not change); the warp reduces max and
+//     sum with shuffles; each V row, read once per warp, serves all its
+//     rows, and each lane accumulates P.V for its D/32 output dims.
 //
 // C interface (bound with ctypes, see ray_tpu_torch/ops/_build.py):
 // rpa_forward launches the pass(es) on `stream` and returns
 // cudaGetLastError() after each launch (or the error of setting the
 // dynamic shared-memory size), and cudaErrorInvalidValue for a
-// dtype/head_dim it was not built for or a split count the dtype does
-// not take (f32: 1).
+// dtype/head_dim it was not built for or a split count that does not
+// cover the table.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -105,21 +126,18 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kRowsPerWarp = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kRows = kWarps * kRowsPerWarp;  // query rows per block
-constexpr int kKeyTile = 32;                  // keys per tile: one per lane
+constexpr int kRows = kWarps * kRowsPerWarp;  // flat rows per block
+constexpr int kKeyTile = 16;   // keys per stage: two lanes a key
+constexpr int kStages = 4;     // stages of the cp.async ring
 
-// Element access by 32-bit words (the f32 kernel: one f32 a word).
-template <typename T>
-struct Elem;
-
-template <>
-struct Elem<float> {
-  static constexpr int kPerWord = 1;
-  __device__ static float to_float(float x) { return x; }
-  __device__ static float from_float(float x) { return x; }
-  __device__ static void unpack(uint32_t w, float* out) {
-    out[0] = __uint_as_float(w);
-  }
+template <int D>
+struct RpaF32Cfg {
+  // K rows padded by 16 bytes: the 16-byte read of key j's row starts at
+  // bank 4 j mod 32, so each quarter-warp phase of an LDS.128 (eight keys,
+  // one half of D) touches eight distinct bank quads (no conflict)
+  static constexpr int KLD = D + 4;
+  static constexpr int kStage = kKeyTile * (KLD + D);  // floats: K then V
+  static constexpr int kSmemBytes = (kRows * D + kStages * kStage) * 4;
 };
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -134,64 +152,112 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// the sum over each half of the warp, in every lane of that half
+__device__ __forceinline__ float half_warp_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+  return x;
+}
+
+__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_out(bf16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
 // ---------------------------------------------------------------------------
-// f32 on CUDA cores
+// f32 on CUDA cores, split-KV
 // ---------------------------------------------------------------------------
 
-// q, out: [R, Q, H, D]; k_pages, v_pages: [P, page_size, KVH, D];
-// block_tables: [R, max_pages] int32; starts, q_lens: [R] int32.
-// grid = (ceil(Q * G / kRows), KVH, R), block = kWarps * 32 threads.
-template <typename T, int D>
+// Pass 1. q, out: [R, Q, H, D] f32; k_pages, v_pages: [P, page_size, KVH,
+// D] f32; block_tables: [R, max_pages]; starts, q_lens: [R]. part_o /
+// part_ml as the bf16 kernel's (read only when n_splits > 1); split s
+// holds keys [s * span, (s + 1) * span), span = split_pages * page_size.
+// grid = (KVH * n_splits, ceil(Q * G / kRows), R), block = kThreads,
+// dynamic shared memory RpaF32Cfg<D>::kSmemBytes.
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-ragged_paged_attention_kernel(const T* __restrict__ q,
-                              const T* __restrict__ k_pages,
-                              const T* __restrict__ v_pages,
-                              const int* __restrict__ block_tables,
-                              const int* __restrict__ starts,
-                              const int* __restrict__ q_lens,
-                              T* __restrict__ out, int Q, int H, int KVH,
-                              int page_size, int max_pages, float scale) {
-  using E = Elem<T>;
-  constexpr int PW = E::kPerWord;
-  constexpr int DW = D / PW;      // words per K/V row
+rpa_kernel_f32(const float* __restrict__ q, const float* __restrict__ k_pages,
+               const float* __restrict__ v_pages,
+               const int* __restrict__ block_tables,
+               const int* __restrict__ starts, const int* __restrict__ q_lens,
+               float* __restrict__ out, float* __restrict__ part_o,
+               float* __restrict__ part_ml, int Q, int H, int KVH,
+               int page_size, int max_pages, int n_splits, int split_pages,
+               float scale) {
+  using C = RpaF32Cfg<D>;
+  constexpr int KLD = C::KLD;
+  constexpr int C4 = D / 4;       // 16-byte chunks per K/V row
   constexpr int DPL = D / 32;     // output dims per lane
-  constexpr int WPL = DPL / PW;   // V words per lane
-  constexpr int VPR = DW / 4;      // 16-byte vectors per K/V row
-  constexpr int kLoads = kKeyTile * VPR / kThreads;  // per thread per tile
+  constexpr int kCopies = kKeyTile * C4 / kThreads;  // per thread per stage
   static_assert(D % 64 == 0, "head_dim must be a multiple of 64");
-  static_assert(kKeyTile * VPR % kThreads == 0, "tile split");
+  static_assert(kKeyTile * C4 % kThreads == 0, "tile split");
+  extern __shared__ __align__(16) float smem_f[];
+  float* q_s = smem_f;                 // [kRows][D]
+  float* ring = q_s + kRows * D;       // kStages x {K [32][KLD], V [32][D]}
 
-  __shared__ float q_s[kRows][D];
-  __shared__ uint32_t k_s[kKeyTile][DW + 1];  // odd stride: lane j -> bank j
-  __shared__ __align__(16) uint32_t v_s[kKeyTile][DW];
-
+  const int h = blockIdx.x % KVH, split = blockIdx.x / KVH;
   const int r = blockIdx.z;
-  const int h = blockIdx.y;
   const int G = H / KVH;
   const int n_flat = Q * G;              // flat row f = i * G + g
-  const int flat0 = blockIdx.x * kRows;
+  const int flat0 = blockIdx.y * kRows;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
   const int start = starts[r];
   const int q_len = min(max(q_lens[r], 0), Q);
   const int kv_len = start + q_len;      // positions < kv_len are live
-
+  const int cap = max_pages * page_size;
   // keys this block needs: up to its last REAL query position
   const int i_lo = flat0 / G;
   const int i_hi = min((min(flat0 + kRows, n_flat) - 1) / G, q_len - 1);
-  int n_keys = i_hi >= i_lo ? start + i_hi + 1 : 0;
-  n_keys = min(n_keys, max_pages * page_size);
+  const int n_keys = i_hi >= i_lo ? min(start + i_hi + 1, cap) : 0;
+  // this split's keys (one split: all of them)
+  const int span = n_splits > 1 ? split_pages * page_size : cap;
+  const int k_lo = split * span;
+  const int k_hi = min(k_lo + span, n_keys);
+  // uniform: pass 2 reads only used splits; an unsplit block writes its
+  // rows even with no keys (zeros)
+  if (n_splits > 1 && k_lo >= k_hi) return;
+  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + kKeyTile - 1) / kKeyTile
+                                  : 0;
 
-  for (int idx = threadIdx.x; idx < kRows * D; idx += blockDim.x) {
+  // Stage s of this split into ring slot s % kStages: each key's page from
+  // the block table, 16-byte cp.async.cg; keys >= k_hi are zero-filled and
+  // never addressed, so only live table entries are read.
+  const int* bt_row = block_tables + (size_t)r * max_pages;
+  auto stage = [&](int s) {
+    const int kb = k_lo + s * kKeyTile;
+    float* ks = ring + (s % kStages) * C::kStage;
+    float* vs = ks + kKeyTile * KLD;
+#pragma unroll
+    for (int it = 0; it < kCopies; ++it) {
+      const int idx = threadIdx.x + it * kThreads;
+      const int j = idx / C4, c = idx - j * C4;
+      const int key = kb + j;
+      const bool ok = key < k_hi;
+      size_t off = 0;
+      if (ok) {
+        const int pid = bt_row[key / page_size];
+        off = (((size_t)pid * page_size + key % page_size) * KVH + h) * D +
+              c * 4;
+      }
+      cp_async16(smem_addr(ks + j * KLD + c * 4), k_pages + off, ok);
+      cp_async16(smem_addr(vs + j * D + c * 4), v_pages + off, ok);
+    }
+  };
+  // the first kStages - 1 stages go in flight before q is even read
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_tiles) stage(s);
+    cp_async_commit();
+  }
+
+  for (int idx = threadIdx.x; idx < kRows * D; idx += kThreads) {
     const int k = idx / D, d = idx % D;
     const int f = flat0 + k;
-    float val = 0.f;
-    if (f < n_flat) {
-      const int i = f / G, head = h * G + f % G;
-      val = E::to_float(q[((size_t)(r * Q + i) * H + head) * D + d]);
-    }
-    q_s[k][d] = val;
+    q_s[idx] = f < n_flat
+                   ? q[(((size_t)r * Q + f / G) * H + h * G + f % G) * D + d]
+                   : 0.f;
   }
 
   float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][DPL];
@@ -208,117 +274,109 @@ ragged_paged_attention_kernel(const T* __restrict__ q,
     for (int e = 0; e < DPL; ++e) acc[jr][e] = 0.f;
   }
 
-  const uint4* k_vec = reinterpret_cast<const uint4*>(k_pages);
-  const uint4* v_vec = reinterpret_cast<const uint4*>(v_pages);
-  const int* bt_row = block_tables + (size_t)r * max_pages;
-
-  // A key tile moves as kLoads independent 16-byte loads of K and of V
-  // per thread, all started before any is used; the next tile's loads
-  // start right after the current tile is in shared memory, so they are
-  // in flight while the current tile is computed. Only keys < n_keys are
-  // touched, so only live block-table entries are read.
-  uint4 k_reg[kLoads], v_reg[kLoads];
-  auto load_tile = [&](int kb) {
-    const int nt = min(kKeyTile, n_keys - kb);
-#pragma unroll
-    for (int i = 0; i < kLoads; ++i) {
-      const int idx = threadIdx.x + i * kThreads;
-      const int j = idx / VPR, c = idx % VPR;
-      if (j < nt) {
-        const int key = kb + j;
-        const int pid = bt_row[key / page_size];
-        const size_t off =
-            (((size_t)pid * page_size + key % page_size) * KVH + h) * VPR + c;
-        k_reg[i] = k_vec[off];
-        v_reg[i] = v_vec[off];
-      }
-    }
-  };
-
-  if (n_keys > 0) load_tile(0);
-  for (int kb = 0; kb < n_keys; kb += kKeyTile) {
-    const int nt = min(kKeyTile, n_keys - kb);
-    __syncthreads();  // q_s staged / previous tile consumed
-#pragma unroll
-    for (int i = 0; i < kLoads; ++i) {
-      const int idx = threadIdx.x + i * kThreads;
-      const int j = idx / VPR, c = idx % VPR;
-      if (j < nt) {
-        uint32_t* kd = &k_s[j][c * 4];
-        kd[0] = k_reg[i].x;
-        kd[1] = k_reg[i].y;
-        kd[2] = k_reg[i].z;
-        kd[3] = k_reg[i].w;
-        *reinterpret_cast<uint4*>(&v_s[j][c * 4]) = v_reg[i];
-      }
-    }
-    __syncthreads();
-    if (kb + kKeyTile < n_keys) load_tile(kb + kKeyTile);
-
-    const int k_pos = kb + lane;
+  for (int t = 0; t < n_tiles; ++t) {
+    // refill the slot stage t - 1 used (every warp left it at the barrier
+    // that ended the last iteration)
+    if (t + kStages - 1 < n_tiles) stage(t + kStages - 1);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();  // this thread's copies of stage t landed
+    __syncthreads();               // everyone's; q_s staged
+    const int kb = k_lo + t * kKeyTile;
+    const int nt = min(kKeyTile, k_hi - kb);
+    const float* ks = ring + (t % kStages) * C::kStage;
+    const float* vs = ks + kKeyTile * KLD;
+    // lanes j and j + 16 score key kb + j, each over one half of D, for
+    // each of the warp's rows; a row whose query precedes the whole stage
+    // sees none of it (uniform per warp)
+    const int kj = lane & (kKeyTile - 1), half = lane / kKeyTile;
+    const int k_pos = kb + kj;
+    float p[kRowsPerWarp];
+    bool sees[kRowsPerWarp];
 #pragma unroll
     for (int jr = 0; jr < kRowsPerWarp; ++jr) {
-      if (!active[jr]) continue;         // uniform across the warp
-      const float* qr = q_s[warp + jr * kWarps];
-      const bool keep = lane < nt && k_pos <= q_pos[jr] && k_pos < kv_len;
-      float s = kNegInf;
-      if (keep) {
-        float dot = 0.f;
+      sees[jr] = active[jr] && kb <= q_pos[jr];
+      p[jr] = 0.f;
+      if (!sees[jr]) continue;
+      const bool keep = kj < nt && k_pos <= q_pos[jr] && k_pos < kv_len;
+      const float4* kr =
+          reinterpret_cast<const float4*>(ks + kj * KLD + half * (D / 2));
+      const float4* qr = reinterpret_cast<const float4*>(
+          q_s + (warp + jr * kWarps) * D + half * (D / 2));
+      float d0 = 0.f, d1 = 0.f;
 #pragma unroll 8
-        for (int w = 0; w < DW; ++w) {
-          float kf[PW];
-          E::unpack(k_s[lane][w], kf);
-#pragma unroll
-          for (int e = 0; e < PW; ++e) dot += qr[w * PW + e] * kf[e];
-        }
-        s = dot * scale;
+      for (int c = 0; c < C4 / 2; c += 2) {
+        const float4 k0 = kr[c], q0 = qr[c];
+        const float4 k1 = kr[c + 1], q1 = qr[c + 1];
+        d0 = fmaf(q0.x, k0.x, d0);
+        d0 = fmaf(q0.y, k0.y, d0);
+        d0 = fmaf(q0.z, k0.z, d0);
+        d0 = fmaf(q0.w, k0.w, d0);
+        d1 = fmaf(q1.x, k1.x, d1);
+        d1 = fmaf(q1.y, k1.y, d1);
+        d1 = fmaf(q1.z, k1.z, d1);
+        d1 = fmaf(q1.w, k1.w, d1);
       }
+      float dot = d0 + d1;
+      dot += __shfl_xor_sync(kFull, dot, kKeyTile);  // the other half of D
+      // lanes past the stage read zero-filled rows; keys past the query
+      // are live keys: both masked here
+      const float s = keep ? dot * scale : kNegInf;
       const float m_new = fmaxf(m[jr], warp_max(s));
-      const float p = keep ? expf(s - m_new) : 0.f;
+      p[jr] = keep ? expf(s - m_new) : 0.f;
       const float alpha = expf(m[jr] - m_new);
-      l[jr] = l[jr] * alpha + warp_sum(p);
+      l[jr] = l[jr] * alpha + half_warp_sum(p[jr]);
       m[jr] = m_new;
 #pragma unroll
       for (int e = 0; e < DPL; ++e) acc[jr][e] *= alpha;
-      for (int j = 0; j < nt; ++j) {
-        const float pj = __shfl_sync(kFull, p, j);
+    }
+    // P.V over the whole stage: each V row is read once and serves every
+    // row of the warp; lane owns output dims [lane * DPL, lane * DPL +
+    // DPL). Keys past the stage's end are zero-filled and their p is 0, so
+    // they add exactly nothing, and a fixed trip count lets the shuffles
+    // and reads of all 16 keys overlap.
 #pragma unroll
-        for (int ww = 0; ww < WPL; ++ww) {
-          float vf[PW];
-          E::unpack(v_s[j][lane * WPL + ww], vf);
+    for (int j = 0; j < kKeyTile; ++j) {
+      float v[DPL];
+      const float* vr = vs + j * D + lane * DPL;
+      if constexpr (DPL == 4) {
+        const float4 v4 = *reinterpret_cast<const float4*>(vr);
+        v[0] = v4.x; v[1] = v4.y; v[2] = v4.z; v[3] = v4.w;
+      } else {
+        const float2 v2 = *reinterpret_cast<const float2*>(vr);
+        v[0] = v2.x; v[1] = v2.y;
+      }
 #pragma unroll
-          for (int e = 0; e < PW; ++e) acc[jr][ww * PW + e] += pj * vf[e];
-        }
+      for (int jr = 0; jr < kRowsPerWarp; ++jr) {
+        if (!sees[jr]) continue;             // uniform across the warp
+        const float pj = __shfl_sync(kFull, p[jr], j);
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) acc[jr][e] = fmaf(pj, v[e], acc[jr][e]);
       }
     }
+    __syncthreads();  // this slot is refilled at the next iteration
   }
+  cp_async_wait<0>();
 
 #pragma unroll
   for (int jr = 0; jr < kRowsPerWarp; ++jr) {
     if (!active[jr]) continue;
     const int f = flat0 + warp + jr * kWarps;
-    const int i = f / G, head = h * G + f % G;
-    const float denom = fmaxf(l[jr], 1e-30f);
-    T* o = out + ((size_t)(r * Q + i) * H + head) * D + lane * DPL;
+    const int qi = f / G, head = h * G + f % G;
+    if (n_splits == 1) {
+      const float denom = fmaxf(l[jr], 1e-30f);
+      float* o = out + (((size_t)r * Q + qi) * H + head) * D + lane * DPL;
 #pragma unroll
-    for (int e = 0; e < DPL; ++e) o[e] = E::from_float(acc[jr][e] / denom);
+      for (int e = 0; e < DPL; ++e) o[e] = acc[jr][e] / denom;
+    } else {
+      const size_t at = (((size_t)r * n_splits + split) * Q + qi) * H + head;
+      float* o = part_o + at * D + lane * DPL;
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) o[e] = acc[jr][e];
+      if (lane == 0)
+        *reinterpret_cast<float2*>(part_ml + at * 2) =
+            make_float2(m[jr], l[jr]);
+    }
   }
-}
-
-template <typename T, int D>
-cudaError_t launch_f32(const void* q, const void* k_pages,
-                       const void* v_pages, const void* block_tables,
-                       const void* starts, const void* q_lens, void* out,
-                       int R, int Q, int H, int KVH, int page_size,
-                       int max_pages, float scale, cudaStream_t stream) {
-  const int G = H / KVH;
-  dim3 grid((Q * G + kRows - 1) / kRows, KVH, R);
-  ragged_paged_attention_kernel<T, D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), static_cast<const int*>(block_tables),
-      static_cast<const int*>(starts), static_cast<const int*>(q_lens),
-      static_cast<T*>(out), Q, H, KVH, page_size, max_pages, scale);
-  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -503,27 +561,27 @@ rpa_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k_pages,
   }
 }
 
-// Pass 2. grid = (H, Q, R), block = D threads: thread d merges dim d of one
-// (row, query position, head) over the splits that hold keys of that
-// query, in page order (m = max m_s, l = sum l_s exp(m_s - m), acc
-// likewise). A query whose keys lie in one split gets acc / max(l, 1e-30),
-// the expression pass 1 writes when a call is not split. Padding
-// positions (i >= q_lens[r]) get 0.
-template <int D>
+// Pass 2 (both dtypes). grid = (H, Q, R), block = D threads: thread d
+// merges dim d of one (row, query position, head) over the splits that
+// hold keys of that query, in page order (m = max m_s, l = sum l_s
+// exp(m_s - m), acc likewise). A query whose keys lie in one split gets
+// acc / max(l, 1e-30), the expression pass 1 writes when a call is not
+// split. Padding positions (i >= q_lens[r]) get 0.
+template <typename T, int D>
 __global__ void __launch_bounds__(D)
 rpa_merge_kernel(const float* __restrict__ part_o,
                  const float* __restrict__ part_ml,
                  const int* __restrict__ starts,
-                 const int* __restrict__ q_lens, bf16* __restrict__ out,
+                 const int* __restrict__ q_lens, T* __restrict__ out,
                  int Q, int H, int page_size, int max_pages, int n_splits,
                  int split_pages) {
   const int head = blockIdx.x, qi = blockIdx.y, r = blockIdx.z;
   const int d = threadIdx.x;
   const int cap = max_pages * page_size;
   const int span = split_pages * page_size;
-  bf16* o = out + (((size_t)r * Q + qi) * H + head) * D + d;
+  T* o = out + (((size_t)r * Q + qi) * H + head) * D + d;
   if (qi >= min(max(q_lens[r], 0), Q)) {
-    *o = __float2bfloat16(0.f);
+    store_out(o, 0.f);
     return;
   }
   // keys this query sees lie below row_keys; a split holds some of them
@@ -533,8 +591,7 @@ rpa_merge_kernel(const float* __restrict__ part_o,
   const size_t row = (size_t)r * n_splits;
   if (n_used == 1) {
     const size_t at = (row * Q + qi) * H + head;
-    *o = __float2bfloat16(part_o[at * D + d] /
-                          fmaxf(part_ml[at * 2 + 1], 1e-30f));
+    store_out(o, part_o[at * D + d] / fmaxf(part_ml[at * 2 + 1], 1e-30f));
     return;
   }
   float m = kNegInf;
@@ -547,7 +604,48 @@ rpa_merge_kernel(const float* __restrict__ part_o,
     l += part_ml[at * 2 + 1] * w;
     acc += part_o[at * D + d] * w;
   }
-  *o = __float2bfloat16(acc / fmaxf(l, 1e-30f));
+  store_out(o, acc / fmaxf(l, 1e-30f));
+}
+
+template <typename T, int D>
+cudaError_t launch_merge(const void* part_o, const void* part_ml,
+                         const void* starts, const void* q_lens, void* out,
+                         int R, int Q, int H, int page_size, int max_pages,
+                         int n_splits, int split_pages,
+                         cudaStream_t stream) {
+  dim3 grid2(H, Q, R);
+  rpa_merge_kernel<T, D><<<grid2, D, 0, stream>>>(
+      static_cast<const float*>(part_o), static_cast<const float*>(part_ml),
+      static_cast<const int*>(starts), static_cast<const int*>(q_lens),
+      static_cast<T*>(out), Q, H, page_size, max_pages, n_splits,
+      split_pages);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k_pages,
+                       const void* v_pages, const void* block_tables,
+                       const void* starts, const void* q_lens, void* part_o,
+                       void* part_ml, void* out, int R, int Q, int H,
+                       int KVH, int page_size, int max_pages, int n_splits,
+                       int split_pages, float scale, cudaStream_t stream) {
+  using C = RpaF32Cfg<D>;
+  // not a stream operation: legal while the stream is being captured
+  cudaError_t e = allow_smem(rpa_kernel_f32<D>, C::kSmemBytes);
+  if (e != cudaSuccess) return e;
+  dim3 grid1(KVH * n_splits, (Q * (H / KVH) + kRows - 1) / kRows, R);
+  rpa_kernel_f32<D><<<grid1, kThreads, C::kSmemBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k_pages),
+      static_cast<const float*>(v_pages),
+      static_cast<const int*>(block_tables), static_cast<const int*>(starts),
+      static_cast<const int*>(q_lens), static_cast<float*>(out),
+      static_cast<float*>(part_o), static_cast<float*>(part_ml), Q, H, KVH,
+      page_size, max_pages, n_splits, split_pages, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || n_splits == 1) return e;
+  return launch_merge<float, D>(part_o, part_ml, starts, q_lens, out, R, Q,
+                                H, page_size, max_pages, n_splits,
+                                split_pages, stream);
 }
 
 template <int D, int NW>
@@ -573,13 +671,9 @@ cudaError_t launch_mma_nw(const void* q, const void* k_pages,
       page_size, max_pages, n_splits, split_pages, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess || n_splits == 1) return e;
-  dim3 grid2(H, Q, R);
-  rpa_merge_kernel<D><<<grid2, D, 0, stream>>>(
-      static_cast<const float*>(part_o), static_cast<const float*>(part_ml),
-      static_cast<const int*>(starts), static_cast<const int*>(q_lens),
-      static_cast<bf16*>(out), Q, H, page_size, max_pages, n_splits,
-      split_pages);
-  return cudaGetLastError();
+  return launch_merge<bf16, D>(part_o, part_ml, starts, q_lens, out, R, Q,
+                               H, page_size, max_pages, n_splits,
+                               split_pages, stream);
 }
 
 // Warps per pass-1 block: 1, 2 or 4 (the wrapper picks them from the flat
@@ -593,9 +687,6 @@ cudaError_t launch_mma(const void* q, const void* k_pages,
                        int KVH, int page_size, int max_pages, int n_splits,
                        int split_pages, int warps, float scale,
                        cudaStream_t stream) {
-  if (R > 65535 || Q > 65535 || n_splits < 1 || split_pages < 1 ||
-      (n_splits > 1 && (long long)n_splits * split_pages < max_pages))
-    return cudaErrorInvalidValue;
 #define RPA_NW(NW)                                                          \
   return launch_mma_nw<D, NW>(q, k_pages, v_pages, block_tables, starts,    \
                               q_lens, part_o, part_ml, out, R, Q, H, KVH,   \
@@ -612,12 +703,11 @@ cudaError_t launch_mma(const void* q, const void* k_pages,
 
 }  // namespace
 
-// dtype: 0 = float32 (n_splits and warps must be 1), 1 = bfloat16.
-// head_dim: 64 or 128. part_o / part_ml: f32 scratch
-// [R, n_splits, Q, H, D] and [R, n_splits, Q, H, 2], read only when
-// n_splits > 1; split s holds keys [s, s + 1) * split_pages * page_size,
-// and n_splits * split_pages must cover max_pages. warps: per bf16 pass-1
-// block, 1, 2 or 4.
+// dtype: 0 = float32 (warps must be 1), 1 = bfloat16. head_dim: 64 or
+// 128. part_o / part_ml: f32 scratch [R, n_splits, Q, H, D] and
+// [R, n_splits, Q, H, 2], read only when n_splits > 1; split s holds keys
+// [s, s + 1) * split_pages * page_size, and n_splits * split_pages must
+// cover max_pages. warps: per bf16 pass-1 block, 1, 2 or 4.
 extern "C" int rpa_forward(int dtype, const void* q, const void* k_pages,
                            const void* v_pages, const void* block_tables,
                            const void* starts, const void* q_lens,
@@ -626,15 +716,19 @@ extern "C" int rpa_forward(int dtype, const void* q, const void* k_pages,
                            int max_pages, int n_splits, int split_pages,
                            int warps, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && n_splits == 1 && warps == 1 && (D == 64 || D == 128)) {
-    return (int)(D == 64 ? launch_f32<float, 64>(
-                               q, k_pages, v_pages, block_tables, starts,
-                               q_lens, out, R, Q, H, KVH, page_size,
-                               max_pages, scale, s)
-                         : launch_f32<float, 128>(
-                               q, k_pages, v_pages, block_tables, starts,
-                               q_lens, out, R, Q, H, KVH, page_size,
-                               max_pages, scale, s));
+  if (R > 65535 || Q > 65535 || n_splits < 1 || split_pages < 1 ||
+      (n_splits > 1 && (long long)n_splits * split_pages < max_pages) ||
+      (D != 64 && D != 128))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && warps == 1) {
+#define RPA_F32(DIM)                                                         \
+  return (int)launch_f32<DIM>(q, k_pages, v_pages, block_tables, starts,    \
+                              q_lens, part_o, part_ml, out, R, Q, H, KVH,   \
+                              page_size, max_pages, n_splits, split_pages,   \
+                              scale, s)
+    if (D == 64) RPA_F32(64);
+    RPA_F32(128);
+#undef RPA_F32
   }
 #define RPA_MMA(DIM)                                                         \
   return (int)launch_mma<DIM>(q, k_pages, v_pages, block_tables, starts,    \
@@ -647,12 +741,15 @@ extern "C" int rpa_forward(int dtype, const void* q, const void* k_pages,
   return (int)cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory per pass-1 block of the bf16 kernel with nw warps
-// at head_dim D; -1 for what is not built (the f32 kernel uses static
-// shared memory only).
-extern "C" int rpa_smem_bytes(int nw, int D) {
+// Dynamic shared memory per pass-1 block: dtype 0 the f32 kernel (nw
+// ignored), 1 the bf16 kernel with nw warps, at head_dim D; -1 for what
+// is not built.
+extern "C" int rpa_smem_bytes(int dtype, int nw, int D) {
   if (D != 64 && D != 128) return -1;
   const bool d64 = D == 64;
+  if (dtype == 0)
+    return d64 ? RpaF32Cfg<64>::kSmemBytes : RpaF32Cfg<128>::kSmemBytes;
+  if (dtype != 1) return -1;
   switch (nw) {
     case 1:
       return d64 ? RpaMmaCfg<64, 1>::kSmemBytes : RpaMmaCfg<128, 1>::kSmemBytes;

@@ -1,14 +1,20 @@
 """Paged decode attention (counterpart of ``ray_tpu/ops/paged_attention.py``):
-the masking constant of the paged family, the plain decode version, and
-the decode-only op ``paged_decode_attention``.
+the masking constant and the split rule of the paged family, the plain
+decode version, and the decode-only op ``paged_decode_attention``.
 
 ``paged_decode_attention`` dispatches on the device of its inputs: CPU
 tensors go to the plain PyTorch version ``paged_decode_reference``; CUDA
 tensors go to the hand-written Hopper kernel (``csrc/paged_attention.cu``,
-a split-KV decode in two launches replacing the TPU's Pallas
-``_paged_decode_kernel``), or the call raises. There is no fallback from
-the card to the plain version. ``paged_decode_attention.launches`` counts
-calls that launched the kernel (one per call: both passes).
+replacing the TPU's Pallas ``_paged_decode_kernel``), or the call raises.
+There is no fallback from the card to the plain version. The kernel cuts
+each row's live keys into splits of ``split_pages(page_size)`` whole
+pages, fixed by the page index (``decode_splits`` of them cover the
+table), so a row's output has the same bits alone and in any batch, and
+at any table width that covers it. Its blocks stream their split's K/V
+through a ring of ``cp.async`` stages; the last block of a (row, kv head
+tile) to finish merges the splits in split order, in the same launch.
+``paged_decode_attention.launches`` counts calls that launched the
+kernel (one per call).
 
 No model path calls this op: the serving engines run decode through the
 ragged kernel at q_len 1 (``ragged_paged_attention.ragged_decode_attention``),
@@ -17,22 +23,35 @@ equivalence baseline.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
 # one masking constant for the whole paged family; a finite value keeps
 # exp(s - m) at exactly 0 for masked keys (−inf would give inf − inf)
 NEG_INF = -1e30
 
+#: keys per split of the paged kernels (B1 at decode and verify widths,
+#: B2), in whole pages: 8 pages of 16
+SPLIT_KEYS = 128
+
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_HEAD_DIMS = (64, 128)
-# query heads per pass-1 block, one per warp (kRows in
-# csrc/paged_attention.cu)
+# query heads per block, one per warp (kRows in csrc/paged_attention.cu)
 _KERNEL_ROWS = 4
-# pass-1 blocks to aim for, per SM: enough 16-byte loads in flight to
-# approach the HBM rate with the kernel's 128-thread blocks
-_BLOCKS_PER_SM = 4
+
+
+def split_pages(page_size: int) -> int:
+    """Whole pages each split covers: SPLIT_KEYS keys, at least one page.
+    A function of the page size alone."""
+    return max(1, SPLIT_KEYS // page_size)
+
+
+def decode_splits(max_pages: int, page_size: int) -> int:
+    """Splits that cover a table of max_pages pages: split s holds the
+    pages [s * split_pages, (s + 1) * split_pages). The count depends on
+    the table width and the page size only, never on the batch, the
+    lengths or the other rows; a wider table only adds splits that short
+    rows leave empty."""
+    return max(1, -(-max_pages // split_pages(page_size)))
 
 
 def paged_decode_reference(q, k_pages, v_pages, block_table, lengths,
@@ -104,22 +123,21 @@ def _check_kernel_inputs(q, k_pages, v_pages, block_table, lengths):
                              f"moves K/V rows as 16-byte vectors)")
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
+# arrival counters of the merge, one int32 buffer per (device, stream),
+# zero between calls (the last block of each (row, kv head tile) resets
+# its own). Launches in order on one stream reuse it safely; launches that
+# may run at once (two streams sharing a handle, or a captured graph
+# replayed beside another launch on its stream) must not share it. A
+# buffer outgrown is kept, never freed, since a captured graph may name it.
+_COUNTERS: dict = {}
 
 
-def _num_splits(batch: int, n_heads: int, n_kv_heads: int, max_pages: int,
-                sms: int) -> int:
-    """Splits of each row's live pages for pass 1: enough that batch x
-    kv heads x row tiles x splits give about _BLOCKS_PER_SM blocks per
-    SM, and no more than the table has pages (a split never cuts a
-    page). The kernel sizes each split from the call's longest live
-    length, on the device."""
-    row_tiles = -(-(n_heads // n_kv_heads) // _KERNEL_ROWS)
-    blocks = max(1, batch * n_kv_heads * row_tiles)
-    want = -(-_BLOCKS_PER_SM * sms // blocks)
-    return max(1, min(max_pages, want))
+def _arrival_counters(device, stream: int, n: int):
+    bufs = _COUNTERS.setdefault((device.index, stream), [])
+    if not bufs or bufs[-1].numel() < n:
+        bufs.append(torch.zeros(max(n, 4096), dtype=torch.int32,
+                                device=device))
+    return bufs[-1]
 
 
 def _launch_kernel(q, k_pages, v_pages, block_table, lengths, scale: float):
@@ -132,18 +150,20 @@ def _launch_kernel(q, k_pages, v_pages, block_table, lengths, scale: float):
     b, h, d = q.shape
     _, page_size, kvh, _ = k_pages.shape
     max_pages = block_table.shape[1]
-    splits = _num_splits(b, h, kvh, max_pages,
-                         _sm_count(q.device.index or 0))
+    splits = decode_splits(max_pages, page_size)
     part_o = torch.empty((b, splits, h, d), dtype=torch.float32,
                          device=q.device)
     part_ml = torch.empty((b, splits, h, 2), dtype=torch.float32,
                           device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    row_tiles = -(-(h // kvh) // _KERNEL_ROWS)
+    counters = _arrival_counters(q.device, stream, b * kvh * row_tiles)
     err = lib.pda_forward(
         _KERNEL_DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), block_table.data_ptr(), lengths.data_ptr(),
-        part_o.data_ptr(), part_ml.data_ptr(), out.data_ptr(), b, h, kvh, d,
-        page_size, max_pages, splits, float(scale), stream)
+        part_o.data_ptr(), part_ml.data_ptr(), counters.data_ptr(),
+        out.data_ptr(), b, h, kvh, d, page_size, max_pages, splits,
+        split_pages(page_size), float(scale), stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: "
                            f"CUDA error {err}")

@@ -14,17 +14,14 @@ CUDA tensors go to the hand-written Hopper kernel
 (``csrc/ragged_paged_attention.cu``, replacing the TPU's Pallas
 ``_ragged_kernel``), or the call raises. There is no fallback from the
 card to the plain version. In bf16 the kernel runs on tensor cores
-(``mma.sync`` with ``ldmatrix``, K/V gathered through the block table by
-``cp.async``) and, when the call's blocks would not fill the card
-(decode and verify batches), splits each row's live pages over several
-blocks and merges them in a second launch; p is rounded to bf16 before
-P.V there, as the Pallas kernel rounds it. At decode and verify widths
-(``q_width <= SPLIT_MAX_Q``) it splits each row's keys into runs of a
-fixed number of whole pages (``split_pages``) and merges them in a
-second launch, in page order; prefill widths run unsplit. Which keys a
+(``mma.sync`` with ``ldmatrix``) and rounds p to bf16 before P.V, as the
+Pallas kernel rounds it; in f32 it runs on CUDA cores (no TF32). In both,
+K/V are gathered through the block table by ``cp.async``, and at decode
+and verify widths (``q_width <= SPLIT_MAX_Q``) each row's keys are cut
+into runs of a fixed number of whole pages (``split_pages``), merged in a
+second launch in page order; prefill widths run unsplit. Which keys a
 split holds depends only on the page index and the page size, so a
 row's output has the same bits in any batch, as the Pallas kernel's has.
-f32 runs on CUDA cores in one launch (no TF32).
 ``ragged_paged_attention.launches`` counts wrapper calls that launched
 the kernel (one per call, both passes); a replayed CUDA graph adds the
 launches it captured (``llm/graphs.py``).
@@ -33,13 +30,12 @@ from __future__ import annotations
 
 import torch
 
-from .paged_attention import NEG_INF
+# one split rule for the paged family: B2 cuts a decode row the same way
+from .paged_attention import NEG_INF, SPLIT_KEYS, decode_splits, split_pages
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_HEAD_DIMS = (64, 128)
-#: keys per split at decode and verify widths, in whole pages (8 of 16)
-SPLIT_KEYS = 128
-#: widest query window the bf16 kernel splits; prefill chunks run unsplit
+#: widest query window the kernel splits; prefill chunks run unsplit
 SPLIT_MAX_Q = 32
 
 
@@ -128,22 +124,27 @@ def rows_per_block(n_flat: int) -> int:
     return 16 if n_flat <= 16 else 32 if n_flat <= 32 else 64
 
 
-def split_pages(page_size: int) -> int:
-    """Whole pages each split of the bf16 kernel covers: SPLIT_KEYS keys,
-    at least one page. A function of the page size alone."""
-    return max(1, SPLIT_KEYS // page_size)
-
-
 def num_splits(q_width: int, max_pages: int, page_size: int) -> int:
-    """Splits of each row's pages for the bf16 kernel's pass 1: one for
-    prefill widths (q_width > SPLIT_MAX_Q), else enough runs of
+    """Splits of each row's pages for the kernel's pass 1 (both dtypes):
+    one for prefill widths (q_width > SPLIT_MAX_Q), else enough runs of
     split_pages(page_size) pages to cover the table. Split s covers the
     pages [s * split_pages, (s + 1) * split_pages): the boundaries do not
     depend on the row count, the longest row or the other rows, and a
     wider table only adds splits that short rows leave empty."""
     if q_width > SPLIT_MAX_Q:
         return 1
-    return max(1, -(-max_pages // split_pages(page_size)))
+    return decode_splits(max_pages, page_size)
+
+
+def launch_plan(dtype, q_width: int, groups: int, max_pages: int,
+                page_size: int) -> tuple:
+    """(splits, warps per pass-1 block) the wrapper launches with: the
+    split count of num_splits in either dtype; bf16 blocks of
+    rows_per_block(q_width * groups) // 16 warps, f32 blocks of one
+    layout (the kernel's 4 warps; passed as 1)."""
+    warps = rows_per_block(q_width * groups) // 16 \
+        if dtype == torch.bfloat16 else 1
+    return num_splits(q_width, max_pages, page_size), warps
 
 
 def _launch_kernel(q, k_pages, v_pages, block_tables, starts, q_lens,
@@ -157,11 +158,8 @@ def _launch_kernel(q, k_pages, v_pages, block_tables, starts, q_lens,
     r, qw, h, d = q.shape
     _, page_size, kvh, _ = k_pages.shape
     max_pages = block_tables.shape[1]
-    splits = warps = 1
+    splits, warps = launch_plan(q.dtype, qw, h // kvh, max_pages, page_size)
     part_o = part_ml = None
-    if q.dtype == torch.bfloat16:
-        warps = rows_per_block(qw * (h // kvh)) // 16
-        splits = num_splits(qw, max_pages, page_size)
     if splits > 1:
         part_o = torch.empty((r, splits, qw, h, d), dtype=torch.float32,
                              device=q.device)

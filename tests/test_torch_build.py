@@ -1,16 +1,18 @@
 """The kernels' host-side bookkeeping, which runs without nvcc: the ptxas
 -v report parsed per kernel, the build log kept beside a library so a
 cached build still reports its registers and spills, the build key that
-follows the headers a source includes, and the ragged kernel's split
-count."""
+follows the headers a source includes, and the paged kernels' split
+counts."""
 import importlib
 import os
 
 import pytest
+import torch
 
 from ray_tpu_torch.ops import _build
 
 rpa = importlib.import_module("ray_tpu_torch.ops.ragged_paged_attention")
+pda = importlib.import_module("ray_tpu_torch.ops.paged_attention")
 
 LOG = """\
 ptxas info    : 0 bytes gmem
@@ -86,7 +88,8 @@ def test_both_attention_sources_key_on_the_shared_header():
                                                      "mma_sm90.cuh"]
     assert _build._sources_of("ragged_paged_attention") == [
         "ragged_paged_attention.cu", "mma_sm90.cuh"]
-    assert _build._sources_of("paged_attention") == ["paged_attention.cu"]
+    assert _build._sources_of("paged_attention") == ["paged_attention.cu",
+                                                     "mma_sm90.cuh"]
 
 
 @pytest.mark.parametrize("n_flat,rows", [(1, 16), (4, 16), (16, 16),
@@ -97,6 +100,7 @@ def test_ragged_rows_per_block(n_flat, rows):
     assert rpa.rows_per_block(n_flat) == rows
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("q,max_pages,page,want", [
     (128, 64, 16, 1),    # 8B prefill chunk rows: unsplit
     (33, 64, 16, 1),     # just past the widest split window
@@ -107,14 +111,15 @@ def test_ragged_rows_per_block(n_flat, rows):
     (1, 127, 8, 8),      # page 8: 16 pages a split
     (1, 3, 256, 3),      # pages wider than SPLIT_KEYS: one page a split
 ])
-def test_ragged_split_count(q, max_pages, page, want):
+def test_ragged_split_count(dtype, q, max_pages, page, want):
     """Prefill widths run unsplit; decode and verify widths cut every row
     into runs of split_pages(page) whole pages, enough to cover the
-    table. The pages of split s depend only on s and the page size: the
-    same in a wider table (more splits, left empty by short rows), with
-    any row count and any other rows."""
+    table, in either dtype (f32 splits too). The pages of split s depend
+    only on s and the page size: the same in a wider table (more splits,
+    left empty by short rows), with any row count and any other rows."""
     n = rpa.num_splits(q, max_pages, page)
     assert n == want
+    assert rpa.launch_plan(dtype, q, 4, max_pages, page)[0] == want
     sp = rpa.split_pages(page)
     assert sp == max(1, rpa.SPLIT_KEYS // page)
     assert n == 1 or n * sp >= max_pages > (n - 1) * sp
@@ -122,3 +127,39 @@ def test_ragged_split_count(q, max_pages, page, want):
         # a table twice as wide keeps every split's pages and adds splits
         assert rpa.num_splits(q, 2 * max_pages, page) >= n
         assert rpa.split_pages(page) == sp
+
+
+@pytest.mark.parametrize("dtype,q,groups,warps", [
+    (torch.bfloat16, 1, 4, 1), (torch.bfloat16, 5, 4, 2),
+    (torch.bfloat16, 128, 4, 4), (torch.float32, 1, 4, 1),
+    (torch.float32, 5, 4, 1), (torch.float32, 128, 4, 1)])
+def test_ragged_launch_plan_warps(dtype, q, groups, warps):
+    """bf16 pass-1 blocks follow the flat rows (1, 2 or 4 warps); the f32
+    kernel has one layout."""
+    assert rpa.launch_plan(dtype, q, groups, 64, 16)[1] == warps
+
+
+@pytest.mark.parametrize("max_pages,page,want", [
+    (64, 16, 8),         # 8B decode table: 8 pages (128 keys) a split
+    (520, 16, 65),       # the 8,192-token row's table
+    (4, 16, 1),          # narrower than one split
+    (8, 16, 1),          # exactly one split
+    (9, 16, 2),          # one page past it
+    (127, 8, 8),         # page 8: 16 pages a split
+    (3, 256, 3),         # pages wider than SPLIT_KEYS: one page a split
+    (1, 16, 1),
+])
+def test_paged_decode_split_count(max_pages, page, want):
+    """B2 cuts a row's keys into runs of split_pages(page) whole pages,
+    B1's rule: the count follows the table width and the page size alone
+    (the signature takes nothing else: no batch, no lengths, no SM
+    count), covers the table, and a wider table keeps every split's
+    pages and only adds splits."""
+    n = pda.decode_splits(max_pages, page)
+    assert n == want
+    sp = pda.split_pages(page)
+    assert sp == rpa.split_pages(page) == max(1, pda.SPLIT_KEYS // page)
+    assert n * sp >= max_pages > (n - 1) * sp
+    for wider in (max_pages + 1, 2 * max_pages, 8 * max_pages):
+        assert pda.decode_splits(wider, page) >= n
+    assert rpa.num_splits(1, max_pages, page) == n

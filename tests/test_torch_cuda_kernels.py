@@ -155,8 +155,9 @@ def test_ragged_kernel_flat_row_tile_edges(cuda, dtype, d, page, q_width,
 @pytest.mark.parametrize("q_width", [1, 5])
 def test_ragged_kernel_long_rows_split_kv(cuda, dtype, d, page, q_width):
     """Rows whose live pages span several splits (and short rows that
-    leave later splits empty) at decode and verify widths; NaN table
-    tails and NaN slots past each row's keys never reach the output."""
+    leave later splits empty) at decode and verify widths, in both dtypes
+    (f32 splits as bf16 does); NaN table tails and NaN slots past each
+    row's keys never reach the output."""
     starts = [4000 - q_width, 1000 - q_width, 517, 33, 0]
     q_lens = [q_width, q_width, q_width, q_width, 0]
     args = _rpa_case(dtype, d, q_width, 4, page, starts, q_lens, cuda,
@@ -164,20 +165,22 @@ def test_ragged_kernel_long_rows_split_kv(cuda, dtype, d, page, q_width):
     _assert_rpa_matches(args, dtype)
 
 
-def test_ragged_kernel_split_count_two_to_eight(cuda):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ragged_kernel_split_count_two_to_eight(cuda, dtype):
     """A decode batch of 40 rows of 300-2000 keys: splits of 8 pages
-    (128 keys), so each row's live pages are cut in 3 to 16 pieces, most
-    between two and eight, and the table's 126 pages give 16 splits."""
-    from ray_tpu_torch.ops.ragged_paged_attention import (num_splits,
+    (128 keys) in either dtype, so each row's live pages are cut in 3 to
+    16 pieces, most between two and eight, and the table's 126 pages
+    give 16 splits."""
+    from ray_tpu_torch.ops.ragged_paged_attention import (launch_plan,
                                                           split_pages)
     rng = np.random.RandomState(5)
     lengths = rng.randint(300, 2000, 40)
     lengths[0] = 2000
-    args = _rpa_case(torch.bfloat16, 128, 1, 4, 16, lengths - 1,
-                     np.ones(40), cuda, seed=5)
+    args = _rpa_case(dtype, 128, 1, 4, 16, lengths - 1, np.ones(40), cuda,
+                     seed=5)
     assert split_pages(16) == 8
-    assert num_splits(1, args[3].shape[1], 16) == 16
-    _assert_rpa_matches(args, torch.bfloat16)
+    assert launch_plan(dtype, 1, 4, args[3].shape[1], 16)[0] == 16
+    _assert_rpa_matches(args, dtype)
 
 
 def test_ragged_kernel_one_split_prefill(cuda):
@@ -576,6 +579,69 @@ def test_paged_decode_launch_count(cuda):
     cpu = paged_decode_attention(*(t.cpu() for t in args))
     assert paged_decode_attention.launches == before + 1
     torch.testing.assert_close(got.cpu(), cpu, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("width", [4, 16, 64])
+def test_paged_decode_kernel_is_batch_invariant(cuda, dtype, width):
+    """A row called alone and inside batches of 1-8 other rows of random
+    lengths (0 up to the table), at its own table width and at the widest
+    (64 pages), gives the same bits: splits are runs of whole pages fixed
+    by the page index, and the merge runs in split order. The row fills
+    its table but for 3 keys."""
+    page, kvh, groups, d, P = 16, 2, 4, 128, 700
+    h = kvh * groups
+    rng = np.random.RandomState(width)
+    g = torch.Generator(device=cuda).manual_seed(width)
+    kp = torch.randn((P, page, kvh, d), generator=g, device=cuda).to(dtype)
+    vp = torch.randn((P, page, kvh, d), generator=g, device=cuda).to(dtype)
+    length = width * page - 3
+    q_row = torch.randn((1, h, d), generator=g, device=cuda).to(dtype)
+    pages_row = rng.choice(np.arange(1, P), width, replace=False)
+
+    def call(n_other, w, at):
+        """The row at index ``at`` among n_other rows, tables w wide."""
+        n = n_other + 1
+        bt = np.zeros((n, w), np.int32)
+        lengths = np.zeros(n, np.int32)
+        q = torch.randn((n, h, d), generator=g, device=cuda).to(dtype)
+        for r in range(n):
+            if r == at:
+                bt[r, :width] = pages_row
+                lengths[r] = length
+                q[r] = q_row[0]
+                continue
+            keys = int(rng.randint(0, w * page + 1))
+            live = -(-keys // page)
+            bt[r, :live] = rng.choice(np.arange(1, P), live)
+            lengths[r] = keys
+        as_t = lambda a: torch.as_tensor(a, device=cuda)   # noqa: E731
+        out = paged_decode_attention(q, kp, vp, as_t(bt), as_t(lengths))
+        return out[at]
+
+    alone = call(0, width, 0)
+    assert torch.isfinite(alone).all()
+    for w in sorted({width, 64}):
+        for n_other in range(1, 9):
+            got = call(n_other, w, int(rng.randint(0, n_other + 1)))
+            assert torch.equal(got, alone), (w, n_other)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_decode_kernel_is_deterministic(cuda, dtype):
+    """Two launches give the same bits, whichever block of a row arrives
+    last to merge it, and every arrival counter is back at 0 after each
+    call (the next call on the stream starts from 0)."""
+    from ray_tpu_torch.ops import paged_attention as pda_mod
+    args = _decode_case(dtype, 128, 4, 16, cuda, (4096, 0, 1000, 3, 129),
+                        260)
+    a = paged_decode_attention(*args)
+    b = paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for buf in pda_mod._COUNTERS[(args[0].device.index, stream)]:
+        assert not buf.any()
 
 
 def test_paged_decode_kernel_rejects_what_it_does_not_take(cuda):
