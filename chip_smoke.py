@@ -11,12 +11,14 @@ and prints no result line):
    (one nvcc per source, all started together) and prints the time.
    Then each kernel of the flash, ragged and paged decode libraries:
    registers and spill bytes (ptxas -v), dynamic shared memory per
-   block, and its HMMA (tensor-core), LDGSTS (cp.async) and LDSM
-   (ldmatrix) instruction counts in the built SASS (cuobjdump). Every
-   bf16 flash kernel (forward, dq, dkv) and every bf16 ragged pass-1
-   kernel (1, 2 and 4 warps), at D 64 and 128, must have all three and
-   no spills; the f32 ragged pass-1 kernel and the paged decode kernel
-   (both dtypes) must stage by cp.async and not spill.
+   block, and its HMMA (tensor-core), LDGSTS (cp.async), LDSM
+   (ldmatrix), FFMA (f32 FMA) and LDS.128 (16-byte shared load)
+   instruction counts in the built SASS (cuobjdump). Every bf16 flash
+   kernel (forward, dq, dkv) and every bf16 ragged pass-1 kernel (1, 2
+   and 4 warps), at D 64 and 128, must have the first three and no
+   spills; the f32 dkv kernel, the f32 ragged pass-1 kernel and the
+   paged decode kernel (both dtypes) must stage by cp.async and not
+   spill.
 3. kernels: the ragged kernel against its plain PyTorch version on the
    card at the shapes the serving path gives it (Llama-3-8B attention:
    H=32, KVH=8, D=128, page 16) for decode, prefill and verify, and at
@@ -46,8 +48,8 @@ and prints no result line):
    against their plain versions on the card at Llama-3-8B attention
    shapes (B 2, S 4096, H 32, KVH 8, D 128, causal) in bf16 and f32,
    plus a ragged non-causal 77 x 140 case, a causal S 4000 case and a
-   causal D 64, G 1 case with Sq 1000 < Sk 1800. At the 8B shape in
-   bf16, a second launch of dq and dkv must give the same bits.
+   causal D 64, G 1 case with Sq 1000 < Sk 1800. At the 8B shape, in
+   both dtypes, a second launch of dq and dkv must give the same bits.
    Prints the max error, the kernels', the plain versions' and the
    library's (scaled_dot_product_attention forward, and its autograd
    backward for dq + dkv) median times, and the card's lower bound.
@@ -77,8 +79,9 @@ and prints no result line):
    must be exactly 0) within phase 3's TOL, its atol cut to 2^-7 of each
    row's largest value; bitwise against a second launch, against the
    merge in a second launch, and row by row against the row alone (the
-   batch reversed, 4 more rows, the table 8 pages wider). The kernel, its
-   two-launch form, the plain version, the ragged kernel (through
+   batch reversed, 4 more rows, the table 8 pages wider). The call
+   (its arrival counters' allocation and memset included), the plain
+   version, the ragged kernel (through
    ragged_decode_attention, and alone on inputs clamped once outside the
    timed call) and scaled_dot_product_attention are timed beside the
    card's bound and a cold read (a sum) of as many contiguous bytes as
@@ -134,6 +137,12 @@ and prints no result line):
 Phases run in the order 1, 2, 3, 3c, 3b, 4, 4b, 4c, 4d, 5, 5b, 6, 7. The
 second-to-last line is the card from nvidia-smi, the one before it the
 kernels' JSON record, and the last line {"ok": true, "device": ...}.
+
+    python3 chip_smoke.py --kernels
+
+runs phases 1, 2, 3, 3c and 3b only (the kernels against their plain
+versions, and their times), prints their records and exits 0 without the
+result line: the short loop for work on a kernel.
 
     python3 chip_smoke.py --profile-train
 
@@ -218,10 +227,16 @@ def build():
 # mangled kernel name -> (kernel, dtype, head_dim, warps or None), for the
 # flash, ragged and paged decode libraries
 _KERNEL_SYMBOL = re.compile(
-    r"(flash_(?:fwd|dq|dkv)_kernel(?:_mma)?|rpa_kernel_mma|rpa_kernel_f32"
-    r"|rpa_merge_kernel|pda_kernel)"
+    r"(flash_(?:fwd|dq|dkv)_kernel(?:_mma|_f32)?|rpa_kernel_mma"
+    r"|rpa_kernel_f32|rpa_merge_kernel|pda_kernel)"
     r"I(f|13__nv_bfloat16)?Li(\d+)E(?:Li(\d+)E)?")
-_SASS_OPS = ("HMMA", "LDGSTS", "LDSM")
+# static SASS instruction counts per kernel: tensor-core products, cp.async,
+# ldmatrix (every bf16 attention kernel must have all three), and f32 FMAs
+# and 16-byte shared loads (the f32 dkv kernel's ratio of the two)
+_SASS_OPS = {"HMMA": r"\bHMMA\b", "LDGSTS": r"\bLDGSTS\b",
+             "LDSM": r"\bLDSM\b", "FFMA": r"\bFFMA\b",
+             "LDS.128": r"\bLDS\.128\b"}
+_TENSOR_CORE_OPS = ("HMMA", "LDGSTS", "LDSM")
 _KERNEL_LIBS = ("flash_attention", "ragged_paged_attention", "paged_attention")
 
 
@@ -229,7 +244,7 @@ def _kernel_symbol(mangled: str):
     m = _KERNEL_SYMBOL.search(mangled)
     if m is None:
         return None
-    f32 = m.group(2) == "f" or m.group(1) == "rpa_kernel_f32"
+    f32 = m.group(2) == "f" or m.group(1).endswith("_f32")
     return m.group(1), "float32" if f32 else "bfloat16", int(m.group(3)), \
         int(m.group(4)) if m.group(4) else None
 
@@ -253,13 +268,15 @@ def check_kernel_build(build_info) -> dict:
     """Phase 2, every kernel library: each kernel's registers and spill
     bytes (ptxas -v), dynamic shared memory per block (flash_smem_bytes,
     rpa_smem_bytes, pda_smem_bytes) and its count of tensor-core (HMMA),
-    asynchronous-copy (LDGSTS) and ldmatrix (LDSM) instructions in the
-    built SASS (cuobjdump). Raises unless every bf16 flash kernel
-    (forward, dq, dkv) and every bf16 ragged pass-1 kernel (1, 2 and 4
-    warps) is the tensor-core one, uses all three and spills nothing, and
-    the f32 ragged pass-1 kernel and the paged decode kernel (both dtypes)
-    stage K/V by cp.async and spill nothing, at D 64 and 128; the merge
-    passes must not spill. Returns {"kernel dtype D[ NW]": record}."""
+    asynchronous-copy (LDGSTS), ldmatrix (LDSM), f32 FMA (FFMA) and
+    16-byte shared-load (LDS.128) instructions in the built SASS
+    (cuobjdump). Raises unless every bf16 flash kernel (forward, dq, dkv)
+    and every bf16 ragged pass-1 kernel (1, 2 and 4 warps) is the
+    tensor-core one, uses the first three and spills nothing, and the f32
+    dkv kernel, the f32 ragged pass-1 kernel and the paged decode kernel
+    (both dtypes) stage by cp.async and spill nothing, at D 64 and 128;
+    the merge passes must not spill. Returns {"kernel dtype D[ NW]":
+    record}."""
     from ray_tpu_torch.ops import _build
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
                              "cuobjdump")
@@ -281,8 +298,8 @@ def check_kernel_build(build_info) -> dict:
                 cur = report.setdefault(sym, {}) if sym else None
                 continue
             if cur is not None:
-                for op in _SASS_OPS:
-                    if re.search(rf"\b{op}\b", line):
+                for op, pattern in _SASS_OPS.items():
+                    if re.search(pattern, line):
                         cur[op] = cur.get(op, 0) + 1
     out = {}
     for (kernel, dtype, d, nw), rec in sorted(
@@ -299,11 +316,11 @@ def check_kernel_build(build_info) -> dict:
         if dtype == "bfloat16" and (tensor_core or kernel.startswith(
                 "flash_")):
             if not tensor_core or spills or \
-                    not all(rec[op] for op in _SASS_OPS):
+                    not all(rec[op] for op in _TENSOR_CORE_OPS):
                 raise AssertionError(f"{label}: want tensor cores, cp.async, "
                                      f"ldmatrix and no spills, got {rec}")
-        if kernel in ("rpa_kernel_f32", "pda_kernel") and (
-                spills or not rec["LDGSTS"]):
+        if kernel in ("flash_dkv_kernel_f32", "rpa_kernel_f32",
+                      "pda_kernel") and (spills or not rec["LDGSTS"]):
             raise AssertionError(f"{label}: want cp.async and no spills, "
                                  f"got {rec}")
         if kernel.endswith("merge_kernel") and spills:
@@ -313,6 +330,7 @@ def check_kernel_build(build_info) -> dict:
         [f"rpa_kernel_mma bfloat16 D{d} NW{nw}" for d in (64, 128)
          for nw in (1, 2, 4)] + \
         [f"rpa_kernel_f32 float32 D{d}" for d in (64, 128)] + \
+        [f"flash_dkv_kernel_f32 float32 D{d}" for d in (64, 128)] + \
         [f"pda_kernel {t} D{d}" for t in ("float32", "bfloat16")
          for d in (64, 128)]
     missing = [k for k in want if k not in out]
@@ -693,6 +711,9 @@ FLASH_KERNELS = (
 # a sum over thousands of rounded terms drifts by up to 2^-8 of the
 # largest value. lse is f32 on both sides from exact products: f32 rule.
 FLASH_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2 ** -8, 2 ** -7)}
+#: the f32 kernel of each flash entry point (CUDA cores)
+F32_KERNEL = {"flash_fwd": "flash_fwd_kernel", "flash_dq": "flash_dq_kernel",
+              "flash_dkv": "flash_dkv_kernel_f32"}
 TRAIN_LAYERS = 8        # of Llama-3-8B's 32: AdamW state must fit in 80 GB
 # EngineConfig's prefill buckets at phase 4b's max_seq_len 1024
 SERVE_BUCKETS = (32, 64, 128, 256, 512, 1024)
@@ -818,7 +839,7 @@ def check_flash_kernels() -> dict:
                 max_err[name] = max(max_err[name], e)
             rec = {"case": case, "dtype": dname, "shape": list(shape),
                    "causal": causal, "max_abs_err": errs}
-            if case == "8b_causal" and dtype == torch.bfloat16:
+            if case == "8b_causal":
                 # no atomics: a second launch of each gives the same bits
                 again = (flash_dq_kernel(q, k, v, dout, lse, delta, causal,
                                          scale),
@@ -2429,6 +2450,8 @@ def main():
     records = check_kernels()
     decode = check_paged_decode()
     flash = check_flash_kernels()
+    if "--kernels" in sys.argv[1:]:
+        return 0
     from ray_tpu_torch.models import llama
     res = serve(llama.llama3_8b(), "cuda", page_size=16, num_pages=1024,
                 max_pages_per_seq=64, chunk_size=128, prefill_rows=4,
@@ -2542,6 +2565,14 @@ def main():
         built = kernel_build[f"{name}_kernel_mma bfloat16 D128"]
         kernels[-1].update({k: built.get(k) for k in (
             "registers", "spill_stores", "smem_bytes", "HMMA", "LDGSTS")})
+        # the f32 kernel at the same shape (phase 7 trains through it) and
+        # its D 128 build
+        built = kernel_build[f"{F32_KERNEL[name]} float32 D128"]
+        kernels[-1]["timed_f32"] = {
+            **flash["timed"]["float32"][name],
+            **{k: built.get(k) for k in ("registers", "spill_stores",
+                                         "smem_bytes", "LDGSTS", "FFMA",
+                                         "LDS.128")}}
         if name == "flash_fwd":
             # the dense engine's prefill shapes, each held against the
             # plain version in phase 3b

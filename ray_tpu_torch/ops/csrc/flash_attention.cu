@@ -83,10 +83,13 @@
 //     blocks start first; a forward warp whose 16 queries all precede a
 //     key tile skips it.
 // The f32 instantiation (dtype 0) keeps CUDA-core kernels (flash_fwd_kernel,
-// flash_dq_kernel, flash_dkv_kernel): tensor cores in f32 would mean TF32,
-// three decimal digits, far from the f32 reference. They stage f32 tiles
-// in shared memory (row stride D + 1 words) and run every product on CUDA
-// cores from 4 x 4 register tiles.
+// flash_dq_kernel, flash_dkv_kernel_f32): tensor cores in f32 would mean
+// TF32, three decimal digits, far from the f32 reference. The forward and
+// dq stage f32 tiles in shared memory (row stride D + 1 words) and run
+// every product from 4 x 4 register tiles read one word at a time. The
+// dkv kernel is built for Hopper's CUDA cores (its section says how): two
+// warp groups split the four products, 16-byte shared reads feed 4-8 FMAs
+// a value, and Q / dO / lse / delta stream through a cp.async ring.
 // Not done yet (later work): wgmma with TMA and mbarriers instead of
 // mma.sync with cp.async (a warpgroup-wide product needs its accumulator
 // rewritten through shared memory or the wgmma register-A form); a fused
@@ -417,124 +420,269 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// f32 dkv on CUDA cores: grid (ceil(Sk / BK), KVH, B)
+// f32 dkv on CUDA cores: grid (KVH, B, ceil(Sk / BK)), first key tile first
 // ---------------------------------------------------------------------------
-
+//
+// What bounds it: operations. Four products of D FMAs (8 D FLOPs) per
+// visible (query, key) pair and query head, in f32 on CUDA cores (no
+// TF32), against a few bytes per pair. An SM issues 4 warp-FMAs a clock;
+// a warp's 16-byte shared read (LDS.128) holds the shared-memory pipe
+// for two clocks at best, and lanes share a read only within their
+// quarter-warp. So the design counts shared reads per FMA and lays the
+// lanes out so that every read takes the fewest clocks.
+//
+// One block owns 64 keys of one (b, kv head) and walks the kv head's G
+// query heads and their 32-query tiles in order. Its 256 threads are two
+// warp groups of 128 that split every tile's four products between them:
+//   group 0: S^T = K Q^T, P^T = exp(S^T scale - lse) (masked) to shared
+//            memory, then dV += P^T dO;
+//   group 1: dP^T = V dO^T, dS^T = P^T (dP^T - delta) scale to shared
+//            memory, then dK += dS^T Q.
+// Each thread of a group holds 4 keys x 4 queries of S^T (or dP^T): 8
+// reads of 16 bytes feed 64 FMAs along D. It holds 8 keys x D / 16 dims
+// of dV (or dK): 4 reads (D 128) feed 64 FMAs per query. Each
+// quarter-warp reads 2 distinct key rows and 4 query rows (the lane map
+// below), which keeps every read at its two clocks; lanes laid out in
+// rows of 8 queries read 8 query rows a quarter and ran slower. Rows of
+// K, V, Q and dO are padded by 16 bytes, and those of P^T and dS^T
+// likewise, so the rows a quarter-warp reads fall in distinct bank
+// groups. Q, dO, lse and delta arrive by cp.async in a ring of kStages
+// tiles, each requested kStages - 1 tiles ahead. One barrier a tile both
+// publishes the landed tile and frees the slot of the previous one, a
+// second publishes P^T, and group 1 alone waits on a third (a named
+// barrier) for its dS^T. The groups run in lockstep: a schedule that
+// staggered them by half a tile (one group's D-long product beside the
+// other's outer product, one barrier a half) was slower, and 64-query
+// tiles (4 x 8 of S^T a thread, every row swizzled to fit) and 512
+// threads (16 warps an SM) were no faster; PERF.md has the times.
 template <int D>
-struct DkvCfg {
-  static constexpr int NT = 256, NX = 16, NY = NT / NX, RM = 4;
-  static constexpr int BK = NY * RM;  // 64 key rows per block
-  static constexpr int BQ = 32;       // queries per tile
-  static constexpr int CN = BQ / NX, CD = D / NX;
-  static constexpr int LD = D + 1, LDP = BQ + 1;
+struct DkvF32Cfg {
+  static constexpr int NT = 256;     // two warp groups of 128
+  static constexpr int BK = 64;      // keys per block
+  static constexpr int BQ = 32;      // queries per tile
+  static constexpr int kStages = 3;  // ring of Q / dO / lse / delta tiles
+  static constexpr int LD = D + 4;   // K, V, Q, dO row stride in floats
+  static constexpr int LDX = BK + 4; // P^T and dS^T stored [query][key]
+  static constexpr int kStageFloats = 2 * BQ * LD + 2 * BQ;
   static constexpr int kSmemBytes =
-      (2 * BK * LD + 2 * BQ * LD + BK * LDP + 2 * BQ) * (int)sizeof(float);
+      (2 * BK * LD + kStages * kStageFloats + 2 * BQ * LDX) * 4;
+  static_assert(BK == 64 && BQ == 32 && NT == 256 && D % 64 == 0,
+                "the thread layouts below assume these sizes");
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(DkvCfg<D>::NT)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dk,
-                 T* __restrict__ dv, int Sq, int Sk, int H, int KVH,
-                 int causal, float scale) {
-  using C = DkvCfg<D>;
-  using E = Elem<T>;
-  constexpr int RM = C::RM, CN = C::CN, CD = C::CD, NX = C::NX;
-  extern __shared__ float smem[];
-  float* k_s = smem;                   // [BK][LD]
-  float* v_s = k_s + C::BK * C::LD;    // [BK][LD]
-  float* q_s = v_s + C::BK * C::LD;    // [BQ][LD]
-  float* do_s = q_s + C::BQ * C::LD;   // [BQ][LD]
-  float* buf = do_s + C::BQ * C::LD;   // [BK][LDP]: p^T, then ds^T
-  float* lse_s = buf + C::BK * C::LDP; // [BQ]
-  float* delta_s = lse_s + C::BQ;      // [BQ]
-
-  const int kvh = blockIdx.y, b = blockIdx.z;
-  const int G = H / KVH;
-  const int k0 = blockIdx.x * C::BK;
-  const int tx = threadIdx.x % NX, ty = threadIdx.x / NX;
-  const size_t q_stride = (size_t)H * D, kv_stride = (size_t)KVH * D;
-  const size_t kv_off = (((size_t)b * Sk + k0) * KVH + kvh) * D;
-
-  stage_rows<T, D, C::BK, C::NT>(k_s, k + kv_off, kv_stride,
-                                 min(C::BK, Sk - k0));
-  stage_rows<T, D, C::BK, C::NT>(v_s, v + kv_off, kv_stride,
-                                 min(C::BK, Sk - k0));
-
-  float dk_acc[RM][CD], dv_acc[RM][CD];
-  int k_pos[RM];
+// ROWS rows of D floats (row r at src + r * stride) into dst with row
+// stride LD by 16-byte cp.async; rows >= valid are zero-filled and their
+// source is never read (valid >= 1: row 0 stands in as the address).
+template <int D, int ROWS, int NT, int LD>
+__device__ __forceinline__ void cp_rows_f32(float* dst, const float* src,
+                                            size_t stride, int valid) {
+  constexpr int VPR = D / 4;
+  static_assert(ROWS * VPR % NT == 0, "tile split");
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    k_pos[i] = k0 + ty * RM + i;
-#pragma unroll
-    for (int c = 0; c < CD; ++c) {
-      dk_acc[i][c] = 0.f;
-      dv_acc[i][c] = 0.f;
-    }
+  for (int it = 0; it < ROWS * VPR / NT; ++it) {
+    const int idx = threadIdx.x + it * NT;
+    const int r = idx / VPR, c = idx - r * VPR;
+    const bool ok = r < valid;
+    cp_async16(smem_addr(dst + r * LD + c * 4),
+               src + (ok ? (size_t)r * stride : 0) + c * 4, ok);
   }
+}
 
-  // causal: queries before the tile's first key never see it
-  const int qt_first = causal ? k0 / C::BQ : 0;
-  const int n_qt = (Sq + C::BQ - 1) / C::BQ;
-  for (int g = 0; g < G; ++g) {
-    const int h = kvh * G + g;
-    const float* lse_h = lse + ((size_t)b * H + h) * Sq;
-    const float* delta_h = delta + ((size_t)b * H + h) * Sq;
-    for (int qt = qt_first; qt < n_qt; ++qt) {
-      const int q0 = qt * C::BQ;
-      const int q_rows = min(C::BQ, Sq - q0);
-      const size_t q_off = (((size_t)b * Sq + q0) * H + h) * D;
-      __syncthreads();  // k_s/v_s staged / previous q tile consumed
-      stage_rows<T, D, C::BQ, C::NT>(q_s, q + q_off, q_stride, q_rows);
-      stage_rows<T, D, C::BQ, C::NT>(do_s, dout + q_off, q_stride, q_rows);
-      for (int r = threadIdx.x; r < C::BQ; r += C::NT) {
-        lse_s[r] = r < q_rows ? lse_h[q0 + r] : 0.f;
-        delta_s[r] = r < q_rows ? delta_h[q0 + r] : 0.f;
+// s[i][j] = sum_d a[16 i * LD + d] * b[8 j * LD + d]: 4 rows of A 16
+// apart against 4 rows of B 8 apart, read 4 dims at a time.
+template <int D, int LD>
+__device__ __forceinline__ void dot4x4(float (&s)[4][4], const float* a,
+                                       const float* b) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 8
+  for (int d = 0; d < D; d += 4) {
+    float4 av[4], bv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      av[i] = *reinterpret_cast<const float4*>(a + i * 16 * LD + d);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      bv[j] = *reinterpret_cast<const float4*>(b + j * 8 * LD + d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = fmaf(av[i].x, bv[j].x, s[i][j]);
+        s[i][j] = fmaf(av[i].y, bv[j].y, s[i][j]);
+        s[i][j] = fmaf(av[i].z, bv[j].z, s[i][j]);
+        s[i][j] = fmaf(av[i].w, bv[j].w, s[i][j]);
       }
-      __syncthreads();
-
-      // transposed tiles: rows are keys, columns queries
-      float s[RM][CN], dp[RM][CN];
-      dot_tile<RM, CN, NX, D>(s, k_s, q_s, ty, tx);
-      dot_tile<RM, CN, NX, D>(dp, v_s, do_s, ty, tx);
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < CN; ++j) {
-          const int col = tx + NX * j;
-          const int q_pos = q0 + col;
-          const bool keep = k_pos[i] < Sk && q_pos < Sq &&
-                            (!causal || q_pos >= k_pos[i]);
-          const float p = keep ? expf(s[i][j] * scale - lse_s[col]) : 0.f;
-          const float ds = p * (dp[i][j] - delta_s[col]) * scale;
-          s[i][j] = E::round(p);
-          dp[i][j] = E::round(ds);
-          buf[(ty * RM + i) * C::LDP + col] = s[i][j];
-        }
-      __syncthreads();
-      pv_tile<RM, CD, NX, D, C::BQ>(dv_acc, buf, do_s, ty, tx);
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < CN; ++j)
-          buf[(ty * RM + i) * C::LDP + tx + NX * j] = dp[i][j];
-      __syncthreads();
-      pv_tile<RM, CD, NX, D, C::BQ>(dk_acc, buf, q_s, ty, tx);
-    }
   }
+}
 
+// acc[e][n] += sum_{r < BQ} x[r * LDX + key(e)] * y[r * LD + dim(n)],
+// key(e) = 32 (e / 4) + e % 4 and dim(n) = 64 (n / 4) + n % 4: 8 keys of
+// P^T or dS^T against D / 16 dims of dO or Q, one query row at a time.
+template <int D, int BQ, int LD, int LDX>
+__device__ __forceinline__ void outer8(float (&acc)[8][D / 16],
+                                       const float* x, const float* y) {
+  constexpr int NC = D / 64;
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    if (k_pos[i] >= Sk) continue;
-    const size_t off = (((size_t)b * Sk + k_pos[i]) * KVH + kvh) * D + tx;
+  for (int r = 0; r < BQ; ++r) {
+    const float4 x0 = *reinterpret_cast<const float4*>(x + r * LDX);
+    const float4 x1 = *reinterpret_cast<const float4*>(x + r * LDX + 32);
+    const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+    float yv[4 * NC];
 #pragma unroll
-    for (int c = 0; c < CD; ++c) {
-      dk[off + c * NX] = E::from_float(dk_acc[i][c]);
-      dv[off + c * NX] = E::from_float(dv_acc[i][c]);
+    for (int c = 0; c < NC; ++c) {
+      const float4 u = *reinterpret_cast<const float4*>(y + r * LD + 64 * c);
+      yv[4 * c] = u.x;
+      yv[4 * c + 1] = u.y;
+      yv[4 * c + 2] = u.z;
+      yv[4 * c + 3] = u.w;
     }
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+#pragma unroll
+      for (int n = 0; n < 4 * NC; ++n)
+        acc[e][n] = fmaf(xv[e], yv[n], acc[e][n]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(DkvF32Cfg<D>::NT, 1)
+flash_dkv_kernel_f32(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int Sq, int Sk, int H, int KVH,
+                     int causal, float scale) {
+  using C = DkvF32Cfg<D>;
+  constexpr int BK = C::BK, BQ = C::BQ, LD = C::LD, LDX = C::LDX;
+  constexpr int NT = C::NT, S = C::kStages, NC = D / 64;
+  extern __shared__ __align__(16) float smem_f[];
+  float* k_s = smem_f;                       // [BK][LD]
+  float* v_s = k_s + BK * LD;                // [BK][LD]
+  float* ring = v_s + BK * LD;               // [S]: Q, dO [BQ][LD]; lse, delta
+  float* p_s = ring + S * C::kStageFloats;   // P^T as [BQ][LDX]
+  float* ds_s = p_s + BQ * LDX;              // dS^T as [BQ][LDX]
+
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * BK;
+  const int G = H / KVH;
+  const int grp = threadIdx.x / 128;  // warp-uniform
+  const int w = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const size_t q_stride = (size_t)H * D, kv_stride = (size_t)KVH * D;
+
+  // causal: queries before the block's first key never see it
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  const int qt_first = causal ? min(k0 / BQ, n_qt) : 0;
+  const int per_head = n_qt - qt_first;
+  const int n_tiles = G * per_head;
+
+  {  // K and V: the first cp.async group, with tile 0
+    const size_t off = (((size_t)b * Sk + k0) * KVH + kvh) * D;
+    const int rows = min(BK, Sk - k0);
+    cp_rows_f32<D, BK, NT, LD>(k_s, k + off, kv_stride, rows);
+    cp_rows_f32<D, BK, NT, LD>(v_s, v + off, kv_stride, rows);
+  }
+  // tile it = (query head g, query tile): Q, dO, lse, delta into slot it % S
+  auto stage = [&](int it) {
+    if (it < n_tiles) {
+      const int g = it / per_head;
+      const int q0 = (qt_first + it - g * per_head) * BQ;
+      const int h = kvh * G + g, rows = min(BQ, Sq - q0);
+      float* slot = ring + (it % S) * C::kStageFloats;
+      const size_t off = (((size_t)b * Sq + q0) * H + h) * D;
+      cp_rows_f32<D, BQ, NT, LD>(slot, q + off, q_stride, rows);
+      cp_rows_f32<D, BQ, NT, LD>(slot + BQ * LD, dout + off, q_stride, rows);
+      if (threadIdx.x < 2 * BQ) {
+        const int r = threadIdx.x % BQ;
+        const float* src =
+            (threadIdx.x < BQ ? lse : delta) + ((size_t)b * H + h) * Sq + q0;
+        cp_async4(smem_addr(slot + 2 * BQ * LD + threadIdx.x),
+                  src + (r < rows ? r : 0), r < rows);
+      }
+    }
+    cp_async_commit();  // an empty group past the last tile
+  };
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) stage(s);
+
+  // S^T / dP^T: keys ak + 16 i, queries aq + 8 j (a warp: 4 x 8; each
+  // quarter-warp 2 keys x 4 queries); dV / dK: keys 4 bk + 32 (e / 4) +
+  // e % 4, dims 4 bd + 64 (n / 4) + n % 4 (a warp: 4 x 8 16-byte chunks;
+  // each quarter 2 x 4)
+  const int qr = lane / 8, lq = lane % 8;
+  const int ak = 4 * w + 2 * (qr % 2) + lq % 2, aq = 4 * (qr / 2) + lq / 2;
+  const int bk = 4 * (w % 2) + 2 * (qr % 2) + lq % 2;
+  const int bd = 8 * (w / 2) + 4 * (qr / 2) + lq / 2;
+  const float* a_rows = (grp ? v_s : k_s) + ak * LD;
+  float* x_s = grp ? ds_s : p_s;  // phase B's left operand
+  const float scale_log2 = scale * kLog2e;
+
+  float acc[8][4 * NC];
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+#pragma unroll
+    for (int n = 0; n < 4 * NC; ++n) acc[e][n] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<S - 2>();
+    __syncthreads();  // tile it landed; every read of tile it - 1 is done
+    stage(it + S - 1);
+    const float* q_t = ring + (it % S) * C::kStageFloats;
+    const float* do_t = q_t + BQ * LD;
+    const float* lse_t = do_t + BQ * LD;
+    const float* delta_t = lse_t + BQ;
+    const int g = it / per_head;
+    const int q0 = (qt_first + it - g * per_head) * BQ;
+
+    float s[4][4];  // S^T in group 0, dP^T in group 1
+    dot4x4<D, LD>(s, a_rows, (grp ? do_t : q_t) + aq * LD);
+    if (grp == 0) {  // p = exp(s scale - lse) as exp2, log2(e) folded in
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int q_pos = q0 + aq + 8 * j;
+        const float l2 = lse_t[aq + 8 * j] * kLog2e;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int k_pos = k0 + ak + 16 * i;
+          const bool keep = k_pos < Sk && q_pos < Sq &&
+                            (!causal || q_pos >= k_pos);
+          p_s[(aq + 8 * j) * LDX + ak + 16 * i] =
+              keep ? exp2f(fmaf(s[i][j], scale_log2, -l2)) : 0.f;
+        }
+      }
+    }
+    __syncthreads();  // P^T complete
+    if (grp == 1) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float dl = delta_t[aq + 8 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int at = (aq + 8 * j) * LDX + ak + 16 * i;
+          ds_s[at] = p_s[at] * (s[i][j] - dl) * scale;
+        }
+      }
+      asm volatile("bar.sync 1, 128;\n" ::: "memory");  // dS^T complete
+    }
+    outer8<D, BQ, LD, LDX>(acc, x_s + 4 * bk, (grp ? q_t : do_t) + 4 * bd);
+  }
+  cp_async_wait<0>();
+
+  float* out = grp ? dk : dv;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int k_pos = k0 + 4 * bk + 32 * (e / 4) + e % 4;
+    if (k_pos >= Sk) continue;
+    float* o = out + (((size_t)b * Sk + k_pos) * KVH + kvh) * D + 4 * bd;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      *reinterpret_cast<float4*>(o + 64 * c) =
+          make_float4(acc[e][4 * c], acc[e][4 * c + 1], acc[e][4 * c + 2],
+                      acc[e][4 * c + 3]);
   }
 }
 
@@ -1039,28 +1187,39 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   }
 }
 
+template <int D>
+cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse,
+                           const void* delta, void* dk, void* dv, int B,
+                           int Sq, int Sk, int H, int KVH, int causal,
+                           float scale, cudaStream_t stream) {
+  using C = DkvF32Cfg<D>;
+  const int tiles = (Sk + C::BK - 1) / C::BK;
+  if (!fits_yz(B, tiles)) return cudaErrorInvalidValue;
+  cudaError_t e = allow_smem(flash_dkv_kernel_f32<D>, C::kSmemBytes);
+  if (e != cudaSuccess) return e;
+  dim3 grid(KVH, B, tiles);
+  flash_dkv_kernel_f32<D><<<grid, C::NT, C::kSmemBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dk), static_cast<float*>(dv), Sq, Sk, H, KVH,
+      causal, scale);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int B, int Sq, int Sk, int H,
                        int KVH, int causal, float scale,
                        cudaStream_t stream) {
-  if constexpr (std::is_same_v<T, bf16>) {
+  if constexpr (std::is_same_v<T, bf16>)
     return launch_dkv_mma<D>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H,
                              KVH, causal, scale, stream);
-  } else {
-    using C = DkvCfg<D>;
-    cudaError_t e = allow_smem(flash_dkv_kernel<T, D>, C::kSmemBytes);
-    if (e != cudaSuccess) return e;
-    dim3 grid((Sk + C::BK - 1) / C::BK, KVH, B);
-    flash_dkv_kernel<T, D><<<grid, C::NT, C::kSmemBytes, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, H, KVH, causal,
-        scale);
-    return cudaGetLastError();
-  }
+  else
+    return launch_dkv_f32<D>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H,
+                             KVH, causal, scale, stream);
 }
 
 }  // namespace
@@ -1089,7 +1248,7 @@ extern "C" int flash_smem_bytes(int kernel, int dtype, int D) {
     case 2:
       if (b16)
         return d64 ? DkvMmaCfg<64>::kSmemBytes : DkvMmaCfg<128>::kSmemBytes;
-      return d64 ? DkvCfg<64>::kSmemBytes : DkvCfg<128>::kSmemBytes;
+      return d64 ? DkvF32Cfg<64>::kSmemBytes : DkvF32Cfg<128>::kSmemBytes;
     default:
       return -1;
   }

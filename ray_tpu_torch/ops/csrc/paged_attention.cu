@@ -55,15 +55,15 @@
 //     acc / max(l, 1e-30). Otherwise each block writes its split's
 //     unnormalised (m, l, acc) to f32 scratch [B, n_splits, H] (+ D),
 //     then counts itself in an arrival counter of its (row, kv head
-//     tile); the last block to arrive resets the counter to 0 (for the
-//     next call, or the next replay of a captured graph) and merges the
-//     row's splits in split order (m = max m_s, l = sum l_s exp(m_s - m),
-//     acc likewise). The order is fixed, so two launches give the same
-//     bits whichever block arrives last. The counters are one buffer per
-//     (device, stream) in the wrapper: launches in order on one stream
-//     reuse it safely; two launches that may run at once must not share
-//     it. Merging in the last block beat a second launch for the merge at
-//     every timed shape on the H100.
+//     tile); the last block to arrive merges the row's splits in split
+//     order (m = max m_s, l = sum l_s exp(m_s - m), acc likewise). The
+//     order is fixed, so two launches give the same bits whichever block
+//     arrives last. The counters belong to one call: the wrapper takes
+//     them from the caching allocator and pda_forward zeroes them on the
+//     launch stream before the kernel (a memset node under capture), so
+//     two launches that run at once never share them. Merging in the last
+//     block beat a second launch for the merge at every timed shape on
+//     the H100.
 //
 // Products and sums on CUDA cores in f32.
 //
@@ -216,7 +216,7 @@ __device__ __forceinline__ void merge_splits(const float* part_o,
 // q, out: [B, H, D]; k_pages, v_pages: [P, page_size, KVH, D];
 // block_table: [B, max_pages] int32; lengths: [B] int32.
 // part_o: [B, n_splits, H, D] f32; part_ml: [B, n_splits, H, 2] f32;
-// counters: [B, KVH * ceil(G / kRows)] int32, zero between calls.
+// counters: [B, KVH * ceil(G / kRows)] int32, zero at launch.
 // grid = (n_splits, KVH * ceil(G / kRows), B), block = kThreads, dynamic
 // shared memory PdaCfg<T, D>::kSmemBytes.
 template <typename T, int D>
@@ -400,7 +400,6 @@ pda_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   if (threadIdx.x == 0) {
     int* counter = counters + (size_t)b * gridDim.y + blockIdx.y;
     s_last = atomicAdd(counter, 1) == n_used - 1;
-    if (s_last) atomicExch(counter, 0);  // every other split has counted
   }
   __syncthreads();
   if (!s_last) return;
@@ -422,6 +421,8 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
   cudaError_t e = allow_smem(pda_kernel<T, D>, C::kSmemBytes);
   if (e != cudaSuccess) return e;
   const int tiles = KVH * ((H / KVH + kRows - 1) / kRows);
+  e = cudaMemsetAsync(counters, 0, sizeof(int) * (size_t)B * tiles, stream);
+  if (e != cudaSuccess) return e;
   dim3 grid1(n_splits, tiles, B);
   pda_kernel<T, D><<<grid1, kThreads, C::kSmemBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pages),
@@ -437,8 +438,8 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
 
 // dtype: 0 = float32, 1 = bfloat16. head_dim: 64 or 128. Split s holds
 // keys [s, s + 1) * split_pages * page_size; n_splits * split_pages must
-// cover max_pages. counters: int32 [B * KVH * ceil(H / KVH / 4)], zero
-// on entry and zero again when the launch ends.
+// cover max_pages. counters: int32 [B * KVH * ceil(H / KVH / 4)], this
+// call's own; zeroed here on `stream` before the kernel.
 extern "C" int pda_forward(int dtype, const void* q, const void* k_pages,
                            const void* v_pages, const void* block_table,
                            const void* lengths, void* part_o, void* part_ml,

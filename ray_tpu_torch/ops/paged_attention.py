@@ -12,7 +12,8 @@ pages, fixed by the page index (``decode_splits`` of them cover the
 table), so a row's output has the same bits alone and in any batch, and
 at any table width that covers it. Its blocks stream their split's K/V
 through a ring of ``cp.async`` stages; the last block of a (row, kv head
-tile) to finish merges the splits in split order, in the same launch.
+tile) to finish merges the splits in split order, in the same launch,
+through arrival counters that each call allocates and zeroes for itself.
 ``paged_decode_attention.launches`` counts calls that launched the
 kernel (one per call).
 
@@ -123,21 +124,11 @@ def _check_kernel_inputs(q, k_pages, v_pages, block_table, lengths):
                              f"moves K/V rows as 16-byte vectors)")
 
 
-# arrival counters of the merge, one int32 buffer per (device, stream),
-# zero between calls (the last block of each (row, kv head tile) resets
-# its own). Launches in order on one stream reuse it safely; launches that
-# may run at once (two streams sharing a handle, or a captured graph
-# replayed beside another launch on its stream) must not share it. A
-# buffer outgrown is kept, never freed, since a captured graph may name it.
-_COUNTERS: dict = {}
-
-
-def _arrival_counters(device, stream: int, n: int):
-    bufs = _COUNTERS.setdefault((device.index, stream), [])
-    if not bufs or bufs[-1].numel() < n:
-        bufs.append(torch.zeros(max(n, 4096), dtype=torch.int32,
-                                device=device))
-    return bufs[-1]
+def merge_counters(batch: int, n_heads: int, n_kv_heads: int) -> int:
+    """Arrival counters one kernel launch needs: one per (row, kv head,
+    tile of up to _KERNEL_ROWS query heads of that kv head), the kernel's
+    grid without its split axis."""
+    return batch * n_kv_heads * -(-(n_heads // n_kv_heads) // _KERNEL_ROWS)
 
 
 def _launch_kernel(q, k_pages, v_pages, block_table, lengths, scale: float):
@@ -155,15 +146,19 @@ def _launch_kernel(q, k_pages, v_pages, block_table, lengths, scale: float):
                          device=q.device)
     part_ml = torch.empty((b, splits, h, 2), dtype=torch.float32,
                           device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    row_tiles = -(-(h // kvh) // _KERNEL_ROWS)
-    counters = _arrival_counters(q.device, stream, b * kvh * row_tiles)
+    # the merge's arrival counters belong to this call alone (pda_forward
+    # zeroes them on the stream first): two launches that may run at once,
+    # on two streams or a graph replay beside an eager call, never share
+    # them; under capture the graph's pool owns them
+    counters = torch.empty(merge_counters(b, h, kvh), dtype=torch.int32,
+                           device=q.device)
     err = lib.pda_forward(
         _KERNEL_DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), block_table.data_ptr(), lengths.data_ptr(),
         part_o.data_ptr(), part_ml.data_ptr(), counters.data_ptr(),
         out.data_ptr(), b, h, kvh, d, page_size, max_pages, splits,
-        split_pages(page_size), float(scale), stream)
+        split_pages(page_size), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: "
                            f"CUDA error {err}")

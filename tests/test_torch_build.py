@@ -163,3 +163,20 @@ def test_paged_decode_split_count(max_pages, page, want):
     for wider in (max_pages + 1, 2 * max_pages, 8 * max_pages):
         assert pda.decode_splits(wider, page) >= n
     assert rpa.num_splits(1, max_pages, page) == n
+
+
+@pytest.mark.parametrize("batch,heads,kv_heads,want", [
+    (9, 32, 8, 72),      # 8B decode: G 4, one row tile per kv head
+    (1, 32, 8, 8),
+    (4, 40, 2, 40),      # G 20: five row tiles per kv head
+    (3, 8, 8, 24),       # G 1: one tile, three warps idle
+    (2, 12, 2, 8),       # G 6: a full tile and a half one
+    (0, 32, 8, 0),
+])
+def test_paged_decode_merge_counters(batch, heads, kv_heads, want):
+    """Each B2 call takes its own arrival counters: one per (row, kv
+    head, tile of up to four query heads), the kernel's grid less its
+    split axis, whatever the table width."""
+    assert pda.merge_counters(batch, heads, kv_heads) == want
+    tiles = -(-(heads // kv_heads) // pda._KERNEL_ROWS)
+    assert want == batch * kv_heads * tiles

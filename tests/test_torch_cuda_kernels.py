@@ -630,18 +630,53 @@ def test_paged_decode_kernel_is_batch_invariant(cuda, dtype, width):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_paged_decode_kernel_is_deterministic(cuda, dtype):
     """Two launches give the same bits, whichever block of a row arrives
-    last to merge it, and every arrival counter is back at 0 after each
-    call (the next call on the stream starts from 0)."""
-    from ray_tpu_torch.ops import paged_attention as pda_mod
+    last to merge it, and so does a third after a launch on other rows
+    (each call zeroes its own arrival counters)."""
     args = _decode_case(dtype, 128, 4, 16, cuda, (4096, 0, 1000, 3, 129),
                         260)
+    other = _decode_case(dtype, 128, 4, 16, cuda, (17, 2000), 260, seed=5)
     a = paged_decode_attention(*args)
     b = paged_decode_attention(*args)
+    paged_decode_attention(*other)
+    c = paged_decode_attention(*args)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
-    stream = torch.cuda.current_stream(cuda).cuda_stream
-    for buf in pda_mod._COUNTERS[(args[0].device.index, stream)]:
-        assert not buf.any()
+    assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_decode_graph_replay_beside_eager_launch(cuda, dtype):
+    """B2 captured in a CUDA graph, replayed on one stream while an eager
+    B2 on other inputs runs on a second stream, several times: each
+    result equals, bit for bit, what its call gives alone. Each call owns
+    its merge counters (the graph's come from its pool), so launches that
+    overlap cannot count in each other's merge."""
+    args_g = _decode_case(dtype, 128, 4, 16, cuda, (4096, 1000, 3, 2049),
+                          260)
+    args_e = _decode_case(dtype, 128, 4, 16, cuda, (4095, 129, 4096, 1, 700),
+                          260, seed=7)
+    want_g = paged_decode_attention(*args_g)
+    want_e = paged_decode_attention(*args_e)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):   # warm up off the default stream
+        paged_decode_attention(*args_g)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_g = paged_decode_attention(*args_g)
+    s1, s2 = torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)
+    for _ in range(8):
+        out_g.zero_()
+        s1.wait_stream(torch.cuda.current_stream(cuda))
+        s2.wait_stream(torch.cuda.current_stream(cuda))
+        with torch.cuda.stream(s1):
+            graph.replay()
+        with torch.cuda.stream(s2):
+            out_e = paged_decode_attention(*args_e)
+        torch.cuda.synchronize()
+        assert torch.equal(out_g, want_g)
+        assert torch.equal(out_e, want_e)
 
 
 def test_paged_decode_kernel_rejects_what_it_does_not_take(cuda):
@@ -774,6 +809,10 @@ FLASH_LENGTHS = [
     # causal with Sq < Sk, and with Sq > Sk (keys no query sees)
     (15, 65, True), (17, 129, True), (16, 64, True),
     (129, 63, True), (65, 16, True), (64, 15, True), (129, 17, False),
+    # the f32 dkv kernel's tiles: 64-key blocks, 32-query tiles (31, 33:
+    # one row short or over), Sq < Sk and Sq > Sk
+    (31, 31, False), (32, 32, True), (33, 33, True), (31, 63, True),
+    (33, 65, False), (63, 33, True), (65, 31, False), (97, 129, True),
 ]
 
 
@@ -784,8 +823,8 @@ FLASH_LENGTHS = [
 def test_flash_kernels_match_plain_versions(cuda, dtype, d, groups, sq, sk,
                                             causal):
     """Forward (out, lse), dq and dkv on ragged lengths and on every tile
-    edge of the bf16 tensor-core dq/dkv kernels, GQA 1 to 8, both head
-    dims and dtypes."""
+    edge of the bf16 tensor-core dq/dkv kernels and of the f32 dkv
+    kernel, GQA 1 to 8, both head dims and dtypes."""
     q, k, v, dout = _flash_case(2, sq, sk, 2 * groups, 2, d, dtype, cuda)
     scale = d ** -0.5
     out, lse = flash_fwd_kernel(q, k, v, causal, scale)
