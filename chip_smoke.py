@@ -16,9 +16,9 @@ and prints no result line):
    instruction counts in the built SASS (cuobjdump). Every bf16 flash
    kernel (forward, dq, dkv) and every bf16 ragged pass-1 kernel (1, 2
    and 4 warps), at D 64 and 128, must have the first three and no
-   spills; the f32 dkv kernel, the f32 ragged pass-1 kernel and the
-   paged decode kernel (both dtypes) must stage by cp.async and not
-   spill.
+   spills; the f32 flash kernels (forward, dq, dkv), the f32 ragged
+   pass-1 kernel and the paged decode kernel (both dtypes) must stage by
+   cp.async and not spill.
 3. kernels: the ragged kernel against its plain PyTorch version on the
    card at the shapes the serving path gives it (Llama-3-8B attention:
    H=32, KVH=8, D=128, page 16) for decode, prefill and verify, and at
@@ -49,7 +49,8 @@ and prints no result line):
    shapes (B 2, S 4096, H 32, KVH 8, D 128, causal) in bf16 and f32,
    plus a ragged non-causal 77 x 140 case, a causal S 4000 case and a
    causal D 64, G 1 case with Sq 1000 < Sk 1800. At the 8B shape, in
-   both dtypes, a second launch of dq and dkv must give the same bits.
+   both dtypes, a second launch of the forward, dq and dkv must give the
+   same bits.
    Prints the max error, the kernels', the plain versions' and the
    library's (scaled_dot_product_attention forward, and its autograd
    backward for dq + dkv) median times, and the card's lower bound.
@@ -66,7 +67,9 @@ and prints no result line):
    never. Losses finite, the last below the first.
 7. train agreement: a small f32 model (head_dim 128, GQA 2) trained for
    2 steps on the card (kernels) and on the CPU (plain versions):
-   losses and every gradient agree.
+   losses and every gradient agree. The f32 forward, dq and dkv kernels'
+   launch counts are reset just before and read just after; each must
+   have launched.
 3c. paged decode: the decode-only kernel (split-KV over runs of 8 pages,
    the merge in the last block to finish) on its own entry point
    paged_decode_attention, whose path no model runs. The launch count is
@@ -132,7 +135,8 @@ and prints no result line):
    merged-weights agreement (not held: bf16 merge-then-cast is not the
    f32 delta) and B1 launches by family.
 5b. dense agreement: phase 5's small f32 model through InferenceEngine on
-   the card and on the CPU gives identical greedy tokens.
+   the card and on the CPU gives identical greedy tokens; the f32
+   forward kernel's launches are counted as in phase 7.
 
 Phases run in the order 1, 2, 3, 3c, 3b, 4, 4b, 4c, 4d, 5, 5b, 6, 7. The
 second-to-last line is the card from nvidia-smi, the one before it the
@@ -273,10 +277,10 @@ def check_kernel_build(build_info) -> dict:
     (cuobjdump). Raises unless every bf16 flash kernel (forward, dq, dkv)
     and every bf16 ragged pass-1 kernel (1, 2 and 4 warps) is the
     tensor-core one, uses the first three and spills nothing, and the f32
-    dkv kernel, the f32 ragged pass-1 kernel and the paged decode kernel
-    (both dtypes) stage by cp.async and spill nothing, at D 64 and 128;
-    the merge passes must not spill. Returns {"kernel dtype D[ NW]":
-    record}."""
+    flash kernels (forward, dq, dkv), the f32 ragged pass-1 kernel and
+    the paged decode kernel (both dtypes) stage by cp.async and spill
+    nothing, at D 64 and 128; the merge passes must not spill. Returns
+    {"kernel dtype D[ NW]": record}."""
     from ray_tpu_torch.ops import _build
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
                              "cuobjdump")
@@ -319,21 +323,12 @@ def check_kernel_build(build_info) -> dict:
                     not all(rec[op] for op in _TENSOR_CORE_OPS):
                 raise AssertionError(f"{label}: want tensor cores, cp.async, "
                                      f"ldmatrix and no spills, got {rec}")
-        if kernel in ("flash_dkv_kernel_f32", "rpa_kernel_f32",
-                      "pda_kernel") and (spills or not rec["LDGSTS"]):
+        if kernel in F32_CP_ASYNC and (spills or not rec["LDGSTS"]):
             raise AssertionError(f"{label}: want cp.async and no spills, "
                                  f"got {rec}")
         if kernel.endswith("merge_kernel") and spills:
             raise AssertionError(f"{label}: spills {rec}")
-    want = [f"flash_{k}_kernel_mma bfloat16 D{d}" for k in ("fwd", "dq", "dkv")
-            for d in (64, 128)] + \
-        [f"rpa_kernel_mma bfloat16 D{d} NW{nw}" for d in (64, 128)
-         for nw in (1, 2, 4)] + \
-        [f"rpa_kernel_f32 float32 D{d}" for d in (64, 128)] + \
-        [f"flash_dkv_kernel_f32 float32 D{d}" for d in (64, 128)] + \
-        [f"pda_kernel {t} D{d}" for t in ("float32", "bfloat16")
-         for d in (64, 128)]
-    missing = [k for k in want if k not in out]
+    missing = [k for k in PHASE2_KERNELS if k not in out]
     if missing:
         raise AssertionError(f"kernels not built: {missing}")
     return out
@@ -712,8 +707,21 @@ FLASH_KERNELS = (
 # largest value. lse is f32 on both sides from exact products: f32 rule.
 FLASH_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2 ** -8, 2 ** -7)}
 #: the f32 kernel of each flash entry point (CUDA cores)
-F32_KERNEL = {"flash_fwd": "flash_fwd_kernel", "flash_dq": "flash_dq_kernel",
+F32_KERNEL = {"flash_fwd": "flash_fwd_kernel_f32",
+              "flash_dq": "flash_dq_kernel_f32",
               "flash_dkv": "flash_dkv_kernel_f32"}
+#: kernels that must stage by cp.async and spill nothing (phase 2)
+F32_CP_ASYNC = (*F32_KERNEL.values(), "rpa_kernel_f32", "pda_kernel")
+#: every kernel build phase 2 must find, as "kernel dtype D[ NW]"
+PHASE2_KERNELS = (
+    [f"flash_{k}_kernel_mma bfloat16 D{d}" for k in ("fwd", "dq", "dkv")
+     for d in (64, 128)]
+    + [f"rpa_kernel_mma bfloat16 D{d} NW{nw}" for d in (64, 128)
+       for nw in (1, 2, 4)]
+    + [f"rpa_kernel_f32 float32 D{d}" for d in (64, 128)]
+    + [f"{k} float32 D{d}" for k in F32_KERNEL.values() for d in (64, 128)]
+    + [f"pda_kernel {t} D{d}" for t in ("float32", "bfloat16")
+       for d in (64, 128)])
 TRAIN_LAYERS = 8        # of Llama-3-8B's 32: AdamW state must fit in 80 GB
 # EngineConfig's prefill buckets at phase 4b's max_seq_len 1024
 SERVE_BUCKETS = (32, 64, 128, 256, 512, 1024)
@@ -841,13 +849,14 @@ def check_flash_kernels() -> dict:
                    "causal": causal, "max_abs_err": errs}
             if case == "8b_causal":
                 # no atomics: a second launch of each gives the same bits
-                again = (flash_dq_kernel(q, k, v, dout, lse, delta, causal,
+                again = (*flash_fwd_kernel(q, k, v, causal, scale),
+                         flash_dq_kernel(q, k, v, dout, lse, delta, causal,
                                          scale),
                          *flash_dkv_kernel(q, k, v, dout, lse, delta, causal,
                                            scale))
                 torch.cuda.synchronize()
-                for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv),
-                                      again):
+                for name, a, b in zip(("out", "lse", "dq", "dk", "dv"),
+                                      (out, lse, dq, dk, dv), again):
                     if not torch.equal(a, b):
                         raise AssertionError(f"{case} {dname} {name}: two "
                                              f"launches differ")
@@ -1832,10 +1841,21 @@ def tenants_and_kv(model_cfg, device, seed: int = 0, num_pages: int = 256,
 
 # -- phase 5b: dense-engine agreement ---------------------------------------
 
-def dense_agreement():
+def _flash_launches(phase: str, names) -> dict:
+    """The flash kernels' launches since the last reset; raises unless
+    each of names launched."""
+    got = {n: c for n, c in _launch_counts().items() if n.startswith("flash")}
+    if not all(got[n] for n in names):
+        raise AssertionError(f"{phase}: launches {got}, want each of "
+                             f"{names} at least once")
+    return got
+
+
+def dense_agreement() -> dict:
     """Phase 5's small f32 model (head_dim 128, GQA 2) through the dense
-    InferenceEngine on the card (flash forward kernel in prefill) and on
-    the CPU (plain versions): greedy tokens identical."""
+    InferenceEngine on the card (the f32 flash forward kernel in prefill)
+    and on the CPU (plain versions): greedy tokens identical. Returns the
+    flash kernels' launches in the card's run."""
     from ray_tpu_torch.llm import EngineConfig, InferenceEngine, SamplingParams
     from ray_tpu_torch.models import llama
     mc = llama.llama_tiny(vocab_size=512, dim=256, n_heads=2, n_kv_heads=1,
@@ -1849,14 +1869,17 @@ def dense_agreement():
     prompts = [[int(t) for t in rng.randint(0, 512, n)]
                for n in (7, 40, 95, 150)]
     sp = SamplingParams(max_tokens=12)
+    _reset_launch_counts()
     a = InferenceEngine(cfg, gpu_params, device="cuda").generate(prompts, sp)
+    launches = _flash_launches("dense agreement", ("flash_fwd",))
     b = InferenceEngine(cfg, cpu_params, device="cpu").generate(prompts, sp)
     for x, y in zip(a, b):
         if x["token_ids"] != y["token_ids"]:
             raise AssertionError(f"dense card {x['token_ids']} != "
                                  f"cpu {y['token_ids']}")
     print(f"dense agreement: {len(prompts)} prompts, greedy tokens "
-          f"identical card vs CPU", flush=True)
+          f"identical card vs CPU; launches {launches}", flush=True)
+    return launches
 
 
 # -- phase 6: train at full width, depth cut -------------------------------
@@ -1967,13 +1990,14 @@ def train(model_cfg, device, batch: int, seq: int, steps: int = 5,
 
 # -- phase 7: training agreement --------------------------------------------
 
-def train_agreement():
+def train_agreement() -> dict:
     """The same small f32 model (head_dim 128, GQA 2, remat save_attn)
-    trained for 2 steps on the card (kernels) and on the CPU (plain
-    versions): each step's loss within 1e-5, and every gradient within
-    |card - cpu| <= 1e-4 * max|cpu| + 1e-3 * |cpu| (f32 sums in other
-    orders; the second step also starts from parameters that AdamW moved
-    by about +-lr wherever a gradient is near 0)."""
+    trained for 2 steps on the card (the f32 flash kernels) and on the CPU
+    (plain versions): each step's loss within 1e-5, and every gradient
+    within |card - cpu| <= 1e-4 * max|cpu| + 1e-3 * |cpu| (f32 sums in
+    other orders; the second step also starts from parameters that AdamW
+    moved by about +-lr wherever a gradient is near 0). Returns the flash
+    kernels' launches in the card's run."""
     from ray_tpu_torch.models import llama
     mc = llama.llama_tiny(vocab_size=512, dim=256, n_heads=2, n_kv_heads=1,
                           mlp_dim=512, n_layers=2, max_seq_len=1024,
@@ -1981,6 +2005,7 @@ def train_agreement():
     rng = np.random.RandomState(11)
     tok = rng.randint(0, mc.vocab_size, (2, 161))
     runs = {}
+    _reset_launch_counts()
     for device in ("cuda", "cpu"):
         params = llama.init(mc, seed=5, device="cpu")
         if device == "cuda":
@@ -1995,6 +2020,8 @@ def train_agreement():
             losses.append(float(step()))
             grads.append([t.grad.detach().cpu() for t in leaves])
         runs[device] = (losses, grads)
+    launches = _flash_launches("train agreement",
+                               ("flash_fwd", "flash_dq", "flash_dkv"))
     (lc, gc), (lp, gp) = runs["cuda"], runs["cpu"]
     np.testing.assert_allclose(lc, lp, atol=1e-5, rtol=0)
     worst = 0.0
@@ -2007,7 +2034,9 @@ def train_agreement():
                                      f"{float(err.max()):.3g}")
             worst = max(worst, float((err / (b.abs().max() + 1e-30)).max()))
     print(f"train agreement: losses card {lc} cpu {lp}; worst gradient "
-          f"error {worst:.3g} of its tensor's max", flush=True)
+          f"error {worst:.3g} of its tensor's max; launches {launches}",
+          flush=True)
+    return launches
 
 
 # -- --profile-train: where a train step's device time goes ---------------
@@ -2490,11 +2519,11 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     agreement()
-    dense_agreement()
+    dense_f32 = dense_agreement()
     tr = train(llama.llama3_8b(n_layers=TRAIN_LAYERS), "cuda",
                batch=2, seq=4096)
     print("train: " + json.dumps(tr), flush=True)
-    train_agreement()
+    train_f32 = train_agreement()
     head = next(r for r in records
                 if r["family"] == "decode" and r["dtype"] == "bfloat16")
     kernels = [{
@@ -2570,6 +2599,8 @@ def main():
         built = kernel_build[f"{F32_KERNEL[name]} float32 D128"]
         kernels[-1]["timed_f32"] = {
             **flash["timed"]["float32"][name],
+            "launches_train_agreement": train_f32[name],
+            "launches_dense_agreement": dense_f32[name],
             **{k: built.get(k) for k in ("registers", "spill_stores",
                                          "smem_bytes", "LDGSTS", "FFMA",
                                          "LDS.128")}}

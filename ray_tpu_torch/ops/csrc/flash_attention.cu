@@ -82,14 +82,13 @@
 //     last query tile and dkv from the first key tile, so the heaviest
 //     blocks start first; a forward warp whose 16 queries all precede a
 //     key tile skips it.
-// The f32 instantiation (dtype 0) keeps CUDA-core kernels (flash_fwd_kernel,
-// flash_dq_kernel, flash_dkv_kernel_f32): tensor cores in f32 would mean
-// TF32, three decimal digits, far from the f32 reference. The forward and
-// dq stage f32 tiles in shared memory (row stride D + 1 words) and run
-// every product from 4 x 4 register tiles read one word at a time. The
-// dkv kernel is built for Hopper's CUDA cores (its section says how): two
-// warp groups split the four products, 16-byte shared reads feed 4-8 FMAs
-// a value, and Q / dO / lse / delta stream through a cp.async ring.
+// The f32 instantiation (dtype 0) keeps CUDA-core kernels
+// (flash_fwd_kernel_f32, flash_dq_kernel_f32, flash_dkv_kernel_f32):
+// tensor cores in f32 would mean TF32, three decimal digits, far from the
+// f32 reference. All three are built for Hopper's CUDA cores (their
+// sections say how): 16-byte shared reads laid out per quarter-warp feed
+// 4-8 FMAs a value, and the streamed operand (K / V for the forward and
+// dq, Q / dO / lse / delta for dkv) arrives through a cp.async ring.
 // Not done yet (later work): wgmma with TMA and mbarriers instead of
 // mma.sync with cp.async (a warpgroup-wide product needs its accumulator
 // rewritten through shared memory or the wgmma register-A form); a fused
@@ -109,315 +108,6 @@
 #include "mma_sm90.cuh"  // PTX helpers, tile products, softmax_tile
 
 namespace {
-
-template <typename T>
-struct Elem;
-
-template <>
-struct Elem<float> {
-  static constexpr int kPerVec = 4;  // elements per 16-byte vector
-  __device__ static void unpack(const uint4& u, float* out) {
-    out[0] = __uint_as_float(u.x);
-    out[1] = __uint_as_float(u.y);
-    out[2] = __uint_as_float(u.z);
-    out[3] = __uint_as_float(u.w);
-  }
-  __device__ static float round(float x) { return x; }
-  __device__ static float from_float(float x) { return x; }
-};
-
-// max / sum over the NX consecutive lanes that share a row group
-template <int NX>
-__device__ __forceinline__ float group_max(float x) {
-#pragma unroll
-  for (int o = NX / 2; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-
-template <int NX>
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int o = NX / 2; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
-
-// Stage ROWS rows of D elements (row r at src + r * stride) into
-// dst[r * (D + 1) + d] as f32, as 16-byte loads; rows >= valid are zero.
-template <typename T, int D, int ROWS, int NT>
-__device__ __forceinline__ void stage_rows(float* dst, const T* src,
-                                           size_t stride, int valid) {
-  using E = Elem<T>;
-  constexpr int EPV = E::kPerVec;
-  constexpr int VPR = D / EPV;
-  static_assert(ROWS * VPR % NT == 0, "tile split");
-#pragma unroll
-  for (int it = 0; it < ROWS * VPR / NT; ++it) {
-    const int idx = threadIdx.x + it * NT;
-    const int r = idx / VPR, c = idx - r * VPR;
-    float vals[EPV];
-    if (r < valid) {
-      const uint4 u = *reinterpret_cast<const uint4*>(
-          src + (size_t)r * stride + c * EPV);
-      E::unpack(u, vals);
-    } else {
-#pragma unroll
-      for (int e = 0; e < EPV; ++e) vals[e] = 0.f;
-    }
-    float* d = dst + r * (D + 1) + c * EPV;
-#pragma unroll
-    for (int e = 0; e < EPV; ++e) d[e] = vals[e];
-  }
-}
-
-// acc[i][j] = sum_d A[row_i][d] * B[col_j][d], rows ty*RM + i of A and
-// cols tx + NX*j of B, both staged with row stride D + 1.
-template <int RM, int CN, int NX, int D>
-__device__ __forceinline__ void dot_tile(float (&acc)[RM][CN],
-                                         const float* A, const float* B,
-                                         int ty, int tx) {
-  constexpr int LD = D + 1;
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < CN; ++j) acc[i][j] = 0.f;
-  const float* a0 = A + ty * RM * LD;
-  const float* b0 = B + tx * LD;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float a[RM], b[CN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i) a[i] = a0[i * LD + d];
-#pragma unroll
-    for (int j = 0; j < CN; ++j) b[j] = b0[j * NX * LD + d];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < CN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// acc[i][c] += sum_{k < KN} P[row_i][k] * V[k][tx + NX*c]; P has row
-// stride KN + 1, V row stride D + 1.
-template <int RM, int CD, int NX, int D, int KN>
-__device__ __forceinline__ void pv_tile(float (&acc)[RM][CD], const float* P,
-                                        const float* V, int ty, int tx) {
-  constexpr int LD = D + 1, LDP = KN + 1;
-  const float* p0 = P + ty * RM * LDP;
-  const float* v0 = V + tx;
-#pragma unroll 4
-  for (int k = 0; k < KN; ++k) {
-    float p[RM], v[CD];
-#pragma unroll
-    for (int i = 0; i < RM; ++i) p[i] = p0[i * LDP + k];
-#pragma unroll
-    for (int c = 0; c < CD; ++c) v[c] = v0[k * LD + c * NX];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int c = 0; c < CD; ++c) acc[i][c] = fmaf(p[i], v[c], acc[i][c]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// f32 forward on CUDA cores: grid (ceil(Sq / BQ), H, B)
-// ---------------------------------------------------------------------------
-
-template <int D>
-struct FwdCfg {
-  static constexpr int NT = 128, NX = 8, NY = NT / NX, RM = 4;
-  static constexpr int BQ = NY * RM;  // 64 query rows per block
-  static constexpr int BK = 32;       // keys per tile
-  static constexpr int CN = BK / NX, CD = D / NX;
-  static constexpr int LD = D + 1, LDP = BK + 1;
-  static constexpr int kSmemBytes =
-      (BQ * LD + 2 * BK * LD + BQ * LDP) * (int)sizeof(float);
-};
-
-template <typename T, int D>
-__global__ void __launch_bounds__(FwdCfg<D>::NT)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, int Sq, int Sk, int H, int KVH,
-                 int causal, float scale) {
-  using C = FwdCfg<D>;
-  using E = Elem<T>;
-  constexpr int RM = C::RM, CN = C::CN, CD = C::CD, NX = C::NX;
-  extern __shared__ float smem[];
-  float* q_s = smem;                  // [BQ][LD]
-  float* k_s = q_s + C::BQ * C::LD;   // [BK][LD]
-  float* v_s = k_s + C::BK * C::LD;   // [BK][LD]
-  float* p_s = v_s + C::BK * C::LD;   // [BQ][LDP]
-
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KVH);
-  const int q0 = blockIdx.x * C::BQ;
-  const int tx = threadIdx.x % NX, ty = threadIdx.x / NX;
-  const size_t q_stride = (size_t)H * D, kv_stride = (size_t)KVH * D;
-  const T* k_base = k + ((size_t)b * Sk * KVH + kvh) * D;
-  const T* v_base = v + ((size_t)b * Sk * KVH + kvh) * D;
-  const int q_rows = min(C::BQ, Sq - q0);
-  // causal: keys past the tile's last query are never visible
-  const int n_keys = causal ? min(Sk, q0 + q_rows) : Sk;
-
-  stage_rows<T, D, C::BQ, C::NT>(
-      q_s, q + (((size_t)b * Sq + q0) * H + h) * D, q_stride, q_rows);
-
-  float m[RM], l[RM], acc[RM][CD];
-  int q_pos[RM];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-    q_pos[i] = q0 + ty * RM + i;
-#pragma unroll
-    for (int c = 0; c < CD; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int kb = 0; kb < n_keys; kb += C::BK) {
-    __syncthreads();  // q_s staged / previous tile consumed
-    const int valid = min(C::BK, Sk - kb);
-    stage_rows<T, D, C::BK, C::NT>(k_s, k_base + kb * kv_stride, kv_stride,
-                                   valid);
-    stage_rows<T, D, C::BK, C::NT>(v_s, v_base + kb * kv_stride, kv_stride,
-                                   valid);
-    __syncthreads();
-
-    float s[RM][CN];
-    dot_tile<RM, CN, NX, D>(s, q_s, k_s, ty, tx);
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      bool keep[CN];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        const int k_pos = kb + tx + NX * j;
-        keep[j] = k_pos < Sk && (!causal || k_pos <= q_pos[i]);
-        s[i][j] = keep[j] ? s[i][j] * scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], group_max<NX>(mx));
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        const float p = keep[j] ? expf(s[i][j] - m_new) : 0.f;
-        sum += p;
-        p_s[(ty * RM + i) * C::LDP + tx + NX * j] = E::round(p);
-      }
-      l[i] = l[i] * alpha + group_sum<NX>(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < CD; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-    pv_tile<RM, CD, NX, D, C::BK>(acc, p_s, v_s, ty, tx);
-  }
-
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    if (q_pos[i] >= Sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-    T* o = out + (((size_t)b * Sq + q_pos[i]) * H + h) * D + tx;
-#pragma unroll
-    for (int c = 0; c < CD; ++c) o[c * NX] = E::from_float(acc[i][c] / denom);
-    if (tx == 0)
-      lse[((size_t)b * H + h) * Sq + q_pos[i]] = m[i] + logf(denom);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// f32 dq on CUDA cores: grid (ceil(Sq / BQ), H, B)
-// ---------------------------------------------------------------------------
-
-template <int D>
-struct DqCfg {
-  static constexpr int NT = 128, NX = 8, NY = NT / NX, RM = 4;
-  static constexpr int BQ = NY * RM;  // 64
-  static constexpr int BK = 32;
-  static constexpr int CN = BK / NX, CD = D / NX;
-  static constexpr int LD = D + 1, LDP = BK + 1;
-  static constexpr int kSmemBytes =
-      (2 * BQ * LD + 2 * BK * LD + BQ * LDP) * (int)sizeof(float);
-};
-
-template <typename T, int D>
-__global__ void __launch_bounds__(DqCfg<D>::NT)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
-                const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dq, int Sq,
-                int Sk, int H, int KVH, int causal, float scale) {
-  using C = DqCfg<D>;
-  using E = Elem<T>;
-  constexpr int RM = C::RM, CN = C::CN, CD = C::CD, NX = C::NX;
-  extern __shared__ float smem[];
-  float* q_s = smem;                   // [BQ][LD]
-  float* do_s = q_s + C::BQ * C::LD;   // [BQ][LD]
-  float* k_s = do_s + C::BQ * C::LD;   // [BK][LD]
-  float* v_s = k_s + C::BK * C::LD;    // [BK][LD]
-  float* ds_s = v_s + C::BK * C::LD;   // [BQ][LDP]
-
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KVH);
-  const int q0 = blockIdx.x * C::BQ;
-  const int tx = threadIdx.x % NX, ty = threadIdx.x / NX;
-  const size_t q_stride = (size_t)H * D, kv_stride = (size_t)KVH * D;
-  const size_t q_off = (((size_t)b * Sq + q0) * H + h) * D;
-  const T* k_base = k + ((size_t)b * Sk * KVH + kvh) * D;
-  const T* v_base = v + ((size_t)b * Sk * KVH + kvh) * D;
-  const int q_rows = min(C::BQ, Sq - q0);
-  const int n_keys = causal ? min(Sk, q0 + q_rows) : Sk;
-
-  stage_rows<T, D, C::BQ, C::NT>(q_s, q + q_off, q_stride, q_rows);
-  stage_rows<T, D, C::BQ, C::NT>(do_s, dout + q_off, q_stride, q_rows);
-
-  float acc[RM][CD], lse_r[RM], delta_r[RM];
-  int q_pos[RM];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    q_pos[i] = q0 + ty * RM + i;
-    const size_t row = ((size_t)b * H + h) * Sq + q_pos[i];
-    lse_r[i] = q_pos[i] < Sq ? lse[row] : 0.f;
-    delta_r[i] = q_pos[i] < Sq ? delta[row] : 0.f;
-#pragma unroll
-    for (int c = 0; c < CD; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int kb = 0; kb < n_keys; kb += C::BK) {
-    __syncthreads();
-    const int valid = min(C::BK, Sk - kb);
-    stage_rows<T, D, C::BK, C::NT>(k_s, k_base + kb * kv_stride, kv_stride,
-                                   valid);
-    stage_rows<T, D, C::BK, C::NT>(v_s, v_base + kb * kv_stride, kv_stride,
-                                   valid);
-    __syncthreads();
-
-    float s[RM][CN], dp[RM][CN];
-    dot_tile<RM, CN, NX, D>(s, q_s, k_s, ty, tx);
-    dot_tile<RM, CN, NX, D>(dp, do_s, v_s, ty, tx);
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        const int k_pos = kb + tx + NX * j;
-        const bool keep = k_pos < Sk && (!causal || k_pos <= q_pos[i]);
-        const float p = keep ? expf(s[i][j] * scale - lse_r[i]) : 0.f;
-        const float ds = p * (dp[i][j] - delta_r[i]) * scale;
-        ds_s[(ty * RM + i) * C::LDP + tx + NX * j] = E::round(ds);
-      }
-    __syncthreads();
-    pv_tile<RM, CD, NX, D, C::BK>(acc, ds_s, k_s, ty, tx);
-  }
-
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    if (q_pos[i] >= Sq) continue;
-    T* o = dq + (((size_t)b * Sq + q_pos[i]) * H + h) * D + tx;
-#pragma unroll
-    for (int c = 0; c < CD; ++c) o[c * NX] = E::from_float(acc[i][c]);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // f32 dkv on CUDA cores: grid (KVH, B, ceil(Sk / BK)), first key tile first
@@ -488,9 +178,9 @@ __device__ __forceinline__ void cp_rows_f32(float* dst, const float* src,
   }
 }
 
-// s[i][j] = sum_d a[16 i * LD + d] * b[8 j * LD + d]: 4 rows of A 16
-// apart against 4 rows of B 8 apart, read 4 dims at a time.
-template <int D, int LD>
+// s[i][j] = sum_d a[16 i * LD + d] * b[SB j * LD + d]: 4 rows of A 16
+// apart against 4 rows of B SB apart, read 4 dims at a time.
+template <int D, int LD, int SB = 8>
 __device__ __forceinline__ void dot4x4(float (&s)[4][4], const float* a,
                                        const float* b) {
 #pragma unroll
@@ -505,7 +195,7 @@ __device__ __forceinline__ void dot4x4(float (&s)[4][4], const float* a,
       av[i] = *reinterpret_cast<const float4*>(a + i * 16 * LD + d);
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      bv[j] = *reinterpret_cast<const float4*>(b + j * 8 * LD + d);
+      bv[j] = *reinterpret_cast<const float4*>(b + j * SB * LD + d);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -683,6 +373,322 @@ flash_dkv_kernel_f32(const float* __restrict__ q,
       *reinterpret_cast<float4*>(o + 64 * c) =
           make_float4(acc[e][4 * c], acc[e][4 * c + 1], acc[e][4 * c + 2],
                       acc[e][4 * c + 3]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32 forward and dq on CUDA cores: grid (H, B, ceil(Sq / BQ)), last q tile
+// first
+// ---------------------------------------------------------------------------
+//
+// What bounds them: operations, as for dkv: 4 D (forward) and 6 D (dq)
+// FLOPs per visible pair and query head in f32 on CUDA cores. Both kernels
+// are one skeleton built from the dkv kernel's pieces:
+//   * a block of 256 threads owns 64 queries of one (b, query head). Q
+//     (and dO for dq) stay in shared memory for the whole key loop; K and
+//     V stream through a cp.async ring of kStages 64-key tiles, each
+//     requested kStages - 1 tiles ahead. Rows are padded to D + 4 floats;
+//   * thread (aq, ak), aq = 2 warp + lane % 2 and ak = lane / 2, both in
+//     [0, 16), holds S (and dP) for queries aq + 16 i and keys ak + 16 j
+//     (i, j < 4): dot4x4 feeds 64 FMAs from 8 reads of 16 bytes along D,
+//     and a quarter-warp reads 2 Q rows and 4 K rows, in distinct bank
+//     groups. A warp holds whole query rows (all 16 ak of two aq), so the
+//     forward's row max and row sum are shuffles inside the warp;
+//   * p (forward) or ds = p (dp - delta) scale (dq, formed in the
+//     registers that hold s and dp) goes to shared memory as X^T
+//     [key][4 aq + i], so a thread's 4 queries are one 16-byte read. Rows
+//     of X^T are 72 floats: the 16-byte stores of a quarter-warp fall in
+//     8 distinct bank groups;
+//   * the output (out or dq) is held per thread as queries aq + 16 i x
+//     dims 4 ak + 64 c + e, and updated one key at a time from 1 + D / 64
+//     reads of 16 bytes per 4 D / 16 FMAs (outer4);
+//   * exp runs as exp2 with scale * log2(e) folded into one multiply-add.
+//     The forward keeps m in natural units, so lse = m + log(l) is what
+//     dq and dkv read, as in the bf16 forward;
+//   * only tiles across the diagonal or past Sk are masked; causal blocks
+//     stop at their last query, and the heaviest start first;
+//   * each output element is summed by one thread in key order: two
+//     launches give the same bits.
+// Two barriers a tile: one publishes the landed tile and frees the slot
+// and X^T of the previous one, the other publishes X^T.
+template <int D>
+struct RowsF32Cfg {
+  static constexpr int NT = 256;      // 8 warps
+  static constexpr int BQ = 64;       // queries per block
+  static constexpr int BK = 64;       // keys per tile
+  static constexpr int kStages = 2;   // ring of K / V tiles
+  static constexpr int LD = D + 4;    // Q, dO, K, V row stride in floats
+  static constexpr int LDX = 72;      // X^T row stride: 64 queries + 8
+  static constexpr int kStageFloats = 2 * BK * LD;
+  // Q (forward) or Q and dO (dq), the ring, X^T
+  static constexpr int kRingBytes = (kStages * kStageFloats + BK * LDX) * 4;
+  static constexpr int kFwdSmemBytes = BQ * LD * 4 + kRingBytes;
+  static constexpr int kDqSmemBytes = 2 * BQ * LD * 4 + kRingBytes;
+  static_assert(NT == 256 && BQ == 64 && BK == 64 && D % 64 == 0,
+                "the thread layout below assumes these sizes");
+};
+
+// K and V rows of key tile t into ring slot t % kStages; always commits a
+// group (an empty one past the last tile)
+template <int D>
+__device__ __forceinline__ void stage_kv(float* ring, int t, int n_tiles,
+                                         const float* k, const float* v,
+                                         size_t kv_off, int Sk, int KVH) {
+  using C = RowsF32Cfg<D>;
+  if (t < n_tiles) {
+    const int kb = t * C::BK, rows = min(C::BK, Sk - kb);
+    const size_t stride = (size_t)KVH * D, off = kv_off + kb * stride;
+    float* slot = ring + (t % C::kStages) * C::kStageFloats;
+    cp_rows_f32<D, C::BK, C::NT, C::LD>(slot, k + off, stride, rows);
+    cp_rows_f32<D, C::BK, C::NT, C::LD>(slot + C::BK * C::LD, v + off,
+                                        stride, rows);
+  }
+  cp_async_commit();
+}
+
+// acc[i][n] += sum_{r < BK} x[r * LDX + i] * y[r * LD + dim(n)], dim(n) =
+// 64 (n / 4) + n % 4: 4 queries of X^T against D / 16 dims of V or K, one
+// key row at a time.
+template <int D, int BK, int LD, int LDX>
+__device__ __forceinline__ void outer4(float (&acc)[4][D / 16],
+                                       const float* x, const float* y) {
+  constexpr int NC = D / 64;
+#pragma unroll 8
+  for (int r = 0; r < BK; ++r) {
+    const float4 u = *reinterpret_cast<const float4*>(x + r * LDX);
+    const float xv[4] = {u.x, u.y, u.z, u.w};
+    float yv[4 * NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const float4 w = *reinterpret_cast<const float4*>(y + r * LD + 64 * c);
+      yv[4 * c] = w.x;
+      yv[4 * c + 1] = w.y;
+      yv[4 * c + 2] = w.z;
+      yv[4 * c + 3] = w.w;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int n = 0; n < 4 * NC; ++n)
+        acc[i][n] = fmaf(xv[i], yv[n], acc[i][n]);
+  }
+}
+
+// column j of a thread's 4 x 4 tile into X^T as one 16-byte store
+__device__ __forceinline__ void put_col(float* x_s, int LDX, int ak, int aq,
+                                        int j, const float (&c)[4]) {
+  *reinterpret_cast<float4*>(x_s + (ak + 16 * j) * LDX + 4 * aq) =
+      make_float4(c[0], c[1], c[2], c[3]);
+}
+
+// max / sum over the 16 lanes of a warp that share aq (lane % 2)
+__device__ __forceinline__ float row_max16(float x) {
+#pragma unroll
+  for (int o = 2; o < 32; o <<= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float row_sum16(float x) {
+#pragma unroll
+  for (int o = 2; o < 32; o <<= 1) x += __shfl_xor_sync(kFull, x, o);
+  return x;
+}
+
+template <int D>
+__global__ void __launch_bounds__(RowsF32Cfg<D>::NT, 1)
+flash_fwd_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
+                     float* __restrict__ lse, int Sq, int Sk, int H, int KVH,
+                     int causal, float scale) {
+  using C = RowsF32Cfg<D>;
+  constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, LDX = C::LDX;
+  constexpr int S = C::kStages, NC = D / 64;
+  extern __shared__ __align__(16) float smem_f[];
+  float* q_s = smem_f;                      // [BQ][LD]
+  float* ring = q_s + BQ * LD;              // [S]: K, V [BK][LD]
+  float* x_s = ring + S * C::kStageFloats;  // P^T [BK][LDX]
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
+  const int kvh = h / (H / KVH);
+  const int q_rows = min(BQ, Sq - q0);
+  // causal: keys past the tile's last query are never visible
+  const int n_keys = causal ? min(Sk, q0 + q_rows) : Sk;
+  const int n_tiles = (n_keys + BK - 1) / BK;
+  const size_t kv_off = ((size_t)b * Sk * KVH + kvh) * D;
+
+  // Q joins the group of tile 0
+  cp_rows_f32<D, BQ, C::NT, LD>(q_s, q + (((size_t)b * Sq + q0) * H + h) * D,
+                                (size_t)H * D, q_rows);
+#pragma unroll
+  for (int t = 0; t < S - 1; ++t) stage_kv<D>(ring, t, n_tiles, k, v, kv_off,
+                                              Sk, KVH);
+
+  const int aq = 2 * (threadIdx.x / 32) + threadIdx.x % 2;
+  const int ak = threadIdx.x % 32 / 2;
+  const float scale2 = scale * kLog2e;
+  float m[4], l[4], acc[4][4 * NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int n = 0; n < 4 * NC; ++n) acc[i][n] = 0.f;
+  }
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<S - 2>();
+    __syncthreads();  // tile it landed; tile it - 1's slot and P^T are free
+    stage_kv<D>(ring, it + S - 1, n_tiles, k, v, kv_off, Sk, KVH);
+    const float* k_t = ring + (it % S) * C::kStageFloats;
+    const int kb = it * BK;
+
+    float s[4][4];
+    dot4x4<D, LD, 16>(s, q_s + aq * LD, k_t + ak * LD);
+    // only tiles across the diagonal or past Sk need the mask
+    const bool edge = kb + BK > Sk || (causal && kb + BK - 1 > q0);
+    uint32_t kept = 0xffffu;
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int k_pos = kb + ak + 16 * j;
+          if (!(k_pos < Sk && (!causal || k_pos <= q0 + aq + 16 * i))) {
+            kept &= ~(1u << (4 * i + j));
+            s[i][j] = kNegInf;
+          }
+        }
+    }
+    float p[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float mx = row_max16(
+          fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3])));
+      const float m_new = fmaxf(m[i], mx * scale);
+      const float alpha = exp2f((m[i] - m_new) * kLog2e);
+      const float mb = m_new * kLog2e;
+      m[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        p[j][i] = (kept >> (4 * i + j)) & 1u
+                      ? exp2f(fmaf(s[i][j], scale2, -mb)) : 0.f;
+        sum += p[j][i];
+      }
+      l[i] = l[i] * alpha + sum;
+#pragma unroll
+      for (int n = 0; n < 4 * NC; ++n) acc[i][n] *= alpha;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) put_col(x_s, LDX, ak, aq, j, p[j]);
+    __syncthreads();  // P^T complete
+    outer4<D, BK, LD, LDX>(acc, x_s + 4 * aq, k_t + BK * LD + 4 * ak);
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float denom = fmaxf(row_sum16(l[i]), 1e-30f);
+    const int q_pos = q0 + aq + 16 * i;
+    if (q_pos >= Sq) continue;
+    float* o = out + (((size_t)b * Sq + q_pos) * H + h) * D + 4 * ak;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      *reinterpret_cast<float4*>(o + 64 * c) = make_float4(
+          acc[i][4 * c] / denom, acc[i][4 * c + 1] / denom,
+          acc[i][4 * c + 2] / denom, acc[i][4 * c + 3] / denom);
+    if (ak == 0) lse[((size_t)b * H + h) * Sq + q_pos] = m[i] + logf(denom);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(RowsF32Cfg<D>::NT, 1)
+flash_dq_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dq,
+                    int Sq, int Sk, int H, int KVH, int causal, float scale) {
+  using C = RowsF32Cfg<D>;
+  constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, LDX = C::LDX;
+  constexpr int S = C::kStages, NC = D / 64;
+  extern __shared__ __align__(16) float smem_f[];
+  float* q_s = smem_f;                      // [BQ][LD]
+  float* do_s = q_s + BQ * LD;              // [BQ][LD]
+  float* ring = do_s + BQ * LD;             // [S]: K, V [BK][LD]
+  float* x_s = ring + S * C::kStageFloats;  // dS^T [BK][LDX]
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
+  const int kvh = h / (H / KVH);
+  const int q_rows = min(BQ, Sq - q0);
+  const int n_keys = causal ? min(Sk, q0 + q_rows) : Sk;
+  const int n_tiles = (n_keys + BK - 1) / BK;
+  const size_t kv_off = ((size_t)b * Sk * KVH + kvh) * D;
+  const size_t q_off = (((size_t)b * Sq + q0) * H + h) * D;
+
+  // Q and dO join the group of tile 0
+  cp_rows_f32<D, BQ, C::NT, LD>(q_s, q + q_off, (size_t)H * D, q_rows);
+  cp_rows_f32<D, BQ, C::NT, LD>(do_s, dout + q_off, (size_t)H * D, q_rows);
+#pragma unroll
+  for (int t = 0; t < S - 1; ++t) stage_kv<D>(ring, t, n_tiles, k, v, kv_off,
+                                              Sk, KVH);
+
+  const int aq = 2 * (threadIdx.x / 32) + threadIdx.x % 2;
+  const int ak = threadIdx.x % 32 / 2;
+  const float scale2 = scale * kLog2e;
+  // rows past Sq: Q and dO are zero, so their ds is 0 whatever lse is
+  float lse2[4], dlt[4], acc[4][4 * NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int q_pos = q0 + aq + 16 * i;
+    const size_t row = ((size_t)b * H + h) * Sq + q_pos;
+    lse2[i] = q_pos < Sq ? lse[row] * kLog2e : 0.f;
+    dlt[i] = q_pos < Sq ? delta[row] : 0.f;
+#pragma unroll
+    for (int n = 0; n < 4 * NC; ++n) acc[i][n] = 0.f;
+  }
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<S - 2>();
+    __syncthreads();  // tile it landed; tile it - 1's slot and dS^T are free
+    stage_kv<D>(ring, it + S - 1, n_tiles, k, v, kv_off, Sk, KVH);
+    const float* k_t = ring + (it % S) * C::kStageFloats;
+    const int kb = it * BK;
+
+    float s[4][4], dp[4][4];
+    dot4x4<D, LD, 16>(s, q_s + aq * LD, k_t + ak * LD);
+    dot4x4<D, LD, 16>(dp, do_s + aq * LD, k_t + BK * LD + ak * LD);
+    const bool edge = kb + BK > Sk || (causal && kb + BK - 1 > q0);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k_pos = kb + ak + 16 * j;
+      float ds[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float p = exp2f(fmaf(s[i][j], scale2, -lse2[i]));
+        if (edge && !(k_pos < Sk && (!causal || k_pos <= q0 + aq + 16 * i)))
+          p = 0.f;
+        ds[i] = p * (dp[i][j] - dlt[i]) * scale;
+      }
+      put_col(x_s, LDX, ak, aq, j, ds);
+    }
+    __syncthreads();  // dS^T complete
+    outer4<D, BK, LD, LDX>(acc, x_s + 4 * aq, k_t + 4 * ak);
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int q_pos = q0 + aq + 16 * i;
+    if (q_pos >= Sq) continue;
+    float* o = dq + (((size_t)b * Sq + q_pos) * H + h) * D + 4 * ak;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      *reinterpret_cast<float4*>(o + 64 * c) =
+          make_float4(acc[i][4 * c], acc[i][4 * c + 1], acc[i][4 * c + 2],
+                      acc[i][4 * c + 3]);
   }
 }
 
@@ -1101,26 +1107,36 @@ cudaError_t launch_fwd_mma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_fwd_f32(const void* q, const void* k, const void* v,
+                           void* out, void* lse, int B, int Sq, int Sk, int H,
+                           int KVH, int causal, float scale,
+                           cudaStream_t stream) {
+  using C = RowsF32Cfg<D>;
+  const int tiles = (Sq + C::BQ - 1) / C::BQ;
+  if (!fits_yz(B, tiles)) return cudaErrorInvalidValue;
+  cudaError_t e = allow_smem(flash_fwd_kernel_f32<D>, C::kFwdSmemBytes);
+  if (e != cudaSuccess) return e;
+  dim3 grid(H, B, tiles);
+  flash_fwd_kernel_f32<D><<<grid, C::NT, C::kFwdSmemBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out),
+      static_cast<float*>(lse), Sq, Sk, H, KVH, causal, scale);
+  return cudaGetLastError();
+}
+
 // forward: bf16 on tensor cores, f32 on CUDA cores (no TF32)
 template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        void* out, void* lse, int B, int Sq, int Sk, int H,
                        int KVH, int causal, float scale,
                        cudaStream_t stream) {
-  if constexpr (std::is_same_v<T, bf16>) {
+  if constexpr (std::is_same_v<T, bf16>)
     return launch_fwd_mma<D>(q, k, v, out, lse, B, Sq, Sk, H, KVH, causal,
                              scale, stream);
-  } else {
-    using C = FwdCfg<D>;
-    cudaError_t e = allow_smem(flash_fwd_kernel<T, D>, C::kSmemBytes);
-    if (e != cudaSuccess) return e;
-    dim3 grid((Sq + C::BQ - 1) / C::BQ, H, B);
-    flash_fwd_kernel<T, D><<<grid, C::NT, C::kSmemBytes, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out),
-        static_cast<float*>(lse), Sq, Sk, H, KVH, causal, scale);
-    return cudaGetLastError();
-  }
+  else
+    return launch_fwd_f32<D>(q, k, v, out, lse, B, Sq, Sk, H, KVH, causal,
+                             scale, stream);
 }
 
 template <int D>
@@ -1164,27 +1180,38 @@ cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_dq_f32(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse,
+                          const void* delta, void* dq, int B, int Sq, int Sk,
+                          int H, int KVH, int causal, float scale,
+                          cudaStream_t stream) {
+  using C = RowsF32Cfg<D>;
+  const int tiles = (Sq + C::BQ - 1) / C::BQ;
+  if (!fits_yz(B, tiles)) return cudaErrorInvalidValue;
+  cudaError_t e = allow_smem(flash_dq_kernel_f32<D>, C::kDqSmemBytes);
+  if (e != cudaSuccess) return e;
+  dim3 grid(H, B, tiles);
+  flash_dq_kernel_f32<D><<<grid, C::NT, C::kDqSmemBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dq), Sq, Sk, H, KVH, causal, scale);
+  return cudaGetLastError();
+}
+
 // dq and dkv: bf16 on tensor cores, f32 on CUDA cores (no TF32)
 template <typename T, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int B, int Sq, int Sk, int H, int KVH,
                       int causal, float scale, cudaStream_t stream) {
-  if constexpr (std::is_same_v<T, bf16>) {
+  if constexpr (std::is_same_v<T, bf16>)
     return launch_dq_mma<D>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, KVH,
                             causal, scale, stream);
-  } else {
-    using C = DqCfg<D>;
-    cudaError_t e = allow_smem(flash_dq_kernel<T, D>, C::kSmemBytes);
-    if (e != cudaSuccess) return e;
-    dim3 grid((Sq + C::BQ - 1) / C::BQ, H, B);
-    flash_dq_kernel<T, D><<<grid, C::NT, C::kSmemBytes, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<T*>(dq), Sq, Sk, H, KVH, causal, scale);
-    return cudaGetLastError();
-  }
+  else
+    return launch_dq_f32<D>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, KVH,
+                            causal, scale, stream);
 }
 
 template <int D>
@@ -1240,11 +1267,13 @@ extern "C" int flash_smem_bytes(int kernel, int dtype, int D) {
     case 0:
       if (b16)
         return d64 ? FwdMmaCfg<64>::kSmemBytes : FwdMmaCfg<128>::kSmemBytes;
-      return d64 ? FwdCfg<64>::kSmemBytes : FwdCfg<128>::kSmemBytes;
+      return d64 ? RowsF32Cfg<64>::kFwdSmemBytes
+                 : RowsF32Cfg<128>::kFwdSmemBytes;
     case 1:
       if (b16)
         return d64 ? DqMmaCfg<64>::kSmemBytes : DqMmaCfg<128>::kSmemBytes;
-      return d64 ? DqCfg<64>::kSmemBytes : DqCfg<128>::kSmemBytes;
+      return d64 ? RowsF32Cfg<64>::kDqSmemBytes
+                 : RowsF32Cfg<128>::kDqSmemBytes;
     case 2:
       if (b16)
         return d64 ? DkvMmaCfg<64>::kSmemBytes : DkvMmaCfg<128>::kSmemBytes;

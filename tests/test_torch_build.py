@@ -1,10 +1,12 @@
 """The kernels' host-side bookkeeping, which runs without nvcc: the ptxas
 -v report parsed per kernel, the build log kept beside a library so a
 cached build still reports its registers and spills, the build key that
-follows the headers a source includes, and the paged kernels' split
-counts."""
+follows the headers a source includes, the paged kernels' split counts,
+and the kernel names chip_smoke.py expects, read from the sources."""
 import importlib
+import importlib.util
 import os
+import re
 
 import pytest
 import torch
@@ -13,6 +15,12 @@ from ray_tpu_torch.ops import _build
 
 rpa = importlib.import_module("ray_tpu_torch.ops.ragged_paged_attention")
 pda = importlib.import_module("ray_tpu_torch.ops.paged_attention")
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
 
 LOG = """\
 ptxas info    : 0 bytes gmem
@@ -180,3 +188,54 @@ def test_paged_decode_merge_counters(batch, heads, kv_heads, want):
     assert pda.merge_counters(batch, heads, kv_heads) == want
     tiles = -(-(heads // kv_heads) // pda._KERNEL_ROWS)
     assert want == batch * kv_heads * tiles
+
+
+def _source(lib: str) -> str:
+    with open(os.path.join(_build.CSRC, _build.SOURCES[lib])) as f:
+        return f.read()
+
+
+def _kernels_defined(lib: str) -> set:
+    return set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                          r"\s*)?(\w+)\s*\(", _source(lib)))
+
+
+@pytest.mark.parametrize("label", chip_smoke.PHASE2_KERNELS)
+def test_chip_smoke_expects_only_kernels_the_sources_define(label):
+    """Each build phase 2 requires is a kernel of one of the libraries it
+    reads, and the name of its instantiation, mangled as nvcc mangles it
+    in the anonymous namespace, parses back to the label: a stale name
+    fails here and not as a KeyError on the card."""
+    name, dtype, d, *nw = label.split()
+    defined = set().union(*(_kernels_defined(lib)
+                            for lib in chip_smoke._KERNEL_LIBS))
+    assert name in defined
+    typed = not name.endswith(("_mma", "_f32"))
+    args = (("f" if dtype == "float32" else "13__nv_bfloat16") if typed
+            else "") + f"Li{d[1:]}E" + (f"Li{nw[0][2:]}E" if nw else "")
+    mangled = f"_ZN12_GLOBAL__N_1{len(name)}{name}I{args}EEvPKf"
+    assert chip_smoke._kernel_symbol(mangled) == (
+        name, dtype, int(d[1:]), int(nw[0][2:]) if nw else None)
+
+
+def test_chip_smoke_f32_kernel_names_are_phase_2_builds():
+    """Phase 3b's F32_KERNEL and phase 2's cp.async list name kernels
+    that phase 2 requires at both head dims."""
+    built = set(chip_smoke.PHASE2_KERNELS)
+    for name in chip_smoke.F32_KERNEL.values():
+        assert {f"{name} float32 D{d}" for d in (64, 128)} <= built
+    names = {label.split()[0] for label in built}
+    assert set(chip_smoke.F32_CP_ASYNC) <= names
+
+
+@pytest.mark.parametrize("gone", [
+    "flash_fwd_kernel<", "flash_dq_kernel<", "FwdCfg", "DqCfg",
+    "stage_rows", "dot_tile", "pv_tile", "struct Elem", "group_max",
+    "group_sum"])
+def test_first_f32_forward_and_dq_kernels_are_gone(gone):
+    """The f32 forward and dq run the CUDA-core kernels built on the dkv
+    kernel's pieces; the first design's templates and the helpers only
+    they used are no longer in the source."""
+    assert gone not in _source("flash_attention")
+    assert {"flash_fwd_kernel_f32", "flash_dq_kernel_f32"} <= \
+        _kernels_defined("flash_attention")

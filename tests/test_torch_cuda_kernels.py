@@ -813,6 +813,11 @@ FLASH_LENGTHS = [
     # one row short or over), Sq < Sk and Sq > Sk
     (31, 31, False), (32, 32, True), (33, 33, True), (31, 63, True),
     (33, 65, False), (63, 33, True), (65, 31, False), (97, 129, True),
+    # the f32 forward and dq kernels' tiles: 64-query blocks, 64-key tiles
+    # through a ring of two (three tiles and more wrap it), rows 16 apart
+    # per thread; one row short of and over a tile, Sq < Sk and Sq > Sk
+    (63, 127, True), (65, 193, False), (127, 65, True), (193, 191, True),
+    (128, 256, False), (191, 129, False),
 ]
 
 
@@ -823,8 +828,8 @@ FLASH_LENGTHS = [
 def test_flash_kernels_match_plain_versions(cuda, dtype, d, groups, sq, sk,
                                             causal):
     """Forward (out, lse), dq and dkv on ragged lengths and on every tile
-    edge of the bf16 tensor-core dq/dkv kernels and of the f32 dkv
-    kernel, GQA 1 to 8, both head dims and dtypes."""
+    edge of the bf16 tensor-core dq/dkv kernels and of the f32 forward,
+    dq and dkv kernels, GQA 1 to 8, both head dims and dtypes."""
     q, k, v, dout = _flash_case(2, sq, sk, 2 * groups, 2, d, dtype, cuda)
     scale = d ** -0.5
     out, lse = flash_fwd_kernel(q, k, v, causal, scale)
@@ -843,14 +848,15 @@ def test_flash_kernels_match_plain_versions(cuda, dtype, d, groups, sq, sk,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_backward_kernels_are_deterministic(cuda, dtype):
-    """Two launches of dq and of dkv on the same inputs give bitwise-equal
-    dq, dk and dv: each output element is summed by one thread in a fixed
-    order (no atomics)."""
+    """Two launches of the forward, of dq and of dkv on the same inputs
+    give bitwise-equal out, lse, dq, dk and dv: each output element is
+    summed by one thread in a fixed order (no atomics)."""
     q, k, v, dout = _flash_case(2, 300, 300, 16, 4, 128, dtype, cuda, seed=3)
     scale = 128 ** -0.5
     out, lse = flash_fwd_kernel(q, k, v, True, scale)
     delta = delta_rows(out, dout)
-    runs = [(flash_dq_kernel(q, k, v, dout, lse, delta, True, scale),
+    runs = [(*flash_fwd_kernel(q, k, v, True, scale),
+             flash_dq_kernel(q, k, v, dout, lse, delta, True, scale),
              *flash_dkv_kernel(q, k, v, dout, lse, delta, True, scale))
             for _ in range(2)]
     torch.cuda.synchronize()
