@@ -41,9 +41,13 @@ and prints no result line):
    outputs, the dispatch counters, the launches by family and every
    page from 1 up must equal the captured run's, bit for bit. Prints
    both runs' tokens/s and TTFT, the warmup seconds, the number of
-   captured programs and the seconds per capture.
-5. agreement: a small f32 model served on the card (kernel) and on the
-   CPU (plain version) gives identical greedy tokens.
+   captured programs and the seconds per capture, and profile_summary()
+   after estimate_flops() (each estimate must match the analytic matmul
+   count within 1%; its MFU leaves attention out).
+5. agreement: a small f32 model (2 layers, dim 256, head_dim 128), dense
+   and as a 4-expert top-2 MoE, served on the card (kernel) and on the
+   CPU (plain version) gives identical greedy tokens, logprobs within
+   1e-4.
 3b. flash: the training path's three kernels (flash forward, dq, dkv)
    against their plain versions on the card at Llama-3-8B attention
    shapes (B 2, S 4096, H 32, KVH 8, D 128, causal) in bf16 and f32,
@@ -65,11 +69,13 @@ and prints no result line):
    are reset just before and read just after: every step launches the
    forward, dq and dkv kernels exactly once per layer, the serve kernel
    never. Losses finite, the last below the first.
-7. train agreement: a small f32 model (head_dim 128, GQA 2) trained for
-   2 steps on the card (kernels) and on the CPU (plain versions):
-   losses and every gradient agree. The f32 forward, dq and dkv kernels'
-   launch counts are reset just before and read just after; each must
-   have launched.
+7. train agreement: phase 5's small f32 models (head_dim 128, GQA 2),
+   dense and MoE, each trained for 2 steps on the card (kernels) and on
+   the CPU (plain versions): losses, MoE aux losses, logits and every
+   gradient agree (the MoE model's second step starts from the CPU's
+   parameters on both sides: train_agreement says why). The f32
+   forward, dq and dkv kernels' launch counts are reset just before and
+   read just after; each must have launched.
 3c. paged decode: the decode-only kernel (split-KV over runs of 8 pages,
    the merge in the last block to finish) on its own entry point
    paged_decode_attention, whose path no model runs. The launch count is
@@ -95,24 +101,29 @@ and prints no result line):
    8 prompts, then its engine generates phase 4's requests. Launch counts
    are reset just before and read just after: the flash forward kernel
    runs once per layer per prefill, the paged kernels never.
-4c. server: the dense engine freed, LLMServer (the in-process serving
-   surface) over phase 4's paged engine settings at full Llama-3-8B width
-   (32 layers, bf16, seeded weights), after a first burst of the mix
-   from seed 1 (its engine thread captures the keys warmup left out),
-   answers phase 4's 11 requests (seed 2) sent by 11 threads at once
-   through completions, then the greedy one again through
-   completions_stream; the engine dispatches captured programs. The
-   ragged kernel's launch count is reset just before and read just
-   after and must be above 0. Fails on a badly shaped response, a
-   stream that differs from the greedy request's tokens in the burst,
-   rtpu_llm_requests_total != 12, rtpu_llm_tokens_generated_total !=
-   the engine's tokens_out, a TTFT histogram count != 12, an engine
-   thread error or a failed check_health. Prints wall time, tokens/s,
+4c. server: the dense engine freed, the OpenAI app
+   (build_openai_app: the router over one LLMServer) under
+   serve.run(..., local_testing_mode=True), over phase 4's paged engine
+   settings at full Llama-3-8B width (32 layers, bf16, seeded weights).
+   After one v1_models call and a first burst of the mix from seed 1
+   (its engine thread captures the keys warmup left out), the ingress
+   handle answers phase 4's 11 requests (seed 2) sent by 11 threads at
+   once through v1_completions beside one v1_chat_completions request,
+   then the greedy one again through v1_completions with stream=True
+   (SSE lines); the engine dispatches captured programs. The ragged
+   kernel's launch count is reset just before and read just after and
+   must be above 0. Fails on a badly shaped response or v1_models, a
+   stream that differs from the greedy request's tokens in the burst or
+   does not end in "data: [DONE]", a chat answer that differs from
+   v1_completions on its templated prompt, rtpu_llm_requests_total !=
+   13, rtpu_llm_tokens_generated_total != the engine's tokens_out, a
+   TTFT histogram count != 13, an engine thread error or a failed
+   check_health. Prints wall time, tokens/s,
    TTFT / inter-token / queue-wait figures from the port's histograms,
    and profile_summary() after estimate_flops() (its MFU counts the
    matmuls only: the FLOP counter cannot see the ragged kernel; each
    estimate must match the analytic matmul count within 1%). Stops the
-   engine thread.
+   engine thread of the replica, reached through the app.
 4d. tenants and KV mobility: the server freed, PagedInferenceEngine at
    full Llama-3-8B width (32 layers, bf16, seed-0 weights) with a slot
    table (3 adapters of rank 8 on wq/wk/wv/wo/lm_head from seeds 1-3,
@@ -134,11 +145,21 @@ and prints no result line):
    ms per demoted and promoted page, ms for one import_prefill, the
    merged-weights agreement (not held: bf16 merge-then-cast is not the
    f32 delta) and B1 launches by family.
+4e. MoE serve: the tenants' engine freed, phase 4 (captured programs,
+   two passes and two verify dispatches, then an eager engine on the same
+   weights and mixes: tokens, logprobs, counters, B1 launches by family
+   and pages equal bit for bit) on llama3_8b(moe_experts=8, moe_top_k=2)
+   — Mixtral-8x7B's widths, experts and routing — with the depth cut to
+   8 of 32 layers (32 are 45B parameters, ~90 GB of bf16), bf16, seeded
+   weights, phase 4's engine settings and request mix. Prints phase 4's
+   figures; its MFU counts every dispatched expert slot (E x C per call,
+   FlopCounterMode), not the routed tokens.
 5b. dense agreement: phase 5's small f32 model through InferenceEngine on
    the card and on the CPU gives identical greedy tokens; the f32
    forward kernel's launches are counted as in phase 7.
 
-Phases run in the order 1, 2, 3, 3c, 3b, 4, 4b, 4c, 4d, 5, 5b, 6, 7. The
+Phases run in the order 1, 2, 3, 3c, 3b, 4, 4b, 4c, 4d, 4e, 5, 5b, 6, 7.
+The
 second-to-last line is the card from nvidia-smi, the one before it the
 kernels' JSON record, and the last line {"ok": true, "device": ...}.
 
@@ -723,6 +744,12 @@ PHASE2_KERNELS = (
     + [f"pda_kernel {t} D{d}" for t in ("float32", "bfloat16")
        for d in (64, 128)])
 TRAIN_LAYERS = 8        # of Llama-3-8B's 32: AdamW state must fit in 80 GB
+# phase 4e: Mixtral-8x7B's expert count and routing on llama3_8b, which
+# has every other Mixtral width (dim 4096, 32/8 heads, FFN 14336)
+MOE_8X7B = dict(moe_experts=8, moe_top_k=2)
+MOE_LAYERS = 8
+MOE_DEPTH_CUT = ("8 of 32 layers: 32 layers of this config are 45B "
+                 "parameters, ~90 GB in bf16, more than the card's 80 GB")
 # EngineConfig's prefill buckets at phase 4b's max_seq_len 1024
 SERVE_BUCKETS = (32, 64, 128, 256, 512, 1024)
 
@@ -1067,8 +1094,10 @@ def serve(model_cfg, device, seed: int = 0, **engine_kw) -> dict:
     with eager bodies on the same weights and mixes. Each request's tokens
     and logprobs, the verify outputs, the dispatch counters, the ragged
     kernel's launches by family and every page from 1 up must be equal
-    (bitwise). Returns the captured run's launches and both runs'
-    serving figures."""
+    (bitwise). Returns the captured run's launches, both runs' serving
+    figures and the captured engine's profile_summary() after
+    estimate_flops() (each estimate held to the analytic matmul count,
+    ``_matmul_flops``, within 1%). Phase 4e runs it on an MoE config."""
     from ray_tpu_torch.llm import PagedEngineConfig
     from ray_tpu_torch.models import llama
 
@@ -1118,8 +1147,10 @@ def serve(model_cfg, device, seed: int = 0, **engine_kw) -> dict:
         if not (torch.equal(a["k"][1:], b["k"][1:])
                 and torch.equal(a["v"][1:], b["v"][1:])):
             raise AssertionError("pages differ between captured and eager")
-    if torch.device(device).type == "cuda" and cf["programs"] <= 0:
+    cuda = torch.device(device).type == "cuda"
+    if cuda and cf["programs"] <= 0:
         raise AssertionError("the captured engine captured nothing")
+    prof = _check_flops(ce, model_cfg, cuda)
     return {"launches": cf["launches"],
             "launches_by_family": cf["launches_by_family"],
             "prompt_tokens": sum(len(p) for p in cap["prompts"]),
@@ -1128,22 +1159,41 @@ def serve(model_cfg, device, seed: int = 0, **engine_kw) -> dict:
                             "spec_dispatches")},
             "prefix_hits": ce.stats["prefix_hits"],
             "captured": cf, "eager": ef,
+            "profile": {k: prof[k] for k in (
+                "compiles", "steps", "steps_by_kind", "step_wall_s",
+                "flops_per_step", "mfu")},
+            "mfu_counts": (("matmuls only (the FLOP counter cannot see the "
+                            "ragged attention kernel)" if cuda else
+                            "matmuls and the plain attention")
+                           + ("; MoE layers count every dispatched expert "
+                              "slot (E x C per call, FlopCounterMode), not "
+                              "the routed tokens" if model_cfg.moe_experts
+                              else "")),
             "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
-                             if torch.device(device).type == "cuda"
-                             else None)}
+                             if cuda else None)}
 
 
 # -- phase 5: small-input agreement ----------------------------------------
 
-def agreement():
-    """The same small f32 model (head_dim 128, GQA 2) served through the
-    kernel on the card and the plain version on the CPU: greedy tokens
-    identical, logprobs within 1e-4."""
+def _small_model(**kw):
+    """Phases 5, 5b and 7's small f32 model: 2 layers, dim 256, head_dim
+    128, GQA 2 (``MOE_SMALL`` makes it the 4-expert top-2 MoE form)."""
+    from ray_tpu_torch.models import llama
+    return llama.llama_tiny(vocab_size=512, dim=256, n_heads=2, n_kv_heads=1,
+                            mlp_dim=512, n_layers=2, max_seq_len=1024, **kw)
+
+
+#: phases 5 and 7's MoE form of the small model
+MOE_SMALL = dict(moe_experts=4, moe_top_k=2)
+
+
+def agreement(mc):
+    """The same small f32 model (``_small_model``, dense or MoE) served
+    through the kernel on the card and the plain version on the CPU:
+    greedy tokens identical, logprobs within 1e-4."""
     from ray_tpu_torch.llm import (PagedEngineConfig, PagedInferenceEngine,
                                    SamplingParams)
     from ray_tpu_torch.models import llama
-    mc = llama.llama_tiny(vocab_size=512, dim=256, n_heads=2, n_kv_heads=1,
-                          mlp_dim=512, n_layers=2, max_seq_len=1024)
     cpu_params = llama.init(mc, seed=3, device="cpu")
     gpu_params = {k: ({n: t.cuda() for n, t in v.items()}
                       if isinstance(v, dict) else v.cuda())
@@ -1164,8 +1214,9 @@ def agreement():
             raise AssertionError(f"card {x['token_ids']} != "
                                  f"cpu {y['token_ids']}")
         np.testing.assert_allclose(x["logprobs"], y["logprobs"], atol=1e-4)
-    print(f"agreement: {len(prompts)} prompts, greedy tokens identical "
-          f"card vs CPU", flush=True)
+    print(f"agreement ({'MoE ' if mc.moe_experts else ''}"
+          f"{mc.n_layers} layers): {len(prompts)} prompts, greedy tokens "
+          f"identical card vs CPU", flush=True)
 
 
 # -- phase 4b: the dense-slot engine at full width --------------------------
@@ -1254,20 +1305,47 @@ def dense_serve(model_cfg, device, seed: int = 0, **engine_kw) -> dict:
 def _matmul_flops(mc, kind: str, key: tuple, batch: int, chunk: int) -> int:
     """2 x (matmul weights) x tokens of one dispatch at a profiler key,
     plus the lm_head over the rows that reach it: the FLOPs a counter
-    sees when attention is a kernel it cannot see."""
-    per_tok = 2 * (mc.dim * mc.n_heads * mc.head_dim
-                   + 2 * mc.dim * mc.n_kv_heads * mc.head_dim
-                   + mc.n_heads * mc.head_dim * mc.dim
-                   + 3 * mc.dim * mc.mlp_dim)
-    head = 2 * mc.dim * mc.vocab_size
+    sees when attention is a kernel it cannot see. An MoE layer over T
+    tokens in one call counts its router, the dispatch and combine
+    products and the three expert products over all E x C slots
+    (C = max(1, int(capacity * k * T / E))), empty slots included."""
+    d, F = mc.dim, mc.mlp_dim
+    attn = 2 * (d * mc.n_heads * mc.head_dim
+                + 2 * d * mc.n_kv_heads * mc.head_dim
+                + mc.n_heads * mc.head_dim * d)
+    head = 2 * d * mc.vocab_size
+
+    def layers(t):                     # every layer, t tokens in one call
+        if not mc.moe_experts:
+            return mc.n_layers * t * (attn + 2 * 3 * d * F)
+        e = mc.moe_experts
+        slots = e * max(1, int(mc.moe_capacity * mc.moe_top_k * t / e))
+        return mc.n_layers * (t * attn + 2 * t * d * e
+                              + 2 * 2 * t * slots * d
+                              + 3 * 2 * slots * d * F)
     if kind == "decode":
         w = key[0]
-        return w * batch * (mc.n_layers * per_tok + head)
+        return w * (layers(batch) + batch * head)
     if kind == "prefill":
         rows = key[0]
-        return rows * (chunk * mc.n_layers * per_tok + head)
+        return rows * (layers(chunk) + head)
     rows, s1 = key[0], key[1]                          # verify
-    return rows * s1 * (mc.n_layers * per_tok + head)
+    return rows * (layers(s1) + s1 * head)
+
+
+def _check_flops(eng, model_cfg, cuda: bool) -> dict:
+    """estimate_flops() against the analytic matmul count, key by key;
+    then profile_summary()."""
+    for kind, keys in eng.estimate_flops().items():
+        for key, fl in keys.items():
+            want = _matmul_flops(model_cfg, kind, key, eng.cfg.max_batch_size,
+                                 eng.cfg.chunk_size)
+            # on the card attention is invisible to the counter: the
+            # matmuls alone; on the CPU the plain attention adds to them
+            if fl < 0.99 * want or (cuda and fl > 1.01 * want):
+                raise AssertionError(f"{kind} {key}: counted {fl:.4g} "
+                                     f"FLOPs, matmuls {want:.4g}")
+    return eng.profile_summary()
 
 
 def _hist(store: dict, name: str) -> dict:
@@ -1291,32 +1369,43 @@ def _hist(store: dict, name: str) -> dict:
 
 
 def llm_server(model_cfg, device, seed: int = 0, **engine_kw) -> dict:
-    """Phase 4c (also rehearsed on the CPU at tiny size): LLMServer over
-    the paged engine (seeded weights), after a first burst of phase 4's
-    requests from mix seed 1, answers phase 4's requests from mix seed 2
-    sent by 11 threads at once through ``completions``, then
-    the first (greedy) prompt once more through ``completions_stream``.
+    """Phase 4c (also rehearsed on the CPU at tiny size): the OpenAI app
+    (``build_openai_app``: the router over one LLMServer on the paged
+    engine, seeded weights) under ``serve.run(..., local_testing_mode=
+    True)``. After a first burst of phase 4's requests from mix seed 1,
+    the ingress handle's ``v1_completions`` answers phase 4's requests
+    from mix seed 2 sent by 11 threads at once, beside one
+    ``v1_chat_completions`` request; then the first (greedy) prompt once
+    more through ``v1_completions`` with ``stream=True`` (SSE lines).
     Checks each response's shape, the stream against the greedy
     request's tokens in the burst (B1's split boundaries do not depend
-    on the batch), the rtpu_llm_* series against the engine's counters,
-    the launches and the engine thread's health; then estimate_flops
-    and profile_summary (MFU without attention: the counter cannot see
-    the ragged kernel). On the card the engine dispatches captured
-    programs: warmup captures the greedy, sampled and top-k modes, and
-    the engine thread captures any other key at its first dispatch while
-    the request threads wait. Stops the engine thread."""
+    on the batch), the chat answer against ``v1_completions`` on its
+    templated prompt, ``v1_models``, the rtpu_llm_* series against the
+    engine's counters, the launches and the engine thread's health; then
+    estimate_flops and profile_summary (MFU without attention: the
+    counter cannot see the ragged kernel). On the card the engine
+    dispatches captured programs: warmup captures the greedy, sampled
+    and top-k modes, and the engine thread captures any other key at its
+    first dispatch while the request threads wait. Stops the engine
+    thread of the replica it reaches through the app."""
     import threading
-    from ray_tpu_torch.llm import LLMConfig, LLMServer, PagedEngineConfig
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm import (LLMConfig, PagedEngineConfig,
+                                   apply_chat_template, build_openai_app)
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.ops.ragged_paged_attention import \
         ragged_paged_attention as rpa
     from ray_tpu_torch.util import metrics
     cuda = torch.device(device).type == "cuda"
+    model_id = "llama3-8b"
     t0 = time.perf_counter()
     params = llama.init(model_cfg, seed=seed, device=device)
-    cfg = LLMConfig(model_id="llama3-8b", warmup_sampled=True,
+    cfg = LLMConfig(model_id=model_id, warmup_sampled=True,
                     engine=PagedEngineConfig(model=model_cfg, **engine_kw))
-    srv = LLMServer(cfg, params_ref=params, device=device)
+    router = serve.run(build_openai_app([cfg], params_refs=[params],
+                                        device=device),
+                       name="phase-4c", local_testing_mode=True)
+    srv = router._instance._handles[model_id]._instance   # the replica
     setup_s = time.perf_counter() - t0
     eng = srv.engine
     served = []                       # (prompt ids, out ids) per response
@@ -1342,23 +1431,32 @@ def llm_server(model_cfg, device, seed: int = 0, **engine_kw) -> dict:
         step: the last step's telemetry (shipped at its end) is in."""
         while eng.has_work() or stepping[0]:
             time.sleep(0.001)
+
     def bodies_of(mix_seed):
         ps, ss = _requests(model_cfg.vocab_size, seed=mix_seed)
-        return ps, ss, [{"prompt": p, "max_tokens": sp.max_tokens,
+        return ps, ss, [{"model": model_id, "prompt": p,
+                         "max_tokens": sp.max_tokens,
                          "temperature": sp.temperature, "top_k": sp.top_k,
                          "logprobs": sp.logprobs} for p, sp in zip(ps, ss)]
 
-    def burst(bodies):
-        """Each body from its own thread, all at once."""
-        out, errors = [None] * len(bodies), []
+    chat = {"model": model_id, "max_tokens": 16, "messages": [
+        {"role": "system", "content": "answer in one line"},
+        {"role": "user", "content": "what does a paged KV cache hold?"}]}
+
+    def burst(calls):
+        """Each (route, body) from its own thread, all at once, through
+        the ingress handle."""
+        out, errors = [None] * len(calls), []
 
         def call(i):
+            route, body = calls[i]
             try:
-                out[i] = srv.completions(dict(bodies[i]))
+                out[i] = getattr(router, route).remote(dict(body)).result(
+                    timeout_s=600)
             except BaseException as e:  # noqa: BLE001 — re-raised below
                 errors.append(e)
         threads = [threading.Thread(target=call, args=(i,))
-                   for i in range(len(bodies))]
+                   for i in range(len(calls))]
         for t in threads:
             t.start()
         for t in threads:
@@ -1369,10 +1467,11 @@ def llm_server(model_cfg, device, seed: int = 0, **engine_kw) -> dict:
 
     prompts, sps, bodies = bodies_of(2)
     try:
+        models = router.v1_models.remote().result(timeout_s=60)
         # a first burst (mix seed 1) makes the engine thread capture the
         # keys warmup left out (logprob modes), as a server's first
         # traffic would; the phase's burst then replays only
-        burst(bodies_of(1)[2])
+        burst([("v1_completions", b) for b in bodies_of(1)[2]])
         quiesce()
         warm_programs = len(eng._graphs) if eng._graphs is not None else 0
         served.clear()
@@ -1380,15 +1479,24 @@ def llm_server(model_cfg, device, seed: int = 0, **engine_kw) -> dict:
         metrics._reset_registry()
         rpa.launches = 0                   # main path starts here
         t1 = time.perf_counter()
-        resps = burst(bodies)
-        greedy_body = {"prompt": prompts[0],
-                       "max_tokens": sps[0].max_tokens}
-        chunks = list(srv.completions_stream(dict(greedy_body)))
+        resps = burst([("v1_completions", b) for b in bodies]
+                      + [("v1_chat_completions", chat)])
+        resps, chat_resp = resps[:-1], resps[-1]
+        greedy_body = {"model": model_id, "prompt": prompts[0],
+                       "max_tokens": sps[0].max_tokens, "stream": True}
+        lines = list(router.options(method_name="v1_completions",
+                                    stream=True).remote(greedy_body))
         wall_s = time.perf_counter() - t1
         launches = rpa.launches            # main path ends here
         quiesce()
         store = metrics.collect_store()
         tokens_out = eng.stats["tokens_out"] - tokens0
+        n_out = sum(len(out) for _, out in served)
+        # the chat answer against v1_completions on its templated prompt
+        templated = router.v1_completions.remote({
+            "model": model_id, "prompt": apply_chat_template(
+                chat["messages"]),
+            "max_tokens": chat["max_tokens"]}).result(timeout_s=600)
         srv.check_health()
         if srv._error is not None:
             raise AssertionError(f"engine thread error: {srv._error!r}")
@@ -1396,13 +1504,18 @@ def llm_server(model_cfg, device, seed: int = 0, **engine_kw) -> dict:
         srv._stop = True
         srv._wake.set()
         srv._thread.join(timeout=120)
+        serve.delete("phase-4c")
     if srv._thread.is_alive():
         raise AssertionError("engine thread did not stop")
+    if models != {"object": "list", "data": [
+            {"id": model_id, "object": "model", "owned_by": "ray_tpu"}]}:
+        raise AssertionError(f"bad v1_models: {models}")
     vocab = model_cfg.vocab_size
     for body, r in zip(bodies, resps):
         ch = r["choices"][0]
         usage = r["usage"]
-        if r["object"] != "text_completion" or r["model"] != "llama3-8b" \
+        if r["object"] != "text_completion" or r["model"] != model_id \
+                or not r["id"].startswith("cmpl-") \
                 or set(ch) - {"text", "finish_reason", "index", "logprobs"} \
                 or usage["prompt_tokens"] != len(body["prompt"]) \
                 or not 1 <= usage["completion_tokens"] <= body["max_tokens"] \
@@ -1415,14 +1528,26 @@ def llm_server(model_cfg, device, seed: int = 0, **engine_kw) -> dict:
                 raise AssertionError(f"bad logprobs: {lp}")
         elif "logprobs" in ch:
             raise AssertionError(f"unasked logprobs: {r}")
+    ch = chat_resp["choices"][0]
+    if chat_resp["object"] != "chat.completion" or \
+            not chat_resp["id"].startswith("chatcmpl-") or \
+            ch["message"]["role"] != "assistant" or \
+            ch["message"]["content"] != templated["choices"][0]["text"] or \
+            ch["finish_reason"] != templated["choices"][0]["finish_reason"] \
+            or chat_resp["usage"] != templated["usage"]:
+        raise AssertionError(f"chat {chat_resp} != completions on its "
+                             f"templated prompt {templated}")
     # the burst's greedy request (served first of the two) and the stream
+    if lines[-1] != "data: [DONE]\n\n":
+        raise AssertionError(f"stream ends in {lines[-1]!r}")
+    chunks = [json.loads(ln[len("data: "):]) for ln in lines[:-1]]
     greedy = [out for p, out in served if p == prompts[0]]
-    burst = resps[0]["choices"][0]
+    first = resps[0]["choices"][0]
     text = "".join(c["choices"][0]["text"] for c in chunks)
     if len(greedy) != 2 or greedy[0] != greedy[1] or \
-            text != burst["text"] or \
+            text != first["text"] or \
             chunks[-1]["choices"][0]["finish_reason"] != \
-            burst["finish_reason"]:
+            first["finish_reason"]:
         raise AssertionError(f"stream differs from the burst's greedy "
                              f"request: {greedy}")
     if not all(0 <= t < vocab for _, out in served for t in out):
@@ -1431,26 +1556,19 @@ def llm_server(model_cfg, device, seed: int = 0, **engine_kw) -> dict:
     generated = sum(store["rtpu_llm_tokens_generated_total"]["series"]
                     .values())
     ttft = _hist(store, "rtpu_llm_ttft_seconds")
-    if requests != 12 or generated != tokens_out or ttft["count"] != 12:
+    n_req = len(bodies) + 2
+    if requests != n_req or generated != tokens_out or \
+            ttft["count"] != n_req:
         raise AssertionError(f"telemetry: {requests} requests, {generated} "
                              f"tokens (engine {tokens_out}), "
-                             f"{ttft['count']} TTFT observations")
+                             f"{ttft['count']} TTFT observations, want "
+                             f"{n_req} requests")
     if cuda and launches <= 0:
         raise AssertionError("the ragged kernel never launched")
-    est = eng.estimate_flops()
-    for kind, keys in est.items():
-        for key, fl in keys.items():
-            want = _matmul_flops(model_cfg, kind, key, eng.cfg.max_batch_size,
-                                 eng.cfg.chunk_size)
-            # on the card attention is invisible to the counter: the
-            # matmuls alone; on the CPU the plain attention adds to them
-            if fl < 0.99 * want or (cuda and fl > 1.01 * want):
-                raise AssertionError(f"{kind} {key}: counted {fl:.4g} "
-                                     f"FLOPs, matmuls {want:.4g}")
-    prof = eng.profile_summary()
-    n_out = sum(len(out) for _, out in served)
+    prof = _check_flops(eng, model_cfg, cuda)
     graphs = eng._graphs
     return {"setup_s": setup_s, "wall_s": wall_s, "tokens_out": n_out,
+            "requests": n_req,
             "programs_after_first_burst": warm_programs,
             "programs": len(graphs) if graphs is not None else 0,
             "capture_s_mean": (statistics.mean(graphs.capture_s)
@@ -1858,8 +1976,7 @@ def dense_agreement() -> dict:
     flash kernels' launches in the card's run."""
     from ray_tpu_torch.llm import EngineConfig, InferenceEngine, SamplingParams
     from ray_tpu_torch.models import llama
-    mc = llama.llama_tiny(vocab_size=512, dim=256, n_heads=2, n_kv_heads=1,
-                          mlp_dim=512, n_layers=2, max_seq_len=1024)
+    mc = _small_model()
     cpu_params = llama.init(mc, seed=3, device="cpu")
     gpu_params = {k: ({n: t.cuda() for n, t in v.items()}
                       if isinstance(v, dict) else v.cuda())
@@ -1914,8 +2031,10 @@ def _reset_launch_counts():
 
 
 def _train_step_fn(params, cfg, tokens):
-    """The counterpart of bench.py's train step: loss, backward, AdamW
-    (lr 3e-4, no weight decay; its moments keep the params' dtype)."""
+    """The counterpart of bench.py's train step: loss = cross-entropy +
+    moe_aux_weight * aux (aux 0 for dense configs), backward, AdamW (lr
+    3e-4, no weight decay; its moments keep the params' dtype). A step
+    returns (loss, logits, aux), detached."""
     from ray_tpu_torch.models import llama
     leaves = _leaves(params)
     for t in leaves:
@@ -1924,11 +2043,13 @@ def _train_step_fn(params, cfg, tokens):
 
     def step():
         opt.zero_grad(set_to_none=True)
-        loss = llama.cross_entropy_loss(
-            llama.apply(params, tokens[:, :-1], cfg), tokens[:, 1:])
+        logits, aux = llama.apply_with_aux(params, tokens[:, :-1], cfg)
+        loss = llama.cross_entropy_loss(logits, tokens[:, 1:])
+        if cfg.moe_experts:
+            loss = loss + cfg.moe_aux_weight * aux
         loss.backward()
         opt.step()
-        return loss.detach()
+        return loss.detach(), logits.detach(), aux.detach()
     return step
 
 
@@ -1954,7 +2075,7 @@ def train(model_cfg, device, batch: int, seq: int, steps: int = 5,
     for i in range(1 + steps):
         before = _launch_counts()
         t0 = time.perf_counter()
-        losses.append(float(step()))
+        losses.append(float(step()[0]))
         sync()
         if i:
             step_s.append(time.perf_counter() - t0)
@@ -1990,22 +2111,24 @@ def train(model_cfg, device, batch: int, seq: int, steps: int = 5,
 
 # -- phase 7: training agreement --------------------------------------------
 
-def train_agreement() -> dict:
-    """The same small f32 model (head_dim 128, GQA 2, remat save_attn)
-    trained for 2 steps on the card (the f32 flash kernels) and on the CPU
-    (plain versions): each step's loss within 1e-5, and every gradient
-    within |card - cpu| <= 1e-4 * max|cpu| + 1e-3 * |cpu| (f32 sums in
-    other orders; the second step also starts from parameters that AdamW
-    moved by about +-lr wherever a gradient is near 0). Returns the flash
-    kernels' launches in the card's run."""
+def train_agreement(mc) -> dict:
+    """The same small f32 model (``_small_model`` with remat save_attn,
+    dense or MoE) trained for 2 steps on the card (the f32 flash kernels)
+    and on the CPU (plain versions): each step's loss and MoE aux within
+    1e-5, and its logits and every gradient within |card - cpu| <= 1e-4 *
+    max|cpu| + 1e-3 * |cpu| (f32 sums in other orders). The dense
+    model's second step starts from the parameters each side's AdamW
+    made, which differ by about +-lr wherever a gradient is near 0. The
+    MoE model's second step starts from the CPU's parameters on both
+    sides (copied onto the card): there, those moved parameters alone
+    put step 1's gradients past the rule while every step-0 gradient
+    agrees to a few 1e-6 of its max (``tools/moe_card_probes.py train``
+    prints both), so the step is held to the CPU's at the same
+    parameters. Returns the flash kernels' launches in the card's run."""
     from ray_tpu_torch.models import llama
-    mc = llama.llama_tiny(vocab_size=512, dim=256, n_heads=2, n_kv_heads=1,
-                          mlp_dim=512, n_layers=2, max_seq_len=1024,
-                          remat=True, remat_policy="save_attn")
     rng = np.random.RandomState(11)
     tok = rng.randint(0, mc.vocab_size, (2, 161))
-    runs = {}
-    _reset_launch_counts()
+    sides = {}
     for device in ("cuda", "cpu"):
         params = llama.init(mc, seed=5, device="cpu")
         if device == "cuda":
@@ -2013,29 +2136,42 @@ def train_agreement() -> dict:
                           if isinstance(v, dict) else v.cuda())
                       for k, v in params.items()}
         tokens = torch.as_tensor(tok, dtype=torch.int64, device=device)
-        step = _train_step_fn(params, mc, tokens)
-        leaves = _leaves(params)
-        losses, grads = [], []
-        for _ in range(2):
-            losses.append(float(step()))
-            grads.append([t.grad.detach().cpu() for t in leaves])
-        runs[device] = (losses, grads)
+        sides[device] = (_train_step_fn(params, mc, tokens), _leaves(params))
+    runs = {device: ([], [], []) for device in sides}
+    _reset_launch_counts()
+    for s in range(2):
+        if s and mc.moe_experts:
+            with torch.no_grad():
+                for a, b in zip(sides["cuda"][1], sides["cpu"][1]):
+                    a.copy_(b)
+        for device, (step, leaves) in sides.items():
+            losses, auxes, tensors = runs[device]
+            loss, logits, aux = step()
+            losses.append(float(loss))
+            auxes.append(float(aux))
+            tensors.append([logits.cpu()]
+                           + [t.grad.detach().cpu() for t in leaves])
     launches = _flash_launches("train agreement",
                                ("flash_fwd", "flash_dq", "flash_dkv"))
-    (lc, gc), (lp, gp) = runs["cuda"], runs["cpu"]
+    (lc, ac, tc), (lp, ap, tp) = runs["cuda"], runs["cpu"]
     np.testing.assert_allclose(lc, lp, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(ac, ap, atol=1e-5, rtol=0)
+    if mc.moe_experts and not all(a > 0 for a in ap):
+        raise AssertionError(f"MoE aux losses {ap}")
     worst = 0.0
-    for s, (a_list, b_list) in enumerate(zip(gc, gp)):
-        for a, b in zip(a_list, b_list):
+    for s, (a_list, b_list) in enumerate(zip(tc, tp)):
+        for i, (a, b) in enumerate(zip(a_list, b_list)):
             err = (a - b).abs()
             bound = 1e-4 * float(b.abs().max()) + 1e-3 * b.abs()
             if (err > bound).any():
-                raise AssertionError(f"step {s}: gradient off by "
-                                     f"{float(err.max()):.3g}")
+                raise AssertionError(f"step {s}: "
+                                     f"{'logits' if i == 0 else 'gradient'} "
+                                     f"off by {float(err.max()):.3g}")
             worst = max(worst, float((err / (b.abs().max() + 1e-30)).max()))
-    print(f"train agreement: losses card {lc} cpu {lp}; worst gradient "
-          f"error {worst:.3g} of its tensor's max; launches {launches}",
-          flush=True)
+    print(f"train agreement ({'MoE ' if mc.moe_experts else ''}"
+          f"{mc.n_layers} layers): losses card {lc} cpu {lp}; aux card "
+          f"{ac} cpu {ap}; worst logits or gradient error {worst:.3g} of "
+          f"its tensor's max; launches {launches}", flush=True)
     return launches
 
 
@@ -2518,12 +2654,26 @@ def main():
         raise AssertionError("the ragged kernel never launched in 4d")
     gc.collect()
     torch.cuda.empty_cache()
-    agreement()
+    moe = serve(llama.llama3_8b(n_layers=MOE_LAYERS, **MOE_8X7B), "cuda",
+                page_size=16, num_pages=1024, max_pages_per_seq=64,
+                chunk_size=128, prefill_rows=4, decode_window=8,
+                max_batch_size=8)
+    moe["depth"] = MOE_DEPTH_CUT
+    print("moe serve: " + json.dumps(moe), flush=True)
+    for name, n in moe["launches_by_family"].items():
+        if n <= 0:
+            raise AssertionError(f"kernel never launched in 4e {name}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    agreement(_small_model())
+    agreement(_small_model(**MOE_SMALL))
     dense_f32 = dense_agreement()
     tr = train(llama.llama3_8b(n_layers=TRAIN_LAYERS), "cuda",
                batch=2, seq=4096)
     print("train: " + json.dumps(tr), flush=True)
-    train_f32 = train_agreement()
+    remat = dict(remat=True, remat_policy="save_attn")
+    train_f32 = train_agreement(_small_model(**remat))
+    train_f32_moe = train_agreement(_small_model(**remat, **MOE_SMALL))
     head = next(r for r in records
                 if r["family"] == "decode" and r["dtype"] == "bfloat16")
     kernels = [{
@@ -2533,6 +2683,7 @@ def main():
         "launches": res["launches"],
         "launches_server": served["launches"],
         "launches_tenants_and_kv": tenants["launches"],
+        "launches_moe_serve": moe["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in records),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -2600,6 +2751,7 @@ def main():
         kernels[-1]["timed_f32"] = {
             **flash["timed"]["float32"][name],
             "launches_train_agreement": train_f32[name],
+            "launches_train_agreement_moe": train_f32_moe[name],
             "launches_dense_agreement": dense_f32[name],
             **{k: built.get(k) for k in ("registers", "spill_stores",
                                          "smem_bytes", "LDGSTS", "FFMA",

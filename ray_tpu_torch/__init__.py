@@ -2,12 +2,13 @@
 batch inference and Llama training step.
 
 A second package beside ``ray_tpu``: the same Llama paged-KV serving
-engine, dense-slot engine (behind ``LLMPredictor``) and dense training
-forward/backward, written in PyTorch for one NVIDIA H100, with every
-Pallas attention kernel of the TPU package replaced by a hand-written
-CUDA kernel for Hopper (``ops/csrc``). The package
-imports nothing of ``ray_tpu`` and never imports JAX; importing this
-top-level module loads nothing heavy.
+engine, dense-slot engine (behind ``LLMPredictor``), OpenAI app under
+Serve's local testing mode and training forward/backward, for dense
+and mixture-of-experts configs, written in PyTorch for one NVIDIA H100,
+with every Pallas attention kernel of the TPU package replaced by a
+hand-written CUDA kernel for Hopper (``ops/csrc``). The package imports
+nothing of ``ray_tpu`` and never imports JAX; importing this top-level
+module loads nothing heavy.
 
     from ray_tpu_torch.llm import (PagedEngineConfig,
                                    PagedInferenceEngine, SamplingParams)

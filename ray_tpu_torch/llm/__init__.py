@@ -5,7 +5,8 @@ Counterpart of ``ray_tpu.llm``: the paged-KV production path
 (``PagedInferenceEngine``), the dense-slot ``InferenceEngine``,
 ``LLMPredictor`` (batch inference over the dense engine, ``batch.py``),
 and the serving surface — ``LLMServer`` (a background engine loop behind
-OpenAI-shaped ``completions``, ``serving.py``), ``OpenAIRouter`` and
+OpenAI-shaped ``completions``, ``serving.py``, and its Serve deployment
+``build_llm_deployment``), ``OpenAIRouter``, ``build_openai_app`` and
 ``apply_chat_template`` (``openai_api.py``), with the ``rtpu_llm_*``
 telemetry (``telemetry.py``):
 
@@ -17,24 +18,28 @@ telemetry (``telemetry.py``):
         model=llama.llama3_8b())))
     out = srv.completions({"prompt": "hello", "max_tokens": 16})
 
+    router = serve.run(build_openai_app([LLMConfig(model_id="m1")]),
+                       local_testing_mode=True)       # ray_tpu_torch.serve
+
     pred = LLMPredictor(EngineConfig(llama.llama3_8b()))
     rows = pred({"prompt": ["hello", "world"]})
 
 The paged engine also serves many LoRA tenants from one slot table
 (``multilora/``, adapters in ``lora.py``), spills evicted prefix pages
 to a host tier (``tiering.py``) and exports and imports KV payloads
-(PD and cross-engine prefixes). The Serve deployment and HTTP route,
+(PD and cross-engine prefixes). Cluster Serve and the HTTP route,
 the Dataset stages of batch inference, mesh serving and the PD
 deployment over channels are not ported yet.
 """
 from .batch import LLMPredictor
 from .engine import EngineConfig, InferenceEngine, SamplingParams
-from .openai_api import OpenAIRouter, apply_chat_template
+from .openai_api import OpenAIRouter, apply_chat_template, build_openai_app
 from .paged_engine import PagedEngineConfig, PagedInferenceEngine
-from .serving import LLMConfig, LLMServer
+from .serving import LLMConfig, LLMServer, build_llm_deployment
 from .tokenizer import ByteTokenizer, get_tokenizer
 
 __all__ = ["EngineConfig", "InferenceEngine", "LLMPredictor",
            "SamplingParams", "PagedEngineConfig", "PagedInferenceEngine",
-           "LLMConfig", "LLMServer", "OpenAIRouter", "apply_chat_template",
+           "LLMConfig", "LLMServer", "build_llm_deployment", "OpenAIRouter",
+           "build_openai_app", "apply_chat_template",
            "ByteTokenizer", "get_tokenizer"]

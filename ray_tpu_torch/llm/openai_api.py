@@ -3,16 +3,24 @@
 Counterpart of ``ray_tpu/llm/openai_api.py`` (reference parity: the
 ray.llm OpenAI router, llm/_internal/serve/deployments/routers/router.py
 — /v1/models, /v1/completions, /v1/chat/completions with SSE
-streaming). ``OpenAIRouter`` only calls
-``handle.options(method_name=...[, stream=True]).remote(body)`` and
-``.result(timeout_s=...)`` on the handles it is given, so any object
-with that surface drives it; the Serve deployment that builds it over
-real deployment handles (``build_openai_app``) is not ported yet.
+streaming), built as a plain Serve deployment. ``OpenAIRouter`` only
+calls ``handle.options(method_name=...[, stream=True]).remote(body)``
+and ``.result(timeout_s=...)`` on the handles it is given, so any
+object with that surface drives it. ``build_openai_app`` makes it the
+ingress over one ``build_llm_deployment`` per config; until cluster
+Serve and its HTTP proxy are ported, the app runs in process:
+
+    app = build_openai_app([LLMConfig(model_id="m1", engine=...)])
+    router = serve.run(app, local_testing_mode=True)
+    out = router.v1_completions.remote({"model": "m1",
+                                        "prompt": "hi"}).result()
 """
 from __future__ import annotations
 
 import time
 from typing import Optional
+
+from .serving import LLMConfig, build_llm_deployment
 
 
 def apply_chat_template(messages: list[dict]) -> str:
@@ -104,3 +112,16 @@ class OpenAIRouter:
                 }
             yield f"data: {json.dumps(chunk)}\n\n"
         yield "data: [DONE]\n\n"
+
+
+def build_openai_app(configs: list[LLMConfig], params_refs=None,
+                     device="cuda"):
+    """[LLMConfig] -> Serve Application with the OpenAI router as ingress
+    (reference: build_openai_app). ``params_refs``: one params dict (or
+    None) per config; ``device`` reaches every ``LLMServer``."""
+    from .. import serve
+    params_refs = params_refs or [None] * len(configs)
+    children = [build_llm_deployment(cfg, ref, device=device)
+                for cfg, ref in zip(configs, params_refs)]
+    router = serve.deployment(OpenAIRouter, name="openai-router")
+    return router.bind([c.model_id for c in configs], *children)

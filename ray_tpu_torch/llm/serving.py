@@ -26,10 +26,14 @@ a weight copy, one engine per resident adapter, LRU up to
 spilled chain every 0.25 s; ``export_prefix`` serves another engine's
 prefix import.
 
-Off in the port, each until its part is ported: the Serve deployment
-(``build_llm_deployment``), usage recording and the object store
-(``params_ref`` is the params dict itself, or None), and the cluster
-prefix directory (``set_replica_handle`` is a no-op).
+``build_llm_deployment`` wraps an ``LLMConfig`` as a Serve deployment
+(``llm/openai_api.build_openai_app`` puts the OpenAI router in front of
+one per config); ``serve.run(..., local_testing_mode=True)`` runs it in
+this process, the only Serve mode the port has.
+
+Off in the port, each until its part is ported: cluster Serve and the
+object store (``params_ref`` is the params dict itself, or None), and
+the cluster prefix directory (``set_replica_handle`` is a no-op).
 """
 from __future__ import annotations
 
@@ -52,16 +56,18 @@ class LLMConfig:
 
     ``engine`` may be an EngineConfig (dense slot cache) or a
     PagedEngineConfig (paged-KV continuous batching — the production
-    path); the default is paged. ``tpus_per_replica`` is kept for the
-    reference's surface and does nothing until the Serve deployment is
-    ported. LoRA: batched on a paged engine with ``max_adapters > 0``
-    (registry namespace ``lora_namespace``, default the model_id), else
-    merged engines over ``lora_dir``, at most ``max_loras`` resident (the
-    module docstring). The reference's ``num_replicas`` and
-    ``max_ongoing_requests`` (read by the Serve deployment) are left out
-    until it is ported."""
+    path); the default is paged. ``num_replicas``,
+    ``max_ongoing_requests`` and ``tpus_per_replica`` go into the Serve
+    deployment's spec (``build_llm_deployment``), as in the reference;
+    local testing mode builds one instance and reads none of them. LoRA:
+    batched on a paged engine with ``max_adapters > 0`` (registry
+    namespace ``lora_namespace``, default the model_id), else merged
+    engines over ``lora_dir``, at most ``max_loras`` resident (the module
+    docstring)."""
     model_id: str = "llama-tiny"
     engine: Optional[EngineConfig | PagedEngineConfig] = None
+    num_replicas: int = 1
+    max_ongoing_requests: int = 64
     tpus_per_replica: float = 0.0
     lora_dir: Optional[str] = None
     max_loras: int = 2
@@ -82,7 +88,9 @@ class LLMServer:
     versions."""
 
     def __init__(self, cfg: LLMConfig, params_ref=None, device="cuda"):
+        from ..core.usage import record_library_usage
         from ..models import llama
+        record_library_usage("llm")
         self.cfg = cfg
         self.device = llama.resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
@@ -371,3 +379,23 @@ class LLMServer:
     def check_health(self):
         if self._error is not None or not self._thread.is_alive():
             raise RuntimeError("engine loop died") from self._error
+
+
+def build_llm_deployment(cfg: LLMConfig, params_ref=None, device="cuda"):
+    """LLMConfig -> a Serve Application over one ``LLMServer``
+    (reference: build_openai_app / LLMDeployment, llm_server.py:704).
+    ``params_ref`` is the params dict (or None: seeded random weights);
+    ``device`` reaches ``LLMServer`` (``"cpu"`` for the plain versions).
+    The spec keeps the reference's name, replica count, request cap and
+    accelerator request, which only cluster Serve reads."""
+    from .. import serve
+    dep = serve.deployment(
+        LLMServer,
+        name=f"llm:{cfg.model_id}",
+        num_replicas=cfg.num_replicas,
+        max_ongoing_requests=cfg.max_ongoing_requests,
+        ray_actor_options=(
+            {"num_tpus": cfg.tpus_per_replica}
+            if cfg.tpus_per_replica else {}),
+    )
+    return dep.bind(cfg, params_ref, device=device)

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .llama import LlamaConfig, param_shapes, resolve_device
+from .llama import LlamaConfig, param_dtype, param_shapes, resolve_device
 
 
 def _to_tensor(arr, name: str) -> torch.Tensor:
@@ -31,8 +31,9 @@ def _to_tensor(arr, name: str) -> torch.Tensor:
 
 def params_from_numpy(tree: dict, cfg: LlamaConfig, device="cuda") -> dict:
     """Reference pytree of numpy arrays -> port params on ``device`` in
-    cfg.dtype. Raises on a missing or extra key and on any shape that
-    differs from the reference layout for ``cfg``."""
+    cfg.dtype (an MoE router in f32: ``llama.param_dtype``). Raises on a
+    missing or extra key and on any shape that differs from the
+    reference layout for ``cfg``."""
     dev = resolve_device(device)
     shapes = param_shapes(cfg)
 
@@ -50,7 +51,7 @@ def params_from_numpy(tree: dict, cfg: LlamaConfig, device="cuda") -> dict:
             if tuple(t.shape) != tuple(shape):
                 raise ValueError(f"{name}: shape {tuple(t.shape)} != "
                                  f"{tuple(shape)} (reference layout)")
-            out[key] = t.to(device=dev, dtype=cfg.dtype)
+            out[key] = t.to(device=dev, dtype=param_dtype(cfg, key))
         return out
 
     return convert(tree, shapes, "")

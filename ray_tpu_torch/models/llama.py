@@ -22,6 +22,15 @@ being clamped into a live page. The engine's table-width rule keeps every
 write inside the table, with columns past a row's allocation naming the
 sink page.
 
+Several writes of one scatter can land on the same sink slot (idle
+decode rows, a chunk's pad pages). Which one wins is unordered on CUDA,
+and a dense model never reads the sink from a real row. An MoE layer
+does, indirectly: pad rows' tokens are routed beside the real ones and
+take expert slots from them, so the sink content they read must be
+deterministic. For MoE configs every duplicate of a scatter therefore
+writes the value of its last row (``_last_writer``): the CPU's "last
+write wins", on the card too, the same bits eager or captured.
+
 Training runs ``apply`` (or ``apply_with_aux``) then
 ``cross_entropy_loss``: the same layers without a cache, attention
 through ``ops.flash_attention`` (the Hopper forward, dq and dkv kernels
@@ -43,7 +52,18 @@ cache tensors IN PLACE (the reference returned updated copies), and their
 attention is a plain masked softmax over the whole cache, as in the
 reference (no Pallas kernel there).
 
-MoE and LoRA are not part of this module yet.
+Mixture-of-experts configs (``moe_experts > 0``) replace each layer's
+dense SwiGLU with ``_moe_ffn``, in every forward, as the reference does:
+an f32 router, top-k experts per token with ties to the lower expert
+index, and a GShard dispatch into ``C = max(1, int(capacity·k·T/E))``
+slots per expert, where T counts every row of the call, padding
+included (so a token's output depends on the rows it is dispatched
+with, in the reference too). Dispatch, the three expert products over
+``[E, C, ·]`` and the combine are static-shape tensor products with no
+host sync, so the paged engine captures them like the rest of a layer.
+``apply_with_aux`` returns the mean per-layer Switch load-balance loss;
+the cached and paged forwards drop it. The batched multi-LoRA deltas of
+the serving forwards are in the LoRA section below.
 """
 from __future__ import annotations
 
@@ -89,8 +109,9 @@ class LlamaConfig:
     use_flash: bool = True
     attn_block_q: int = 512
     attn_block_k: int = 512
-    # mixture-of-experts: not ported yet (0 = dense MLP, the only kind
-    # these forwards run)
+    # mixture-of-experts (0 = dense MLP): experts per layer, experts per
+    # token, slots per expert = moe_capacity * k * T / E, and the weight
+    # of the load-balance aux loss in a training loss
     moe_experts: int = 0
     moe_top_k: int = 2
     moe_capacity: float = 2.0
@@ -145,21 +166,23 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _dense_only(cfg: LlamaConfig):
-    if cfg.moe_experts:
-        raise NotImplementedError(
-            "ray_tpu_torch.models.llama runs dense configs only; "
-            "mixture-of-experts is not ported yet")
-
-
 # ---------------------------------------------------------------------------
 # Params
 # ---------------------------------------------------------------------------
 
 def param_shapes(cfg: LlamaConfig) -> dict:
-    """Shape of every parameter, in the reference layout."""
-    d, hd, L = cfg.dim, cfg.head_dim, cfg.n_layers
+    """Shape of every parameter, in the reference layout (MoE configs:
+    ``w_router [L, d, E]`` and the expert weights ``[L, E, ...]``)."""
+    d, hd, L, F = cfg.dim, cfg.head_dim, cfg.n_layers, cfg.mlp_dim
     kvd = cfg.n_kv_heads * hd
+    if cfg.moe_experts:
+        E = cfg.moe_experts
+        mlp = {"mlp_norm": (L, d), "w_router": (L, d, E),
+               "w_gate": (L, E, d, F), "w_up": (L, E, d, F),
+               "w_down": (L, E, F, d)}
+    else:
+        mlp = {"mlp_norm": (L, d), "w_gate": (L, d, F), "w_up": (L, d, F),
+               "w_down": (L, F, d)}
     return {
         "embed": (cfg.vocab_size, d),
         "layers": {
@@ -168,36 +191,38 @@ def param_shapes(cfg: LlamaConfig) -> dict:
             "wk": (L, d, kvd),
             "wv": (L, d, kvd),
             "wo": (L, cfg.n_heads * hd, d),
-            "mlp_norm": (L, d),
-            "w_gate": (L, d, cfg.mlp_dim),
-            "w_up": (L, d, cfg.mlp_dim),
-            "w_down": (L, cfg.mlp_dim, d),
+            **mlp,
         },
         "final_norm": (d,),
         "lm_head": (d, cfg.vocab_size),
     }
 
 
+def param_dtype(cfg: LlamaConfig, name: str) -> torch.dtype:
+    """A parameter's dtype: cfg.dtype, except the MoE router, which is
+    f32 in every config (as in the reference)."""
+    return torch.float32 if name == "w_router" else cfg.dtype
+
+
 def init(cfg: LlamaConfig, seed: int = 0, device="cuda") -> dict:
     """Random parameters from ``seed`` (a torch.Generator on ``device``):
-    norms 1, dense weights N(0, 1/fan_in) drawn in f32 and cast to
-    cfg.dtype, one layer slice at a time so the f32 draw never holds a
-    whole stacked tensor. Not the reference's jax.random stream; tests
-    that compare with the reference convert its weights
-    (models/convert.py)."""
-    _dense_only(cfg)
+    norms 1, weights N(0, 1/fan_in) drawn in f32 and cast to their dtype
+    (``param_dtype``), one layer slice at a time so the f32 draw never
+    holds a whole stacked tensor (an MoE slice holds every expert of the
+    layer). Not the reference's jax.random stream; tests that compare
+    with the reference convert its weights (models/convert.py)."""
     dev = resolve_device(device)
     g = torch.Generator(device=dev)
     g.manual_seed(int(seed))
     shapes = param_shapes(cfg)
     fan_in = {"embed": cfg.dim, "wq": cfg.dim, "wk": cfg.dim, "wv": cfg.dim,
-              "wo": cfg.dim, "w_gate": cfg.dim, "w_up": cfg.dim,
-              "w_down": cfg.mlp_dim, "lm_head": cfg.dim}
+              "wo": cfg.dim, "w_router": cfg.dim, "w_gate": cfg.dim,
+              "w_up": cfg.dim, "w_down": cfg.mlp_dim, "lm_head": cfg.dim}
 
     def make(name, shape, stacked):
         if name.endswith("norm"):
             return torch.ones(shape, dtype=cfg.dtype, device=dev)
-        out = torch.empty(shape, dtype=cfg.dtype, device=dev)
+        out = torch.empty(shape, dtype=param_dtype(cfg, name), device=dev)
         std = 1.0 / math.sqrt(fan_in[name])
         for part in (out.unbind(0) if stacked else (out,)):
             part.copy_(torch.randn(part.shape, generator=g, device=dev,
@@ -317,10 +342,68 @@ def _lora_add(y, x, lora, target: str, slots):
 
 
 def _mlp_block(x, p, cfg: LlamaConfig):
-    """Post-attention dense SwiGLU MLP with residual."""
+    """Post-attention MLP with residual: dense SwiGLU, or top-k MoE when
+    cfg.moe_experts > 0. Returns (x, aux): the layer's MoE load-balance
+    loss, None for a dense MLP (the reference's 0.0, without a kernel
+    per layer to make it)."""
     h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
+    if cfg.moe_experts:
+        y, aux = _moe_ffn(h, p, cfg)
+        return x + y, aux
     gate = F.silu(h @ p["w_gate"])
-    return x + (gate * (h @ p["w_up"])) @ p["w_down"]
+    return x + (gate * (h @ p["w_up"])) @ p["w_down"], None
+
+
+def _moe_ffn(h, p, cfg: LlamaConfig):
+    """Top-k expert SwiGLU over capacity-bounded slots, GShard-style
+    (the reference's ``_moe_ffn``). h [B, S, D] -> (out [B, S, D], aux).
+
+    Router logits and softmax in f32; each token's k best experts, ties
+    to the lower index (a stable descending sort: ``jax.lax.top_k``'s
+    order; ``torch.topk`` promises none), gates renormalised over the k.
+    Switch aux loss E·Σ(mean prob · first-choice fraction). Slots: choice
+    j of token t takes the next free slot of its expert in flat token
+    order, after every slot of choices < j; past C it is dropped. The
+    dispatch mask (h's dtype) gathers [E, C, D], three batched products
+    make the experts' SwiGLU, and the combine weights (f32 gates, cast
+    to the experts' dtype, as the reference casts them) scatter back.
+    One-hots compare against an ``arange``: no host sync anywhere."""
+    b, s, d = h.shape
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    T = b * s
+    C = max(1, int(cfg.moe_capacity * k * T / E))
+    ht = h.reshape(T, d)
+    dev = h.device
+
+    probs = torch.softmax(ht.float() @ p["w_router"], dim=-1)   # [T, E]
+    idx_k = torch.sort(probs, dim=-1, descending=True,
+                       stable=True).indices[:, :k]              # [T, k]
+    gate_k = probs.gather(1, idx_k)
+    gate_k = gate_k / gate_k.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+
+    experts = torch.arange(E, device=dev)
+    first = (idx_k[:, :1] == experts).float()                   # [T, E]
+    aux = E * torch.sum(probs.mean(dim=0) * first.mean(dim=0))
+
+    slots = torch.arange(C, device=dev)
+    combine = torch.zeros((T, E, C), dtype=torch.float32, device=dev)
+    prev_counts = torch.zeros((E,), dtype=torch.int64, device=dev)
+    for j in range(k):                                          # k is tiny
+        oh = (idx_k[:, j:j + 1] == experts).long()              # [T, E]
+        pos = torch.cumsum(oh, dim=0) - 1 + prev_counts         # [T, E]
+        prev_counts = prev_counts + oh.sum(dim=0)
+        in_cap = (pos < C) & (oh > 0)                           # [T, E]
+        slot = (pos.clamp(0, C - 1)[..., None] == slots).float()  # [T,E,C]
+        combine = combine + (gate_k[:, j, None, None]
+                             * in_cap[..., None] * slot)
+    dispatch = (combine > 0).to(h.dtype).reshape(T, E * C)
+
+    xe = (dispatch.t() @ ht).reshape(E, C, d)                   # [E, C, D]
+    ge = F.silu(torch.bmm(xe, p["w_gate"]))
+    ue = torch.bmm(xe, p["w_up"])
+    ye = torch.bmm(ge * ue, p["w_down"])                        # [E, C, D]
+    out = combine.to(ye.dtype).reshape(T, E * C) @ ye.reshape(E * C, d)
+    return out.reshape(b, s, d), aux
 
 
 class _F32Logits(torch.autograd.Function):
@@ -378,7 +461,8 @@ def _attention(q, k, v, cfg: LlamaConfig, causal: bool, attn_impl):
 
 
 def _layer(x, p: dict, cfg: LlamaConfig, cos, sin, attn_impl):
-    """One transformer block in training mode (no KV cache). x [B,S,dim]."""
+    """One transformer block in training mode (no KV cache). x [B,S,dim]
+    -> (x, the layer's MoE aux loss or None)."""
     h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
     b, s, _ = h.shape
     q, k, v = _qkv(h, p, cfg, cos, sin)
@@ -412,9 +496,8 @@ def apply(params: dict, tokens, cfg: LlamaConfig, attn_impl=None):
 
 
 def apply_with_aux(params: dict, tokens, cfg: LlamaConfig, attn_impl=None):
-    """(logits, aux): aux is the MoE load-balance loss, 0.0 for the dense
-    configs this port runs (MoE raises NotImplementedError)."""
-    _dense_only(cfg)
+    """(logits, aux): aux is the mean per-layer MoE load-balance loss
+    (0.0 for dense configs); add cfg.moe_aux_weight * aux to the loss."""
     x = params["embed"][tokens].to(cfg.dtype)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     cos, sin = rope_freqs(cfg, positions.expand(tokens.shape))
@@ -423,15 +506,18 @@ def apply_with_aux(params: dict, tokens, cfg: LlamaConfig, attn_impl=None):
     names = list(params["layers"])
     per_layer = [params["layers"][n].unbind(0) for n in names]
     remat = _remat_kwargs(cfg) if cfg.remat else None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in range(cfg.n_layers):
         p = {n: w[layer] for n, w in zip(names, per_layer)}
         if remat is None:
-            x = _layer(x, p, cfg, cos, sin, attn_impl)
+            x, a = _layer(x, p, cfg, cos, sin, attn_impl)
         else:
-            x = checkpoint(_layer, x, p, cfg, cos, sin, attn_impl, **remat)
+            x, a = checkpoint(_layer, x, p, cfg, cos, sin, attn_impl,
+                              **remat)
+        if a is not None:
+            aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _logits(x, params["lm_head"]), aux
+    return _logits(x, params["lm_head"]), aux / cfg.n_layers
 
 
 def cross_entropy_loss(logits, targets, mask=None):
@@ -465,6 +551,23 @@ def _as_i32(x, device):
     return torch.as_tensor(x, dtype=torch.int32, device=device)
 
 
+def _last_writer(flat_idx, cfg: LlamaConfig):
+    """For MoE configs, row i of a scatter -> the last row writing the
+    same slot (``flat_idx`` [N], one slot id per row): rows then write
+    ``values.index_select(0, src)``, so duplicates carry equal values
+    and no write order can change the result (module docstring). None
+    for dense configs, which never read what a duplicate wrote."""
+    if not cfg.moe_experts:
+        return None
+    rows = torch.arange(flat_idx.shape[0], device=flat_idx.device)
+    same = flat_idx[:, None] == flat_idx[None, :]
+    return torch.where(same, rows[None, :], -1).amax(dim=1)
+
+
+def _rows_from(values, src):
+    return values if src is None else values.index_select(0, src)
+
+
 def decode_paged(params: dict, tokens, caches: list[dict], block_tables,
                  lengths, cfg: LlamaConfig, *, page_size: int, lora=None,
                  slots=None):
@@ -480,7 +583,6 @@ def decode_paged(params: dict, tokens, caches: list[dict], block_tables,
     ``lora``/``slots`` [B]: batched multi-LoRA — each row's projections
     (and logits, for lm_head adapters) get its slot's low-rank delta
     (``_lora_add``)."""
-    _dense_only(cfg)
     b = tokens.shape[0]
     dev = tokens.device
     lengths = _as_i32(lengths, dev)
@@ -489,6 +591,7 @@ def decode_paged(params: dict, tokens, caches: list[dict], block_tables,
     cos, sin = rope_freqs(cfg, lengths[:, None])
     page_ids = block_tables[rows, lengths // page_size]       # [B]
     offsets = lengths % page_size
+    src = _last_writer(page_ids * page_size + offsets, cfg)
     attend_len = lengths + 1
     for layer in range(cfg.n_layers):
         p = _layer_params(params, layer)
@@ -496,12 +599,14 @@ def decode_paged(params: dict, tokens, caches: list[dict], block_tables,
         cache = caches[layer]
         h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
         q, k, v = _qkv(h, p, cfg, cos, sin, ll, slots)       # q [B,1,H,D]
-        cache["k"][page_ids, offsets] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][page_ids, offsets] = v[:, 0].to(cache["v"].dtype)
+        cache["k"][page_ids, offsets] = _rows_from(k[:, 0], src).to(
+            cache["k"].dtype)
+        cache["v"][page_ids, offsets] = _rows_from(v[:, 0], src).to(
+            cache["v"].dtype)
         attn = ragged_decode_attention(q[:, 0], cache["k"], cache["v"],
                                        block_tables, attend_len)
         x = x + _out_proj(attn.reshape(b, 1, -1), p, ll, slots)
-        x = _mlp_block(x, p, cfg)
+        x, _ = _mlp_block(x, p, cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _lm_head(x, params, lora, slots)[:, 0], caches
 
@@ -527,7 +632,6 @@ def _prefill_chunk_hidden(params, chunk, caches, block_table_row, start_pos,
                           cfg: LlamaConfig, page_size: int, true_chunk_len,
                           lora=None, slot=None):
     """prefill_paged_chunk up to the final norm: returns hidden [C, dim]."""
-    _dense_only(cfg)
     c = chunk.shape[1]
     dev = chunk.device
     n_chunk_pages = c // page_size
@@ -547,6 +651,7 @@ def _prefill_chunk_hidden(params, chunk, caches, block_table_row, start_pos,
     valid = (idx < valid_pages) & (logical < max_pages)
     chunk_page_ids = torch.where(
         valid, block_table_row[logical.clamp(0, max_pages - 1)], 0)
+    src = _last_writer(chunk_page_ids, cfg)
     starts1 = start_pos.reshape(1)
     qlens1 = tl.reshape(1)
     bt1 = block_table_row[None]
@@ -559,14 +664,16 @@ def _prefill_chunk_hidden(params, chunk, caches, block_table_row, start_pos,
         h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
         q, k, v = _qkv(h, p, cfg, cos, sin, ll, slot)         # [1,C,H/KVH,D]
         shape = (n_chunk_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
-        cache["k"][chunk_page_ids] = k[0].reshape(shape).to(cache["k"].dtype)
-        cache["v"][chunk_page_ids] = v[0].reshape(shape).to(cache["v"].dtype)
+        cache["k"][chunk_page_ids] = _rows_from(k[0].reshape(shape), src).to(
+            cache["k"].dtype)
+        cache["v"][chunk_page_ids] = _rows_from(v[0].reshape(shape), src).to(
+            cache["v"].dtype)
         # the writes above already placed the window's K/V: attention
         # reads pages only (prefix + causal window in one predicate)
         attn = ragged_paged_attention(q, cache["k"], cache["v"], bt1,
                                       starts1, qlens1, scale=scale)
         x = x + _out_proj(attn.to(cfg.dtype).reshape(1, c, -1), p, ll, slot)
-        x = _mlp_block(x, p, cfg)
+        x, _ = _mlp_block(x, p, cfg)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)[0]
 
 
@@ -634,7 +741,6 @@ def verify_paged_rows(params: dict, tokens, caches: list[dict], bt_rows,
     caches). Positions past the block table write to sink page 0 (their
     logits are garbage the engine discards). Rows run in order, like
     prefill_paged_rows; ``lora``/``slots`` [R] as there."""
-    _dense_only(cfg)
     dev = tokens.device
     maxp = bt_rows.shape[1]
     s1 = tokens.shape[1]
@@ -654,6 +760,7 @@ def verify_paged_rows(params: dict, tokens, caches: list[dict], bt_rows,
         pidx = positions // page_size
         page_ids = torch.where(pidx < maxp, bt[pidx.clamp(0, maxp - 1)], 0)
         offsets = positions % page_size
+        src = _last_writer(page_ids * page_size + offsets, cfg)
         x = params["embed"][tokens[i]][None].to(cfg.dtype)         # [1,S1,D]
         for layer in range(cfg.n_layers):
             p = _layer_params(params, layer)
@@ -661,14 +768,16 @@ def verify_paged_rows(params: dict, tokens, caches: list[dict], bt_rows,
             cache = caches[layer]
             h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
             q, k, v = _qkv(h, p, cfg, cos, sin, ll, sl)
-            cache["k"][page_ids, offsets] = k[0].to(cache["k"].dtype)
-            cache["v"][page_ids, offsets] = v[0].to(cache["v"].dtype)
+            cache["k"][page_ids, offsets] = _rows_from(k[0], src).to(
+                cache["k"].dtype)
+            cache["v"][page_ids, offsets] = _rows_from(v[0], src).to(
+                cache["v"].dtype)
             attn = ragged_paged_attention(q, cache["k"], cache["v"],
                                           bt[None], start.reshape(1),
                                           qlens1, scale=scale)
             x = x + _out_proj(attn.to(cfg.dtype).reshape(1, s1, -1), p,
                               ll, sl)
-            x = _mlp_block(x, p, cfg)
+            x, _ = _mlp_block(x, p, cfg)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         out.append(_lm_head(x, params, lora, sl)[0])
     return torch.stack(out), caches
@@ -733,7 +842,7 @@ def _cached_layer(x, p: dict, cfg: LlamaConfig, cos, sin, ck, cv, q_pos):
     cv[rows, q_pos] = v.to(cv.dtype)
     attn = _cached_attention(q, ck, cv, q_pos, cfg)
     x = x + attn.reshape(b, s, -1) @ p["wo"]
-    return _mlp_block(x, p, cfg)
+    return _mlp_block(x, p, cfg)[0]
 
 
 def apply_decode(params: dict, tokens, cache: dict, cfg: LlamaConfig):
@@ -741,7 +850,6 @@ def apply_decode(params: dict, tokens, cache: dict, cfg: LlamaConfig):
     cache['idx']. Returns (logits [B, S_step, V] f32, cache with idx
     advanced); the K/V tensors are written in place. A step that would
     run past the cache's end raises (the reference clamped the write)."""
-    _dense_only(cfg)
     b, s = tokens.shape
     idx = int(cache["idx"])
     x = params["embed"][tokens].to(cfg.dtype)
@@ -757,7 +865,6 @@ def apply_decode(params: dict, tokens, cache: dict, cfg: LlamaConfig):
 
 def _hidden_with_kv(params: dict, tokens, cfg: LlamaConfig):
     """apply_with_kv up to the final norm: (hidden [B, S, dim], ks, vs)."""
-    _dense_only(cfg)
     b, s = tokens.shape
     x = params["embed"][tokens].to(cfg.dtype)
     positions = torch.arange(s, device=tokens.device).expand(b, s)
@@ -769,7 +876,7 @@ def _hidden_with_kv(params: dict, tokens, cfg: LlamaConfig):
         q, k, v = _qkv(h, p, cfg, cos, sin)
         attn = _attention(q, k, v, cfg, causal=True, attn_impl=None)
         x = x + attn.reshape(b, s, -1) @ p["wo"]
-        x = _mlp_block(x, p, cfg)
+        x, _ = _mlp_block(x, p, cfg)
         ks.append(k)
         vs.append(v)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -800,7 +907,6 @@ def decode_batched(params: dict, tokens, cache: dict, cfg: LlamaConfig):
     positions <= it. Returns (logits [B, V] f32, cache with lengths + 1).
     Inactive slots may carry any token; the caller masks their outputs.
     """
-    _dense_only(cfg)
     lengths = cache["lengths"]
     x = params["embed"][tokens].to(cfg.dtype)                 # [B, 1, D]
     positions = lengths[:, None]                              # [B, 1]

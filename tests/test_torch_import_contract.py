@@ -59,7 +59,11 @@ def test_port_modules_load_no_jax_and_no_ray_tpu():
                  "ray_tpu_torch.core.flight", "ray_tpu_torch.util.metrics",
                  "ray_tpu_torch.util.tracing",
                  "ray_tpu_torch.util.profiling",
-                 "ray_tpu_torch.serve.context", "ray_tpu_torch.core.ids",
+                 "ray_tpu_torch.serve.context", "ray_tpu_torch.serve.api",
+                 "ray_tpu_torch.serve.local_mode",
+                 "ray_tpu_torch.serve.batching",
+                 "ray_tpu_torch.serve.multiplex", "ray_tpu_torch.core.usage",
+                 "ray_tpu_torch.core.ids",
                  "ray_tpu_torch.dag", "ray_tpu_torch.dag.channel",
                  "ray_tpu_torch.llm.lora", "ray_tpu_torch.llm.tiering",
                  "ray_tpu_torch.llm.multilora",

@@ -189,15 +189,6 @@ def test_flops_per_token_and_num_params_match_reference(preset):
         assert ct.flops_per_token(seq) == cj.flops_per_token(seq)
 
 
-def test_moe_configs_raise_not_implemented():
-    cfg = tllama.llama_tiny(**SHAPE, moe_experts=4)
-    tok = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="dense"):
-        tllama.apply({}, tok, cfg)
-    with pytest.raises(NotImplementedError, match="dense"):
-        tllama.apply_with_aux({}, tok, cfg)
-
-
 def test_use_flash_false_runs_mha_reference(ref, monkeypatch):
     _, params_j, tokens = ref
     flash_cfg = tllama.llama_tiny(**SHAPE)
