@@ -154,11 +154,35 @@ and prints no result line):
    weights, phase 4's engine settings and request mix. Prints phase 4's
    figures; its MFU counts every dispatched expert slot (E x C per call,
    FlopCounterMode), not the routed tokens.
+4f. runtime: the MoE engine freed, the port's own runtime,
+   ray_tpu_torch.init(num_cpus=4, num_gpus=torch.cuda.device_count()).
+   A CPU task must see CUDA_VISIBLE_DEVICES "", no CUDA, and neither jax
+   nor ray_tpu in sys.modules. A @remote(num_gpus=1) actor wraps
+   LLMServer at full Llama-3-8B width (32 layers, bf16, seed-0 weights
+   made in the actor: params_ref None; phase 4's engine settings, warmup
+   on) and must report CUDA_VISIBLE_DEVICES "0" and the driver's card;
+   available_resources()["GPU"] must read 0 while it lives. Phase 4's
+   request mix (seed 0) goes to it as 11 concurrent completions calls;
+   every greedy request's tokens must equal phase 4's captured run bit
+   for bit (phase 4 must have returned one result per greedy request). The ragged kernel's launches are counted inside the actor's
+   process, by family around the engine's prefill and decode steps (set
+   to 0 just before the mix, read just after): both must be above 0.
+   After kill the GPU count must come back; a new one-GPU actor then
+   gets index "0" again, gets phase 5's small f32 model, put by the
+   driver as CPU tensors, through an ObjectRef, and serves phase 5's
+   prompts on the card: greedy tokens equal to the CPU engine's,
+   logprobs within 1e-4. A CUDA tensor dict (f32 and bf16) put by the
+   driver must arrive in a CPU task as equal CPU tensors. After
+   shutdown no worker process of the port may be left. Prints the
+   actor's start-up (spawn, weights, warmup seconds), tokens/s, TTFT,
+   launches, the median round trip of an actor call, and the params_ref
+   actor's get and copy onto the card (seconds, timed inside LLMServer).
 5b. dense agreement: phase 5's small f32 model through InferenceEngine on
    the card and on the CPU gives identical greedy tokens; the f32
    forward kernel's launches are counted as in phase 7.
 
-Phases run in the order 1, 2, 3, 3c, 3b, 4, 4b, 4c, 4d, 4e, 5, 5b, 6, 7.
+Phases run in the order 1, 2, 3, 3c, 3b, 4, 4b, 4c, 4d, 4e, 4f, 5, 5b,
+6, 7, and the total seconds are printed before the kernels' record.
 The
 second-to-last line is the card from nvidia-smi, the one before it the
 kernels' JSON record, and the last line {"ok": true, "device": ...}.
@@ -1151,7 +1175,11 @@ def serve(model_cfg, device, seed: int = 0, **engine_kw) -> dict:
     if cuda and cf["programs"] <= 0:
         raise AssertionError("the captured engine captured nothing")
     prof = _check_flops(ce, model_cfg, cuda)
-    return {"launches": cf["launches"],
+    n_first = len(_requests(vocab, seed)[0])
+    return {"greedy": {tuple(p): r["token_ids"] for p, r, sp in zip(
+                cap["prompts"][:n_first], cap["out"], cap["sps"])
+                if not sp.temperature},
+            "launches": cf["launches"],
             "launches_by_family": cf["launches_by_family"],
             "prompt_tokens": sum(len(p) for p in cap["prompts"]),
             "dispatches": {k: ce.stats[k] for k in
@@ -1217,6 +1245,336 @@ def agreement(mc):
     print(f"agreement ({'MoE ' if mc.moe_experts else ''}"
           f"{mc.n_layers} layers): {len(prompts)} prompts, greedy tokens "
           f"identical card vs CPU", flush=True)
+
+
+# -- phase 4f: LLMServer as a one-GPU actor of the port's runtime ---------
+
+def _phase4_bodies(vocab: int, seed: int = 0) -> list:
+    """Phase 4's request mix as completions bodies."""
+    prompts, sps = _requests(vocab, seed)
+    return [{"prompt": p, "max_tokens": sp.max_tokens,
+             "temperature": sp.temperature, "top_k": sp.top_k,
+             "logprobs": sp.logprobs} for p, sp in zip(prompts, sps)]
+
+
+def _banned_modules() -> list:
+    return sorted(n for n in sys.modules
+                  if n.split(".")[0] in ("jax", "jaxlib", "ray_tpu"))
+
+
+def _server_host(rt):
+    """The actor class of phase 4f: an LLMServer that leases one GPU.
+    It times its start-up, counts the ragged kernel's launches by family
+    in its own process (around the engine's prefill and decode steps,
+    as phase 4 does), and records each request's prompt ids, token ids
+    and TTFT from the engine's results."""
+
+    @rt.remote(num_gpus=1, max_concurrency=16)
+    class ServerHost:
+        def __init__(self, cfg, refs, device):
+            from ray_tpu_torch.llm import LLMServer, PagedInferenceEngine
+            from ray_tpu_torch.ops.ragged_paged_attention import \
+                ragged_paged_attention as rpa
+            self.rpa = rpa
+            self.times = {}
+            warm = PagedInferenceEngine.warmup
+
+            def timed(eng, *a, **k):
+                tw = time.perf_counter()
+                out = warm(eng, *a, **k)
+                self.times["warmup_s"] = time.perf_counter() - tw
+                return out
+
+            PagedInferenceEngine.warmup = timed
+            try:
+                t1 = time.perf_counter()
+                self.srv = LLMServer(cfg, refs[0] if refs else None,
+                                     device=device)
+                self.times["server_s"] = time.perf_counter() - t1
+            finally:
+                PagedInferenceEngine.warmup = warm
+            self.times["weights_s"] = self.times["server_s"] - \
+                self.times.get("warmup_s", 0.0)
+            eng = self.srv.engine
+            self.fam = {"prefill": 0, "decode": 0}
+            for name in self.fam:
+                step = getattr(eng, f"_{name}_step")
+
+                def counted(step=step, name=name):
+                    before = rpa.launches
+                    step()
+                    self.fam[name] += rpa.launches - before
+                setattr(eng, f"_{name}_step", counted)
+            self.served = []
+            result = eng._result
+
+            def recording(req):
+                out = result(req)
+                self.served.append((list(req.prompt_ids),
+                                    [int(t) for t in out["token_ids"]],
+                                    out["logprobs"], out["ttft_s"]))
+                return out
+            eng._result = recording
+
+        def programs(self):
+            graphs = self.srv.engine._graphs
+            return len(graphs) if graphs is not None else 0
+
+        def info(self):
+            cuda = torch.cuda.is_available()
+            return {"visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    "device": (torch.cuda.get_device_name(0) if cuda
+                               else None),
+                    "device_count": torch.cuda.device_count(),
+                    "pid": os.getpid(), "banned": _banned_modules(),
+                    "times": self.times, "load_s": self.srv.load_s,
+                    "programs": self.programs()}
+
+        def reset(self):                  # main path starts here
+            self.rpa.launches = 0
+            self.fam = {k: 0 for k in self.fam}
+            self.served = []
+
+        def complete(self, body):
+            return self.srv.completions(dict(body))
+
+        def counts(self):                 # main path ends here
+            return {"launches": self.rpa.launches,
+                    "launches_by_family": dict(self.fam),
+                    "served": self.served, "programs": self.programs()}
+
+        def stop(self):
+            self.srv._stop = True
+            self.srv._wake.set()
+            self.srv._thread.join(timeout=60)
+
+    return ServerHost
+
+
+def _workers_alive() -> list:
+    """Port worker processes that are children of this process and not
+    yet reaped (zombies count as gone)."""
+    alive = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ")
+            with open(f"/proc/{pid}/stat") as f:
+                stat = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if b"ray_tpu_torch.core.worker" in cmd and stat[0] != "Z" and \
+                int(stat[1]) == os.getpid():
+            alive.append(int(pid))
+    return alive
+
+
+def runtime(model_cfg, greedy: dict, **engine_kw) -> dict:
+    """Phase 4f, on the card: the port's runtime, its GPU lease and
+    LLMServer as an actor. ``greedy`` maps phase 4's greedy prompts
+    (tuples of ids) to the captured run's tokens. Returns the figures;
+    raises on any failure."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.llm import LLMConfig, PagedEngineConfig
+    from ray_tpu_torch.models import llama
+    n_gpus = torch.cuda.device_count()
+    card = torch.cuda.get_device_name(0)
+    fig = {}
+    t0 = time.perf_counter()
+    rt.init(num_cpus=4, num_gpus=n_gpus)
+    try:
+        fig["init_s"] = time.perf_counter() - t0
+
+        @rt.remote
+        def cpu_report():
+            return {"visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    "cuda": torch.cuda.is_available(),
+                    "banned": _banned_modules(), "pid": os.getpid()}
+
+        cpu = rt.get(cpu_report.remote(), timeout=300)
+        if cpu["visible"] != "" or cpu["cuda"] or cpu["banned"]:
+            raise AssertionError(f"CPU task: {cpu}")
+        pids = [cpu["pid"]]
+        Host = _server_host(rt)
+
+        # the 8B server: seed-0 weights made in the actor, phase 4's mix
+        t1 = time.perf_counter()
+        # LLMServer's default warmup (the greedy keys): the first pass
+        # captures the sampled and logprob keys in traffic, the second
+        # replays them. Warming the sampled keys too (warmup_sampled)
+        # made the warmup 3.8x longer on the H100 (65.6 s against 17.4)
+        host = Host.remote(LLMConfig(
+            model_id="llama3-8b", warmup=True,
+            engine=PagedEngineConfig(model=model_cfg, **engine_kw)),
+            [], "cuda")
+        info = rt.get(host.info.remote(), timeout=900)
+        # start-up: the spawn (process, imports, the card's context),
+        # then LLMServer's engine build (seeded weights, KV pages) and
+        # its warmup (every program captured)
+        start = time.perf_counter() - t1
+        fig.update({"actor_start_s": start,
+                    "actor_spawn_s": start - info["times"]["server_s"],
+                    "actor_weights_s": info["times"]["weights_s"],
+                    "actor_warmup_s": info["times"].get("warmup_s"),
+                    "programs_after_warmup": info["programs"]})
+        pids.append(info["pid"])
+        if info["visible"] != "0" or info["device"] != card or \
+                info["banned"]:
+            raise AssertionError(f"8B actor: {info} (driver card {card})")
+        time.sleep(0.5)
+        gpu_held = rt.available_resources().get("GPU")
+        if gpu_held != 0.0:
+            raise AssertionError(f"GPU available {gpu_held} while the "
+                                 f"actor holds the card")
+        bodies = _phase4_bodies(model_cfg.vocab_size)
+        n_greedy = sum(1 for b in bodies if not b["temperature"])
+        if not n_greedy or len(greedy) != n_greedy:
+            raise AssertionError(f"phase 4 gave {len(greedy)} greedy "
+                                 f"results for {n_greedy} greedy requests")
+        rt.get(host.reset.remote(), timeout=60)
+        t2 = time.perf_counter()
+        resps = rt.get([host.complete.remote(b) for b in bodies],
+                       timeout=900)
+        wall = time.perf_counter() - t2
+        counts = rt.get(host.counts.remote(), timeout=60)
+        for r in resps:
+            if r["object"] != "text_completion" or not r["choices"]:
+                raise AssertionError(f"bad response {r}")
+        for name, n in counts["launches_by_family"].items():
+            if n <= 0:
+                raise AssertionError(f"4f: the ragged kernel never "
+                                     f"launched in {name} inside the actor")
+        served = {tuple(p): (ids, ttft)
+                  for p, ids, _lp, ttft in counts["served"]}
+        if len(served) != len(bodies):
+            raise AssertionError(f"{len(served)} results for "
+                                 f"{len(bodies)} requests")
+        for i, (prompt, want) in enumerate(greedy.items()):
+            got = served[prompt][0]
+            if got != want:
+                raise AssertionError(f"4f greedy request {i}: actor {got} "
+                                     f"!= phase 4 {want}")
+
+        def figures(served, wall):
+            n_out = sum(len(ids) for ids, _t in served.values())
+            ttft = sorted(t for _ids, t in served.values())
+            return {"generate_s": wall, "tokens_out": n_out,
+                    "tokens_per_s": n_out / wall,
+                    "ttft_median_s": ttft[len(ttft) // 2],
+                    "ttft_max_s": ttft[-1]}
+
+        fig.update({
+            "launches": counts["launches"],
+            "launches_by_family": counts["launches_by_family"],
+            "greedy_equal_phase4": len(greedy),
+            "first_pass": figures(served, wall),
+            "programs_after_first_pass": counts["programs"],
+            "gpu_available_while_held": gpu_held})
+        # phase 4's second mix (seed 3), timed only: the keys captured in
+        # traffic are replayed now
+        bodies = _phase4_bodies(model_cfg.vocab_size, seed=3)
+        t3 = time.perf_counter()
+        rt.get([host.complete.remote(b) for b in bodies], timeout=900)
+        wall = time.perf_counter() - t3
+        second = rt.get(host.counts.remote(), timeout=60)["served"]
+        fig["second_pass"] = figures(
+            {tuple(p): (ids, ttft) for p, ids, _lp, ttft in
+             second[len(served):]}, wall)
+        # the runtime's own cost of one actor call: a method that reads
+        # one int, called and awaited 50 times in turn
+        trips = []
+        for _ in range(50):
+            tc = time.perf_counter()
+            rt.get(host.programs.remote(), timeout=60)
+            trips.append(time.perf_counter() - tc)
+        fig["actor_call_ms_median"] = 1e3 * statistics.median(trips)
+        rt.get(host.stop.remote(), timeout=120)
+        rt.kill(host)
+        deadline = time.monotonic() + 60
+        while rt.available_resources().get("GPU") != float(n_gpus):
+            if time.monotonic() > deadline:
+                raise AssertionError(
+                    f"GPU not returned after kill: "
+                    f"{rt.available_resources()}")
+            time.sleep(0.1)
+        fig["gpu_available_after_kill"] = \
+            rt.available_resources().get("GPU")
+
+        # params_ref: phase 5's small f32 model put as CPU tensors; a new
+        # one-GPU actor gets index 0 again and serves it on the card
+        mc = _small_model()
+        cpu_params = llama.init(mc, seed=3, device="cpu")
+        small = PagedEngineConfig(model=mc, max_batch_size=4, page_size=16,
+                                  num_pages=128, max_pages_per_seq=32,
+                                  chunk_size=32, decode_window=4)
+        host = Host.remote(LLMConfig(model_id="small", engine=small),
+                           [rt.put(cpu_params)], "cuda")
+        info = rt.get(host.info.remote(), timeout=600)
+        pids.append(info["pid"])
+        if info["visible"] != "0" or info["banned"]:
+            raise AssertionError(f"params_ref actor: {info}")
+        rng = np.random.RandomState(9)
+        prompts = [[int(t) for t in rng.randint(0, 512, n)]
+                   for n in (7, 40, 95, 150)]
+        rt.get(host.reset.remote(), timeout=60)
+        rt.get([host.complete.remote({"prompt": p, "max_tokens": 12,
+                                      "logprobs": 1}) for p in prompts],
+               timeout=600)
+        counts = rt.get(host.counts.remote(), timeout=60)
+        served = {tuple(p): (ids, lp) for p, ids, lp, _t in counts["served"]}
+        from ray_tpu_torch.llm import (PagedInferenceEngine,
+                                       SamplingParams)
+        want = PagedInferenceEngine(small, cpu_params, device="cpu").generate(
+            prompts, SamplingParams(max_tokens=12, logprobs=1))
+        for p, w in zip(prompts, want):
+            ids, lp = served[tuple(p)]
+            if ids != w["token_ids"]:
+                raise AssertionError(f"params_ref actor {ids} != CPU "
+                                     f"{w['token_ids']}")
+            np.testing.assert_allclose(lp, w["logprobs"], atol=1e-4)
+        fig["params_ref"] = {"prompts": len(prompts),
+                             "get_s": info["load_s"]["get_s"],
+                             "to_device_s": info["load_s"]["to_device_s"],
+                             "launches": counts["launches"],
+                             "launches_by_family":
+                                 counts["launches_by_family"]}
+        if counts["launches"] <= 0:
+            raise AssertionError("params_ref actor: no ragged launch")
+        rt.get(host.stop.remote(), timeout=120)
+        rt.kill(host)
+
+        # a CUDA tensor put by the driver arrives in a CPU task as an
+        # equal CPU tensor
+        g = torch.Generator(device="cuda").manual_seed(7)
+        x = torch.randn(1000, 257, device="cuda", generator=g)
+        sent = {"f32": x, "bf16": x.to(torch.bfloat16)}
+
+        @rt.remote
+        def host_copy(t):
+            return ({k: (str(v.device), str(v.dtype)) for k, v in t.items()},
+                    os.environ.get("CUDA_VISIBLE_DEVICES"), t)
+
+        kinds, visible, back = rt.get(host_copy.remote(rt.put(sent)),
+                                      timeout=120)
+        if visible != "" or kinds != {"f32": ("cpu", "torch.float32"),
+                                      "bf16": ("cpu", "torch.bfloat16")}:
+            raise AssertionError(f"tensors in the CPU task: {kinds}, "
+                                 f"visible {visible!r}")
+        for k, v in sent.items():
+            if not torch.equal(back[k], v.cpu()):
+                raise AssertionError(f"{k} tensor changed through the store")
+        fig["tensor_through_store"] = kinds
+    finally:
+        rt.shutdown()
+    deadline = time.monotonic() + 30
+    while _workers_alive() and time.monotonic() < deadline:
+        time.sleep(0.2)
+    if _workers_alive():
+        raise AssertionError(f"port workers left alive: {_workers_alive()}")
+    fig["workers_seen"] = len(pids)
+    return fig
 
 
 # -- phase 4b: the dense-slot engine at full width --------------------------
@@ -2603,6 +2961,7 @@ def _busy_estimate(label: str, traced: dict, untraced: dict):
 
 
 def main():
+    t_smoke = time.perf_counter()
     card = probe()
     build_info = build()
     if "--profile-train" in sys.argv[1:]:
@@ -2618,9 +2977,11 @@ def main():
     if "--kernels" in sys.argv[1:]:
         return 0
     from ray_tpu_torch.models import llama
-    res = serve(llama.llama3_8b(), "cuda", page_size=16, num_pages=1024,
-                max_pages_per_seq=64, chunk_size=128, prefill_rows=4,
-                decode_window=8, max_batch_size=8)
+    engine_8b = dict(page_size=16, num_pages=1024, max_pages_per_seq=64,
+                     chunk_size=128, prefill_rows=4, decode_window=8,
+                     max_batch_size=8)
+    res = serve(llama.llama3_8b(), "cuda", **engine_8b)
+    greedy = res.pop("greedy")          # phase 4f's reference tokens
     print("serve: " + json.dumps(res), flush=True)
     for name, n in res["launches_by_family"].items():
         if n <= 0:
@@ -2659,10 +3020,17 @@ def main():
                 chunk_size=128, prefill_rows=4, decode_window=8,
                 max_batch_size=8)
     moe["depth"] = MOE_DEPTH_CUT
+    moe.pop("greedy")
     print("moe serve: " + json.dumps(moe), flush=True)
     for name, n in moe["launches_by_family"].items():
         if n <= 0:
             raise AssertionError(f"kernel never launched in 4e {name}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t4f = time.perf_counter()
+    actor = runtime(llama.llama3_8b(), greedy, **engine_8b)
+    actor["phase_s"] = time.perf_counter() - t4f
+    print("runtime: " + json.dumps(actor), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     agreement(_small_model())
@@ -2684,6 +3052,9 @@ def main():
         "launches_server": served["launches"],
         "launches_tenants_and_kv": tenants["launches"],
         "launches_moe_serve": moe["launches"],
+        "launches_runtime_actor": actor["launches"],
+        "launches_runtime_actor_by_family": actor["launches_by_family"],
+        "launches_runtime_params_ref": actor["params_ref"]["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in records),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -2763,6 +3134,7 @@ def main():
                 {k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
                                    "library_ms", "bound_ms", "bound_by")}
                 for r in flash["serve"]]
+    print(f"smoke: {time.perf_counter() - t_smoke:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

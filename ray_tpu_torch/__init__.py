@@ -20,6 +20,46 @@ module loads nothing heavy.
 Entry points run on the card (``device="cuda"``) and raise when CUDA is
 absent; pass ``device="cpu"`` for the plain-PyTorch versions the tests
 run.
+
+The single-host runtime (``core/``: tasks, actors, the shared-memory
+object store) is the reference's, with GPUs in the place of its TPUs: a
+spec that asks for ``num_gpus=n`` runs in a worker process that leases n
+device indices through ``CUDA_VISIBLE_DEVICES``; every other worker sees
+none.
+
+    import ray_tpu_torch as rt
+    rt.init(num_cpus=4, num_gpus=1)
+
+    @rt.remote(num_gpus=1)
+    class Server: ...
+
+The core API below is loaded at first attribute access (PEP 562), so
+``import ray_tpu_torch`` stays light.
 """
+import importlib
 
 __version__ = "0.1.0"
+
+_CORE_API = (
+    "available_resources", "cancel", "cluster_resources", "get",
+    "get_actor", "get_runtime_context", "init",
+    "is_initialized", "kill", "kv_del", "kv_get", "kv_keys", "kv_put",
+    "nodes", "put", "remote", "shutdown", "timeline", "wait",
+)
+
+__all__ = [
+    "__version__", "exceptions", *_CORE_API, "ObjectRef", "ActorHandle",
+    "util",
+]
+
+
+def __getattr__(name):
+    if name in _CORE_API:
+        return getattr(importlib.import_module(".core.api", __name__), name)
+    if name == "ObjectRef":
+        return importlib.import_module(".core.ref", __name__).ObjectRef
+    if name == "ActorHandle":
+        return importlib.import_module(".core.actor", __name__).ActorHandle
+    if name in ("exceptions", "util"):
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

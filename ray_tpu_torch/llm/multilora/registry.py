@@ -11,13 +11,12 @@ version with one lookup and fetches the payload with one store get.
 A fetch of a version the keep window already reclaimed raises KeyError
 and the caller re-resolves — by then the metadata names a newer version.
 
-The port has no runtime yet, so this is the reference's clusterless
-mode: payloads go to an in-process store shared by the module (or to
-the ``store`` a caller passes, with the objstore client's put/get/delete
-surface), and metadata to an in-process dict, so train -> publish ->
-serve loops run in one process. The clustered branch — the runtime's
-object store and the head's shared directory service — comes with the
-port of the runtime.
+This is the reference's clusterless mode: payloads go to an in-process
+store shared by the module (or to the ``store`` a caller passes, with
+the objstore client's put/get/delete surface), and metadata to an
+in-process dict, so train -> publish -> serve loops run in one process.
+The clustered branch — the runtime's object store and the head's shared
+directory service — is not ported yet.
 """
 from __future__ import annotations
 

@@ -31,9 +31,14 @@ prefix import.
 one per config); ``serve.run(..., local_testing_mode=True)`` runs it in
 this process, the only Serve mode the port has.
 
-Off in the port, each until its part is ported: cluster Serve and the
-object store (``params_ref`` is the params dict itself, or None), and
-the cluster prefix directory (``set_replica_handle`` is a no-op).
+``params_ref`` is an ``ObjectRef`` of the params (as in the reference:
+the server ``get``s it from the runtime's object store, then carries the
+tensors onto its device), the params dict itself, or None (seeded random
+weights). ``LLMServer`` runs as an actor of the port's runtime: an actor
+with ``num_gpus=1`` leases one card.
+
+Off in the port, each until its part is ported: cluster Serve, and the
+cluster prefix directory (``set_replica_handle`` is a no-op).
 """
 from __future__ import annotations
 
@@ -80,12 +85,23 @@ class LLMConfig:
     warmup_sampled: bool = False
 
 
+def _to_device(tree, device):
+    """A params tree (dicts / lists / tuples of tensors) on ``device``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_device(v, device) for v in tree)
+    return tree
+
+
 class LLMServer:
     """Deployment callable: background engine thread + request futures
-    (reference: llm_server.py:409). ``params_ref`` is the engine's params
-    dict (None: seeded random weights); ``device`` defaults to CUDA and
-    raises when it is absent — pass ``device="cpu"`` for the plain
-    versions."""
+    (reference: llm_server.py:409). ``params_ref`` is an ObjectRef of the
+    engine's params, the params dict itself, or None (seeded random
+    weights); ``device`` defaults to CUDA and raises when it is absent —
+    pass ``device="cpu"`` for the plain versions."""
 
     def __init__(self, cfg: LLMConfig, params_ref=None, device="cuda"):
         from ..core.usage import record_library_usage
@@ -98,7 +114,22 @@ class LLMServer:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.engine_cfg = cfg.engine or PagedEngineConfig(
             model=llama.llama_tiny())
-        self.engine = self._build_engine(params_ref)
+        params = params_ref
+        # seconds of the params_ref route: the store's get, then the copy
+        # onto self.device (empty for a dict or seeded weights)
+        self.load_s: dict = {}
+        from ..core.ref import ObjectRef
+        if isinstance(params_ref, ObjectRef):
+            from ..core.api import get
+            t0 = time.perf_counter()
+            params = get(params_ref)
+            t1 = time.perf_counter()
+            params = _to_device(params, self.device)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.load_s = {"get_s": t1 - t0,
+                           "to_device_s": time.perf_counter() - t1}
+        self.engine = self._build_engine(params)
         self.base_params = self.engine.params
         self.model_id = cfg.model_id
         # adapter id -> engine over merged weights; the OrderedDict is the
@@ -384,7 +415,8 @@ class LLMServer:
 def build_llm_deployment(cfg: LLMConfig, params_ref=None, device="cuda"):
     """LLMConfig -> a Serve Application over one ``LLMServer``
     (reference: build_openai_app / LLMDeployment, llm_server.py:704).
-    ``params_ref`` is the params dict (or None: seeded random weights);
+    ``params_ref`` is an ObjectRef of the params, the params dict, or
+    None (seeded random weights);
     ``device`` reaches ``LLMServer`` (``"cpu"`` for the plain versions).
     The spec keeps the reference's name, replica count, request cap and
     accelerator request, which only cluster Serve reads."""

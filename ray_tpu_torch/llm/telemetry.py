@@ -15,8 +15,10 @@ deployments stay separable; gauges additionally carry a ``proc``
 it, replicas of the same engine kind would overwrite each other. When
 tracing is enabled each request carries the trace context it was
 submitted under (``util/tracing.py``); the reference's ``llm.request``
-span, recorded into its runtime's timeline, waits for the runtime's
-port, as does the exit hook that zeroes a replica's gauges.
+span, recorded into its runtime's timeline, is not ported yet. Under the
+port's runtime a worker's registry flushes to the head
+(``util/metrics.py``), and a worker's exit zeroes its per-proc gauges
+first (``zero_proc_gauges``).
 
 Metric names (all prefixed ``rtpu_llm_``):
   ttft_seconds           histogram  submit -> first generated token
@@ -109,6 +111,18 @@ def _proc() -> str:
 
 def _counter(name, desc, tag_keys=("engine",)):
     return cached_metric(Counter, name, desc, tag_keys=tag_keys)
+
+
+def zero_proc_gauges() -> None:
+    """Exit-path hook (core/worker.py): zero this process's per-proc
+    gauge series before the final flush, so a downscaled replica's last
+    values don't pin the head's merged store forever. Best-effort — a
+    SIGKILLed replica skips it."""
+    try:
+        from ..util import metrics as um
+        um.zero_gauges(("proc", _proc()))
+    except Exception:
+        pass  # lost telemetry on exit is acceptable
 
 
 def _never_raise(fn):

@@ -7,11 +7,11 @@ Deployments are declarative specs; ``.bind()`` composes them into an
 application DAG whose non-ingress nodes are injected into their parents
 as handles (reference: model composition via handle passing).
 
-The port has no runtime yet, so only the reference's local testing mode
-runs an application: ``run(app, local_testing_mode=True)`` builds it in
-this process (``local_mode.py``). Cluster Serve — the controller,
-replica actors, the HTTP proxy and ``update_user_config`` — waits for
-the runtime and raises ``NotImplementedError`` instead of running
+Only the reference's local testing mode runs an application in the
+port: ``run(app, local_testing_mode=True)`` builds it in this process
+(``local_mode.py``). Cluster Serve — the controller, replica actors over
+the port's runtime, the HTTP proxy and ``update_user_config`` — is not
+ported yet and raises ``NotImplementedError`` instead of running
 anything in its place.
 """
 from __future__ import annotations

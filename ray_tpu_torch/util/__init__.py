@@ -1,4 +1,6 @@
 """ray_tpu_torch.util — metrics (``metrics``), trace-context propagation
-(``tracing``) and step profiling (``profiling``), the port's copies of
-the matching ``ray_tpu.util`` modules.
+(``tracing``), step profiling (``profiling``), placement groups
+(``placement_group``) and scheduling strategies
+(``scheduling_strategies``): the port's copies of the matching
+``ray_tpu.util`` modules.
 """

@@ -1,15 +1,16 @@
 """User-defined metrics: Counter / Gauge / Histogram.
 
-Counterpart of ``ray_tpu/util/metrics.py`` (reference parity:
-python/ray/util/metrics.py — Counter:117, Gauge:192, Histogram:249).
+Reference parity: python/ray/util/metrics.py (Counter:117, Gauge:192,
+Histogram:249 — tagged application metrics flowing to the cluster's
+Prometheus endpoint via each process's metrics agent).
 
-Every process keeps a local registry. In the reference a background
-flusher ships deltas to the cluster head; the port has no runtime yet,
-so it keeps the reference's no-runtime behaviour: nothing is shipped,
-values accumulate locally, and ``collect_store()`` /
-``local_store()`` read this process's registry (``prometheus_lines``
-renders it as Prometheus text). The flusher and its exit-path hooks
-wait for the runtime's port.
+TPU-first shape: there is no per-node metrics agent; every process keeps
+a local registry and a background flusher ships DELTAS to the head over
+the existing control connection (~2s cadence, one small message), where
+they merge into the head's registry: counters and histogram buckets SUM
+across processes, gauges are last-write-wins. The head's Prometheus text
+(`state._prometheus_text`, dashboard `/metrics`) appends them after the
+built-in runtime metrics.
 
     from ray_tpu_torch.util.metrics import Counter, Gauge, Histogram
     requests = Counter("app_requests", description="...",
@@ -20,11 +21,13 @@ from __future__ import annotations
 
 import re
 import threading
+import time
 from typing import Optional, Sequence
 
 _lock = threading.Lock()
 # name -> _MetricDef; (name, tags) -> value/buckets live in the defs
 _registry: dict[str, "Metric"] = {}
+_flusher_started = False
 # name -> Metric singletons handed out by cached_metric()
 _metric_cache: dict = {}
 
@@ -56,6 +59,7 @@ class Metric:
         self.description = description
         self.tag_keys = tuple(tag_keys)
         self._values: dict[tuple, float] = {}
+        self._dirty: set[tuple] = set()
         with _lock:
             prev = _registry.get(name)
             if prev is not None and (
@@ -71,6 +75,8 @@ class Metric:
                 # share storage: re-constructing the same metric in the
                 # same process must not fork the series
                 self._values = prev._values
+                self._dirty = prev._dirty
+        _ensure_flusher()
 
     # -- recording (subclasses call) --------------------------------------
 
@@ -80,6 +86,37 @@ class Metric:
                 self._values[key] = self._values.get(key, 0.0) + value
             else:
                 self._values[key] = value
+            self._dirty.add(key)
+
+    # -- flush protocol ----------------------------------------------------
+
+    def _drain(self) -> list:
+        """(kind, name, desc, key, value, add) rows to ship; counters/
+        histogram buckets ship deltas, gauges ship values."""
+        out = []
+        with _lock:
+            for key in self._dirty:
+                val = self._values[key]
+                if self.KIND in ("counter", "histogram"):
+                    out.append((self.KIND, self.name, self.description,
+                                key, val, True))
+                    self._values[key] = 0.0  # delta shipped
+                else:
+                    out.append((self.KIND, self.name, self.description,
+                                key, val, False))
+            self._dirty.clear()
+        return out
+
+    def _restore(self, rows: list) -> None:
+        """Put undelivered drained rows back (flush failed: monotonic
+        counters must not silently undercount)."""
+        with _lock:
+            for kind, _n, _d, key, value, add in rows:
+                if add:
+                    self._values[key] = self._values.get(key, 0.0) + value
+                elif key not in self._dirty:
+                    self._values.setdefault(key, value)
+                self._dirty.add(key)
 
 
 class Counter(Metric):
@@ -125,6 +162,7 @@ class Histogram(Metric):
                 key = base + (("le", repr(b)),)
                 if value <= b:
                     self._values[key] = self._values.get(key, 0.0) + 1.0
+                    self._dirty.add(key)
                 elif key not in self._values:
                     # materialize empty lower buckets (standard client-lib
                     # behavior): quantile estimation interpolates between
@@ -132,15 +170,114 @@ class Histogram(Metric):
                     # it anchor at 0 and systematically underestimate —
                     # and an all-above-max series would render +Inf only
                     self._values[key] = 0.0
+                    self._dirty.add(key)
             ikey = base + (("le", "+Inf"),)
             self._values[ikey] = self._values.get(ikey, 0.0) + 1.0
+            self._dirty.add(ikey)
             skey = base + (("__sum__", ""),)
             self._values[skey] = self._values.get(skey, 0.0) + value
+            self._dirty.add(skey)
+
+
+# --------------------------------------------------------------------- #
+# flushing to the head
+# --------------------------------------------------------------------- #
+
+def _flush_once() -> bool:
+    from ..core import runtime as rt_mod
+    rt = rt_mod.get_runtime_if_exists()
+    if rt is None or not (isinstance(rt, rt_mod.Runtime)
+                          or hasattr(rt, "send")):
+        return False  # nothing drained: deltas keep accumulating locally
+    with _lock:
+        metrics = list(_registry.values())
+    per_metric = [(m, m._drain()) for m in metrics]
+    rows = [r for _, rs in per_metric for r in rs]
+    if not rows:
+        return True
+    if isinstance(rt, rt_mod.Runtime):
+        rt.merge_user_metrics(rows)
+        return True
+    try:
+        rt.send({"t": "user_metrics", "rows": rows})
+        return True
+    except Exception:
+        # delivery failed (head restarting?): restore the deltas so the
+        # next flush re-ships them
+        for m, rs in per_metric:
+            m._restore(rs)
+        return False
+
+
+def _ensure_flusher():
+    global _flusher_started
+    with _lock:
+        if _flusher_started:
+            return
+        _flusher_started = True
+
+    def loop():
+        while True:
+            time.sleep(2.0)
+            try:
+                _flush_once()
+            except Exception:
+                pass  # flusher survives transient head loss
+
+    threading.Thread(target=loop, daemon=True,
+                     name="rtpu-user-metrics").start()
+
+
+def flush() -> None:
+    """Force an immediate flush (tests / pre-shutdown)."""
+    _flush_once()
+
+
+def shutdown_flush() -> None:
+    """Best-effort final flush, wired into runtime teardown: counter
+    deltas recorded since the last 2s flush tick would otherwise be lost
+    when the process exits. Never raises — teardown must proceed."""
+    try:
+        _flush_once()
+    except Exception:
+        pass  # teardown proceeds regardless (docstring)
+
+
+def zero_gauges(label: tuple) -> None:
+    """Set every gauge series carrying the given (key, value) label pair
+    to 0 and mark it for shipping. Exit-path cleanup for per-process
+    gauges: the head store is last-write-wins with no owner left to
+    update a dead process's series, so without this a killed replica's
+    last kv_utilization/occupancy values pin /metrics forever."""
+    with _lock:
+        for m in _registry.values():
+            if m.KIND != "gauge":
+                continue
+            for key in list(m._values):
+                if label in key:
+                    m._values[key] = 0.0
+                    m._dirty.add(key)
+
+
+def mark_gauges_dirty() -> None:
+    """Re-mark every gauge series dirty. Called after a worker/driver
+    reconnects to a restarted head: gauges are last-write-wins and live
+    only in the head's merged store, which the restart lost — without
+    this they vanish from /metrics until the next set(). Counters and
+    histogram buckets need no help (their deltas keep accumulating
+    locally until a flush succeeds)."""
+    with _lock:
+        for m in _registry.values():
+            if m.KIND == "gauge":
+                m._dirty.update(m._values.keys())
 
 
 def local_store() -> dict:
     """This process's registry rendered in head-store format
-    ({name: {kind, desc, series}}), which prometheus_lines() renders."""
+    ({name: {kind, desc, series}}). Used when no runtime exists (bench
+    runs, unit tests) so metrics_summary()/prometheus_lines() work off
+    the local registry; counters that already flushed to a head are not
+    included (they drained)."""
     with _lock:
         return {name: {"kind": m.KIND, "desc": m.description,
                        "series": dict(m._values)}
@@ -199,10 +336,25 @@ def histogram_quantiles(buckets: dict, total: float,
 
 
 def collect_store() -> dict:
-    """The merged user-metric store. The reference flushes and reads the
-    head's tables when a runtime exists; the port has none yet, so this
-    is the reference's no-runtime branch: this process's registry."""
-    return local_store()
+    """The merged user-metric store: head tables on the head driver, the
+    user_metrics_dump RPC from a remote driver/worker, this process's
+    registry when no runtime exists (bench / unit tests). The shared
+    entry point behind serve.metrics_summary() and
+    rl.podracer.metrics_summary()."""
+    from ..core import runtime as rt_mod
+    flush()   # ship this process's deltas first
+    rt = rt_mod.get_runtime_if_exists()
+    if rt is None:
+        return local_store()
+    if isinstance(rt, rt_mod.Runtime):
+        with rt.lock:
+            return {n: {"kind": r["kind"], "desc": r["desc"],
+                        "series": dict(r["series"])}
+                    for n, r in rt.user_metrics.items()}
+    try:
+        return rt._rpc("user_metrics_dump")
+    except Exception:
+        return local_store()
 
 
 def histogram_stats(rec: Optional[dict]) -> Optional[dict]:

@@ -69,9 +69,63 @@ def test_port_modules_load_no_jax_and_no_ray_tpu():
                  "ray_tpu_torch.llm.multilora",
                  "ray_tpu_torch.llm.multilora.slots",
                  "ray_tpu_torch.llm.multilora.registry",
-                 "ray_tpu_torch.llm.multilora.manager"):
+                 "ray_tpu_torch.llm.multilora.manager",
+                 # the single-host runtime
+                 "ray_tpu_torch.exceptions", "ray_tpu_torch.core.api",
+                 "ray_tpu_torch.core.runtime", "ray_tpu_torch.core.worker",
+                 "ray_tpu_torch.core.actor",
+                 "ray_tpu_torch.core.remote_function",
+                 "ray_tpu_torch.core.object_store",
+                 "ray_tpu_torch.core.native.build",
+                 "ray_tpu_torch.core.ref", "ray_tpu_torch.core.task_spec",
+                 "ray_tpu_torch.core.protocol",
+                 "ray_tpu_torch.core.completion",
+                 "ray_tpu_torch.core.stacks",
+                 "ray_tpu_torch.core.directory",
+                 "ray_tpu_torch.core.pubsub",
+                 "ray_tpu_torch.core.gcs_store",
+                 "ray_tpu_torch.core.memory_monitor",
+                 "ray_tpu_torch.core.job_manager",
+                 "ray_tpu_torch.core.runtime_env",
+                 "ray_tpu_torch.obs", "ray_tpu_torch.obs.scraper",
+                 "ray_tpu_torch.obs.tsdb", "ray_tpu_torch.obs.slo",
+                 "ray_tpu_torch.util.placement_group",
+                 "ray_tpu_torch.util.scheduling_strategies"):
         assert want in modules, (want, sorted(modules))
     assert lines["BANNED"] == "", lines["BANNED"]
+
+
+def test_port_worker_processes_load_no_jax_and_no_ray_tpu():
+    """A worker of the port's runtime (a CPU task, and an actor holding
+    a fake GPU) has neither JAX nor the reference package in
+    sys.modules, though the driver here (this test process) has both."""
+    import jax  # noqa: F401 — loaded in the driver on purpose
+    import ray_tpu  # noqa: F401
+    import ray_tpu_torch
+    if ray_tpu_torch.is_initialized():
+        ray_tpu_torch.shutdown()
+    ray_tpu_torch.init(num_cpus=1, num_gpus=1,
+                       object_store_memory=64 * 1024 * 1024)
+    try:
+        def loaded():
+            import sys as _sys
+            return os.environ["CUDA_VISIBLE_DEVICES"], sorted(
+                n for n in _sys.modules
+                if any(n == p or n.startswith(p + ".")
+                       for p in ("jax", "jaxlib", "ml_dtypes", "ray_tpu")))
+
+        task = ray_tpu_torch.remote(loaded)
+
+        @ray_tpu_torch.remote(num_gpus=1)
+        class Holder:
+            def report(self):
+                return loaded()
+
+        assert ray_tpu_torch.get(task.remote(), timeout=60) == ("", [])
+        assert ray_tpu_torch.get(Holder.remote().report.remote(),
+                                 timeout=60) == ("0", [])
+    finally:
+        ray_tpu_torch.shutdown()
 
 
 def test_banned_name_check_is_exact():
