@@ -177,12 +177,43 @@ and prints no result line):
    actor's start-up (spawn, weights, warmup seconds), tokens/s, TTFT,
    launches, the median round trip of an actor call, and the params_ref
    actor's get and copy onto the card (seconds, timed inside LLMServer).
+4g. cluster: the runtime across hosts, on this one machine. A head with
+   no GPU (init(num_cpus=2, num_gpus=0)) and a node agent started as
+   `python -m ray_tpu_torch.core.node_agent --num-cpus 2 --num-gpus 1
+   --own-store` against head_address(), its store sized to at most half
+   of /dev/shm's free bytes (printed). nodes() must show the GPU on the
+   agent's node only. 4f's actor, named and pinned to the agent's node
+   (NodeAffinitySchedulingStrategy, soft=False), serves Llama-3-8B at
+   full width from a worker the agent forked with the index the head
+   leased it: it must report CUDA_VISIBLE_DEVICES "0", the card, the
+   agent node's RTPU_NODE_ID and neither jax nor ray_tpu; phase 4's mix
+   must give phase 4's greedy tokens bit for bit, the ragged kernel must
+   launch in both families inside it, and available_resources()["GPU"]
+   must read 0 while it lives. A second driver (a script written to a
+   temporary file, loading neither jax nor ray_tpu) attaches with
+   init(address=<cluster.json>), takes the actor with get_actor and
+   sends phase 4's first greedy request: its tokens must equal phase
+   4's. After kill the agent's node has its GPU back; a new one-GPU
+   actor there gets phase 5's small f32 model through an ObjectRef put
+   in the head's store, pulled into the agent's own store (tokens equal
+   to the CPU engine's, logprobs within 1e-4). One bf16 tensor (its host
+   copy; 1 GiB at most, and a quarter of the agent's store) goes to a
+   CPU task on the agent's node and comes back as its result: both
+   checksums must equal the driver's. Each side gets it twice (the
+   first get pulls the frame and unpickles it, the second unpickles the
+   local copy), so the pull's own rate is bytes over their difference. Last the agent is stopped: its
+   node must be marked dead and its GPU must leave cluster_resources()
+   within health_check_timeout_s plus 10 s; after shutdown no worker or
+   agent of the port and no /dev/shm/ray_tpu_torch_* file may be left.
+   Prints the agent's registration, the actor's start-up, tokens/s,
+   TTFT, launches, the median actor-call round trip (now over TCP), the
+   second driver's attach, and both transfers' bytes, seconds and GB/s.
 5b. dense agreement: phase 5's small f32 model through InferenceEngine on
    the card and on the CPU gives identical greedy tokens; the f32
    forward kernel's launches are counted as in phase 7.
 
-Phases run in the order 1, 2, 3, 3c, 3b, 4, 4b, 4c, 4d, 4e, 4f, 5, 5b,
-6, 7, and the total seconds are printed before the kernels' record.
+Phases run in the order 1, 2, 3, 3c, 3b, 4, 4b, 4c, 4d, 4e, 4f, 4g, 5,
+5b, 6, 7, and the total seconds are printed before the kernels' record.
 The
 second-to-last line is the card from nvidia-smi, the one before it the
 kernels' JSON record, and the last line {"ok": true, "device": ...}.
@@ -1327,6 +1358,7 @@ def _server_host(rt):
                                else None),
                     "device_count": torch.cuda.device_count(),
                     "pid": os.getpid(), "banned": _banned_modules(),
+                    "node": os.environ.get("RTPU_NODE_ID"),
                     "times": self.times, "load_s": self.srv.load_s,
                     "programs": self.programs()}
 
@@ -1351,9 +1383,9 @@ def _server_host(rt):
     return ServerHost
 
 
-def _workers_alive() -> list:
-    """Port worker processes that are children of this process and not
-    yet reaped (zombies count as gone)."""
+def _port_procs() -> list:
+    """Live processes of the port's runtime on this machine (workers and
+    node agents, whoever their parent is; zombies count as gone)."""
     alive = []
     for pid in os.listdir("/proc"):
         if not pid.isdigit():
@@ -1362,13 +1394,116 @@ def _workers_alive() -> list:
             with open(f"/proc/{pid}/cmdline", "rb") as f:
                 cmd = f.read().replace(b"\0", b" ")
             with open(f"/proc/{pid}/stat") as f:
-                stat = f.read().rsplit(")", 1)[1].split()
+                state = f.read().rsplit(")", 1)[1].split()[0]
         except OSError:
             continue
-        if b"ray_tpu_torch.core.worker" in cmd and stat[0] != "Z" and \
-                int(stat[1]) == os.getpid():
+        if state != "Z" and (b"ray_tpu_torch.core.worker" in cmd or
+                             b"ray_tpu_torch.core.node_agent" in cmd):
             alive.append(int(pid))
     return alive
+
+
+def _mix_figures(served: dict, wall: float) -> dict:
+    """Tokens/s and TTFT of one mix: `served` maps prompt -> (ids, ttft)."""
+    n_out = sum(len(ids) for ids, _t in served.values())
+    ttft = sorted(t for _ids, t in served.values())
+    return {"generate_s": wall, "tokens_out": n_out,
+            "tokens_per_s": n_out / wall,
+            "ttft_median_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1]}
+
+
+def _serve_mix(rt, host, bodies: list, greedy: dict, label: str):
+    """Phase 4's mix as concurrent calls to a ServerHost, between its
+    reset (counts at 0) and its counts: every response well formed, the
+    ragged kernel launched in both families inside the actor, and every
+    greedy request's tokens equal to phase 4's. Returns (counts, served
+    as prompt -> (ids, ttft), wall seconds)."""
+    n_greedy = sum(1 for b in bodies if not b["temperature"])
+    if not n_greedy or len(greedy) != n_greedy:
+        raise AssertionError(f"phase 4 gave {len(greedy)} greedy "
+                             f"results for {n_greedy} greedy requests")
+    rt.get(host.reset.remote(), timeout=60)
+    t0 = time.perf_counter()
+    resps = rt.get([host.complete.remote(b) for b in bodies], timeout=900)
+    wall = time.perf_counter() - t0
+    counts = rt.get(host.counts.remote(), timeout=60)
+    for r in resps:
+        if r["object"] != "text_completion" or not r["choices"]:
+            raise AssertionError(f"bad response {r}")
+    for name, n in counts["launches_by_family"].items():
+        if n <= 0:
+            raise AssertionError(f"{label}: the ragged kernel never "
+                                 f"launched in {name} inside the actor")
+    served = {tuple(p): (ids, ttft)
+              for p, ids, _lp, ttft in counts["served"]}
+    if len(served) != len(bodies):
+        raise AssertionError(f"{len(served)} results for "
+                             f"{len(bodies)} requests")
+    for i, (prompt, want) in enumerate(greedy.items()):
+        got = served[prompt][0]
+        if got != want:
+            raise AssertionError(f"{label} greedy request {i}: actor {got} "
+                                 f"!= phase 4 {want}")
+    return counts, served, wall
+
+
+def _actor_call_ms(rt, host) -> float:
+    """The runtime's own cost of one actor call: a method that reads one
+    int, called and awaited 50 times in turn; the median, in ms."""
+    trips = []
+    for _ in range(50):
+        tc = time.perf_counter()
+        rt.get(host.programs.remote(), timeout=60)
+        trips.append(time.perf_counter() - tc)
+    return 1e3 * statistics.median(trips)
+
+
+def _params_ref_actor(rt, Host, label: str, **options) -> dict:
+    """Phase 5's small f32 model put by the driver as CPU tensors and
+    served on the card by a new one-GPU actor (`options` place it) that
+    gets it through an ObjectRef: its greedy tokens must equal a CPU
+    engine's, its logprobs within 1e-4. Returns the actor's figures."""
+    from ray_tpu_torch.llm import (LLMConfig, PagedEngineConfig,
+                                   PagedInferenceEngine, SamplingParams)
+    from ray_tpu_torch.models import llama
+    mc = _small_model()
+    cpu_params = llama.init(mc, seed=3, device="cpu")
+    small = PagedEngineConfig(model=mc, max_batch_size=4, page_size=16,
+                              num_pages=128, max_pages_per_seq=32,
+                              chunk_size=32, decode_window=4)
+    host = Host.options(**options).remote(
+        LLMConfig(model_id="small", engine=small), [rt.put(cpu_params)],
+        "cuda")
+    info = rt.get(host.info.remote(), timeout=600)
+    if info["visible"] != "0" or info["banned"]:
+        raise AssertionError(f"{label} params_ref actor: {info}")
+    rng = np.random.RandomState(9)
+    prompts = [[int(t) for t in rng.randint(0, 512, n)]
+               for n in (7, 40, 95, 150)]
+    rt.get(host.reset.remote(), timeout=60)
+    rt.get([host.complete.remote({"prompt": p, "max_tokens": 12,
+                                  "logprobs": 1}) for p in prompts],
+           timeout=600)
+    counts = rt.get(host.counts.remote(), timeout=60)
+    served = {tuple(p): (ids, lp) for p, ids, lp, _t in counts["served"]}
+    want = PagedInferenceEngine(small, cpu_params, device="cpu").generate(
+        prompts, SamplingParams(max_tokens=12, logprobs=1))
+    for p, w in zip(prompts, want):
+        ids, lp = served[tuple(p)]
+        if ids != w["token_ids"]:
+            raise AssertionError(f"{label} params_ref actor {ids} != CPU "
+                                 f"{w['token_ids']}")
+        np.testing.assert_allclose(lp, w["logprobs"], atol=1e-4)
+    if counts["launches"] <= 0:
+        raise AssertionError(f"{label} params_ref actor: no ragged launch")
+    rt.get(host.stop.remote(), timeout=120)
+    rt.kill(host)
+    return {"prompts": len(prompts), "pid": info["pid"],
+            "node": info["node"],
+            "get_s": info["load_s"]["get_s"],
+            "to_device_s": info["load_s"]["to_device_s"],
+            "launches": counts["launches"],
+            "launches_by_family": counts["launches_by_family"]}
 
 
 def runtime(model_cfg, greedy: dict, **engine_kw) -> dict:
@@ -1378,7 +1513,6 @@ def runtime(model_cfg, greedy: dict, **engine_kw) -> dict:
     raises on any failure."""
     import ray_tpu_torch as rt
     from ray_tpu_torch.llm import LLMConfig, PagedEngineConfig
-    from ray_tpu_torch.models import llama
     n_gpus = torch.cuda.device_count()
     card = torch.cuda.get_device_name(0)
     fig = {}
@@ -1428,48 +1562,13 @@ def runtime(model_cfg, greedy: dict, **engine_kw) -> dict:
         if gpu_held != 0.0:
             raise AssertionError(f"GPU available {gpu_held} while the "
                                  f"actor holds the card")
-        bodies = _phase4_bodies(model_cfg.vocab_size)
-        n_greedy = sum(1 for b in bodies if not b["temperature"])
-        if not n_greedy or len(greedy) != n_greedy:
-            raise AssertionError(f"phase 4 gave {len(greedy)} greedy "
-                                 f"results for {n_greedy} greedy requests")
-        rt.get(host.reset.remote(), timeout=60)
-        t2 = time.perf_counter()
-        resps = rt.get([host.complete.remote(b) for b in bodies],
-                       timeout=900)
-        wall = time.perf_counter() - t2
-        counts = rt.get(host.counts.remote(), timeout=60)
-        for r in resps:
-            if r["object"] != "text_completion" or not r["choices"]:
-                raise AssertionError(f"bad response {r}")
-        for name, n in counts["launches_by_family"].items():
-            if n <= 0:
-                raise AssertionError(f"4f: the ragged kernel never "
-                                     f"launched in {name} inside the actor")
-        served = {tuple(p): (ids, ttft)
-                  for p, ids, _lp, ttft in counts["served"]}
-        if len(served) != len(bodies):
-            raise AssertionError(f"{len(served)} results for "
-                                 f"{len(bodies)} requests")
-        for i, (prompt, want) in enumerate(greedy.items()):
-            got = served[prompt][0]
-            if got != want:
-                raise AssertionError(f"4f greedy request {i}: actor {got} "
-                                     f"!= phase 4 {want}")
-
-        def figures(served, wall):
-            n_out = sum(len(ids) for ids, _t in served.values())
-            ttft = sorted(t for _ids, t in served.values())
-            return {"generate_s": wall, "tokens_out": n_out,
-                    "tokens_per_s": n_out / wall,
-                    "ttft_median_s": ttft[len(ttft) // 2],
-                    "ttft_max_s": ttft[-1]}
-
+        counts, served, wall = _serve_mix(
+            rt, host, _phase4_bodies(model_cfg.vocab_size), greedy, "4f")
         fig.update({
             "launches": counts["launches"],
             "launches_by_family": counts["launches_by_family"],
             "greedy_equal_phase4": len(greedy),
-            "first_pass": figures(served, wall),
+            "first_pass": _mix_figures(served, wall),
             "programs_after_first_pass": counts["programs"],
             "gpu_available_while_held": gpu_held})
         # phase 4's second mix (seed 3), timed only: the keys captured in
@@ -1479,17 +1578,10 @@ def runtime(model_cfg, greedy: dict, **engine_kw) -> dict:
         rt.get([host.complete.remote(b) for b in bodies], timeout=900)
         wall = time.perf_counter() - t3
         second = rt.get(host.counts.remote(), timeout=60)["served"]
-        fig["second_pass"] = figures(
+        fig["second_pass"] = _mix_figures(
             {tuple(p): (ids, ttft) for p, ids, _lp, ttft in
              second[len(served):]}, wall)
-        # the runtime's own cost of one actor call: a method that reads
-        # one int, called and awaited 50 times in turn
-        trips = []
-        for _ in range(50):
-            tc = time.perf_counter()
-            rt.get(host.programs.remote(), timeout=60)
-            trips.append(time.perf_counter() - tc)
-        fig["actor_call_ms_median"] = 1e3 * statistics.median(trips)
+        fig["actor_call_ms_median"] = _actor_call_ms(rt, host)
         rt.get(host.stop.remote(), timeout=120)
         rt.kill(host)
         deadline = time.monotonic() + 60
@@ -1504,46 +1596,9 @@ def runtime(model_cfg, greedy: dict, **engine_kw) -> dict:
 
         # params_ref: phase 5's small f32 model put as CPU tensors; a new
         # one-GPU actor gets index 0 again and serves it on the card
-        mc = _small_model()
-        cpu_params = llama.init(mc, seed=3, device="cpu")
-        small = PagedEngineConfig(model=mc, max_batch_size=4, page_size=16,
-                                  num_pages=128, max_pages_per_seq=32,
-                                  chunk_size=32, decode_window=4)
-        host = Host.remote(LLMConfig(model_id="small", engine=small),
-                           [rt.put(cpu_params)], "cuda")
-        info = rt.get(host.info.remote(), timeout=600)
-        pids.append(info["pid"])
-        if info["visible"] != "0" or info["banned"]:
-            raise AssertionError(f"params_ref actor: {info}")
-        rng = np.random.RandomState(9)
-        prompts = [[int(t) for t in rng.randint(0, 512, n)]
-                   for n in (7, 40, 95, 150)]
-        rt.get(host.reset.remote(), timeout=60)
-        rt.get([host.complete.remote({"prompt": p, "max_tokens": 12,
-                                      "logprobs": 1}) for p in prompts],
-               timeout=600)
-        counts = rt.get(host.counts.remote(), timeout=60)
-        served = {tuple(p): (ids, lp) for p, ids, lp, _t in counts["served"]}
-        from ray_tpu_torch.llm import (PagedInferenceEngine,
-                                       SamplingParams)
-        want = PagedInferenceEngine(small, cpu_params, device="cpu").generate(
-            prompts, SamplingParams(max_tokens=12, logprobs=1))
-        for p, w in zip(prompts, want):
-            ids, lp = served[tuple(p)]
-            if ids != w["token_ids"]:
-                raise AssertionError(f"params_ref actor {ids} != CPU "
-                                     f"{w['token_ids']}")
-            np.testing.assert_allclose(lp, w["logprobs"], atol=1e-4)
-        fig["params_ref"] = {"prompts": len(prompts),
-                             "get_s": info["load_s"]["get_s"],
-                             "to_device_s": info["load_s"]["to_device_s"],
-                             "launches": counts["launches"],
-                             "launches_by_family":
-                                 counts["launches_by_family"]}
-        if counts["launches"] <= 0:
-            raise AssertionError("params_ref actor: no ragged launch")
-        rt.get(host.stop.remote(), timeout=120)
-        rt.kill(host)
+        fig["params_ref"] = _params_ref_actor(rt, Host, "4f")
+        pids.append(fig["params_ref"].pop("pid"))
+        fig["params_ref"].pop("node")
 
         # a CUDA tensor put by the driver arrives in a CPU task as an
         # equal CPU tensor
@@ -1569,11 +1624,270 @@ def runtime(model_cfg, greedy: dict, **engine_kw) -> dict:
     finally:
         rt.shutdown()
     deadline = time.monotonic() + 30
-    while _workers_alive() and time.monotonic() < deadline:
+    while _port_procs() and time.monotonic() < deadline:
         time.sleep(0.2)
-    if _workers_alive():
-        raise AssertionError(f"port workers left alive: {_workers_alive()}")
+    if _port_procs():
+        raise AssertionError(f"port workers left alive: {_port_procs()}")
     fig["workers_seen"] = len(pids)
+    return fig
+
+
+# -- phase 4g: the runtime across hosts --------------------------------------
+
+# the second driver of phase 4g: a process of its own that attaches to the
+# running head through its cluster file, as a user's second program would
+_SECOND_DRIVER = """
+import json, sys, time
+t0 = time.perf_counter()
+import ray_tpu_torch as rt
+rt.init(address=sys.argv[1])
+attach_s = time.perf_counter() - t0
+host = rt.get_actor(sys.argv[2])
+with open(sys.argv[3]) as f:
+    body = json.load(f)
+t1 = time.perf_counter()
+rt.get(host.complete.remote(body), timeout=600)
+call_s = time.perf_counter() - t1
+served = rt.get(host.counts.remote(), timeout=60)["served"]
+tokens = [ids for p, ids, _lp, _t in served if p == body["prompt"]][-1]
+banned = sorted(n for n in sys.modules
+                if n.split(".")[0] in ("jax", "jaxlib", "ml_dtypes",
+                                       "ray_tpu"))
+rt.shutdown()
+print(json.dumps({"attach_s": attach_s, "call_s": call_s,
+                  "tokens": tokens, "banned": banned}), flush=True)
+"""
+
+
+def _checksum(t) -> int:
+    """Sum of a tensor's 16-bit words as int64, in slices (no full-size
+    int64 copy)."""
+    words = t.reshape(-1).view(torch.int16)
+    return sum(int(c.sum(dtype=torch.int64))
+               for c in words.split(1 << 24))
+
+
+def _second_driver(cluster_file: str, actor: str, body: dict) -> dict:
+    """Run _SECOND_DRIVER from a temporary file (a worker process of the
+    port re-imports its driver's main module, so never from stdin) with
+    the shadow sitecustomize first on its path, as the port's workers
+    have it; returns its JSON line."""
+    import tempfile
+    from ray_tpu_torch.cluster_utils import agent_env
+    with tempfile.TemporaryDirectory() as d:
+        script = os.path.join(d, "second_driver.py")
+        with open(script, "w") as f:
+            f.write(_SECOND_DRIVER)
+        body_path = os.path.join(d, "body.json")
+        with open(body_path, "w") as f:
+            json.dump(body, f)
+        env = agent_env()
+        env["PYTHONPATH"] = os.pathsep.join(
+            [env["PYTHONPATH"], os.path.dirname(os.path.abspath(__file__))])
+        run = subprocess.run([sys.executable, script, cluster_file, actor,
+                              body_path], env=env, capture_output=True,
+                             text=True, timeout=600)
+    if run.returncode != 0:
+        raise AssertionError(f"4g second driver failed ({run.returncode}):"
+                             f" {run.stderr[-4000:]}")
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+def cluster(model_cfg, greedy: dict, **engine_kw) -> dict:
+    """Phase 4g, on the card: a head without a GPU and a node agent that
+    joins it over TCP with the card and its own store; the 8B LLMServer
+    actor on the agent's node, a second driver, objects across the two
+    stores, and the loss of the agent's node. ``greedy`` maps phase 4's
+    greedy prompts to the captured run's tokens. Returns the figures;
+    raises on any failure."""
+    import glob
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.cluster_utils import node_agent
+    from ray_tpu_torch.core import runtime as rt_mod
+    from ray_tpu_torch.core.config import cfg
+    from ray_tpu_torch.llm import LLMConfig, PagedEngineConfig
+    from ray_tpu_torch.util.scheduling_strategies import \
+        NodeAffinitySchedulingStrategy
+    card = torch.cuda.get_device_name(0)
+    st = os.statvfs("/dev/shm")
+    shm_free = st.f_bavail * st.f_frsize
+    # the agent's own store: at most half of what /dev/shm has free; the
+    # head's store is as large, so that both fit together
+    cap = min(shm_free // 2, 4 << 30)
+    print(f"4g: /dev/shm free {shm_free} bytes, agent store {cap} "
+          f"bytes", flush=True)
+    fig = {"shm_free_bytes": shm_free, "agent_store_bytes": cap}
+    t0 = time.perf_counter()
+    rt.init(num_cpus=2, num_gpus=0, object_store_memory=cap)
+    try:
+        fig["init_s"] = time.perf_counter() - t0
+        with node_agent("gpu-node", num_cpus=2, num_gpus=1, own_store=True,
+                        store_capacity=cap) as agent:
+            fig["agent_register_s"] = agent.register_s
+            print(f"4g: agent registered in {agent.register_s:.3f} s",
+                  flush=True)
+            rows = {n["NodeID"]: n for n in rt.nodes()}
+            head_row = next(n for n in rows.values()
+                            if n["NodeName"] == "head")
+            if rows[agent.node_id]["Resources"].get("GPU") != 1.0 or \
+                    head_row["Resources"].get("GPU"):
+                raise AssertionError(f"4g nodes: {list(rows.values())}")
+            pin = NodeAffinitySchedulingStrategy(node_id=agent.node_id,
+                                                 soft=False)
+            Host = _server_host(rt)
+
+            # the 8B server on the agent's node, as in 4f
+            t1 = time.perf_counter()
+            host = Host.options(name="llama3-8b-agent",
+                                scheduling_strategy=pin).remote(
+                LLMConfig(model_id="llama3-8b", warmup=True,
+                          engine=PagedEngineConfig(model=model_cfg,
+                                                   **engine_kw)),
+                [], "cuda")
+            info = rt.get(host.info.remote(), timeout=900)
+            start = time.perf_counter() - t1
+            fig.update({"actor_start_s": start,
+                        "actor_spawn_s": start - info["times"]["server_s"],
+                        "actor_weights_s": info["times"]["weights_s"],
+                        "actor_warmup_s": info["times"].get("warmup_s"),
+                        "programs_after_warmup": info["programs"]})
+            if info["visible"] != "0" or info["device"] != card or \
+                    info["node"] != agent.node_id or info["banned"]:
+                raise AssertionError(f"4g 8B actor: {info} (driver card "
+                                     f"{card}, agent {agent.node_id})")
+            time.sleep(0.5)
+            gpu_held = rt.available_resources().get("GPU")
+            if gpu_held != 0.0:
+                raise AssertionError(f"GPU available {gpu_held} while the "
+                                     f"actor holds the card")
+            bodies = _phase4_bodies(model_cfg.vocab_size)
+            counts, served, wall = _serve_mix(rt, host, bodies, greedy,
+                                              "4g")
+            fig.update({
+                "launches": counts["launches"],
+                "launches_by_family": counts["launches_by_family"],
+                "greedy_equal_phase4": len(greedy),
+                "mix": _mix_figures(served, wall),
+                "gpu_available_while_held": gpu_held,
+                "actor_call_ms_median": _actor_call_ms(rt, host)})
+
+            # a second driver attaches and sends phase 4's first greedy
+            # request to the same actor
+            first = next(b for b in bodies if not b["temperature"])
+            second = _second_driver(
+                rt_mod.get_runtime_if_exists().cluster_file,
+                "llama3-8b-agent", first)
+            if second["tokens"] != greedy[tuple(first["prompt"])] or \
+                    second["banned"]:
+                raise AssertionError(f"4g second driver: {second}")
+            fig["second_driver"] = {k: second[k]
+                                    for k in ("attach_s", "call_s")}
+            print(f"4g: second driver attached in "
+                  f"{second['attach_s']:.3f} s", flush=True)
+            rt.get(host.stop.remote(), timeout=120)
+            rt.kill(host)
+            deadline = time.monotonic() + 60
+            while next(n for n in rt.nodes() if n["NodeID"] ==
+                       agent.node_id)["Available"].get("GPU") != 1.0:
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"4g GPU not back after kill: "
+                                         f"{rt.nodes()}")
+                time.sleep(0.1)
+            fig["gpu_available_after_kill"] = \
+                rt.available_resources().get("GPU")
+
+            # objects across stores: params_ref pulled into the agent's
+            # store, then one large object each way
+            fig["params_ref"] = _params_ref_actor(rt, Host, "4g",
+                                                  scheduling_strategy=pin)
+            if fig["params_ref"]["node"] != agent.node_id:
+                raise AssertionError(f"4g params_ref actor ran on "
+                                     f"{fig['params_ref']['node']}")
+            nbytes = min(1 << 30, cap // 4)
+            g = torch.Generator(device="cuda").manual_seed(13)
+            x = torch.randn(nbytes // 2, device="cuda", dtype=torch.bfloat16,
+                            generator=g)
+            want = _checksum(x.cpu())
+            t2 = time.perf_counter()
+            ref = rt.put(x)               # a CUDA tensor: its host copy
+            put_s = time.perf_counter() - t2
+            del x
+
+            # each side gets the object twice: the first get pulls the
+            # frame across and unpickles it, the second only unpickles
+            # the copy now in its own store
+            @rt.remote(num_cpus=1, num_returns=2, scheduling_strategy=pin)
+            def pull(refs):
+                tp = time.perf_counter()
+                t = rt.get(refs[0], timeout=600)
+                got_s = time.perf_counter() - tp
+                tp = time.perf_counter()
+                rt.get(refs[0], timeout=600)
+                local_s = time.perf_counter() - tp
+                return ({"get_s": got_s, "local_get_s": local_s,
+                         "checksum": _checksum(t),
+                         "device": str(t.device), "dtype": str(t.dtype),
+                         "node": os.environ.get("RTPU_NODE_ID")}, t)
+
+            meta_ref, back_ref = pull.remote([ref])
+            meta = rt.get(meta_ref, timeout=600)
+            t3 = time.perf_counter()
+            back = rt.get(back_ref, timeout=600)
+            back_s = time.perf_counter() - t3
+            t3 = time.perf_counter()
+            rt.get(back_ref, timeout=600)
+            back_local_s = time.perf_counter() - t3
+            if meta["node"] != agent.node_id or meta["checksum"] != want or \
+                    meta["dtype"] != "torch.bfloat16" or \
+                    meta["device"] != "cpu" or _checksum(back) != want:
+                raise AssertionError(f"4g transfer: {meta}, driver "
+                                     f"checksum {want}, back "
+                                     f"{_checksum(back)}")
+            del back
+
+            def way(get_s, local_s):
+                return {"get_s": get_s, "local_get_s": local_s,
+                        "get_GBps": nbytes / get_s / 1e9,
+                        "pull_GBps": nbytes / max(get_s - local_s,
+                                                  1e-9) / 1e9}
+
+            fig["transfer"] = {
+                "bytes": nbytes, "put_s": put_s,
+                "to_agent": way(meta["get_s"], meta["local_get_s"]),
+                "to_driver": way(back_s, back_local_s)}
+            print(f"4g: {nbytes} bytes to the agent in "
+                  f"{meta['get_s']:.3f} s, back in {back_s:.3f} s",
+                  flush=True)
+            del ref, meta_ref, back_ref
+
+            # node loss: the agent stops (SIGTERM: its teardown deregisters
+            # the node, kills its workers and removes its own store)
+            t4 = time.perf_counter()
+            agent.proc.terminate()
+            limit = cfg.health_check_timeout_s + 10.0
+            while any(n["NodeID"] == agent.node_id and n["Alive"]
+                      for n in rt.nodes()) or \
+                    rt.cluster_resources().get("GPU"):
+                if time.perf_counter() - t4 > limit:
+                    raise AssertionError(f"4g node not gone after "
+                                         f"{limit} s: {rt.nodes()}")
+                time.sleep(0.05)
+            fig["node_loss_s"] = time.perf_counter() - t4
+            fig["gpu_in_cluster_after_loss"] = \
+                rt.cluster_resources().get("GPU", 0.0)
+            agent.proc.wait(timeout=30)
+    finally:
+        rt.shutdown()
+    deadline = time.monotonic() + 30
+    while (_port_procs() or glob.glob("/dev/shm/ray_tpu_torch_*")) and \
+            time.monotonic() < deadline:
+        time.sleep(0.2)
+    if _port_procs():
+        raise AssertionError(f"4g port processes left: {_port_procs()}")
+    if glob.glob("/dev/shm/ray_tpu_torch_*"):
+        raise AssertionError(f"4g stores left: "
+                             f"{glob.glob('/dev/shm/ray_tpu_torch_*')}")
     return fig
 
 
@@ -3033,6 +3347,12 @@ def main():
     print("runtime: " + json.dumps(actor), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
+    t4g = time.perf_counter()
+    nodes = cluster(llama.llama3_8b(), greedy, **engine_8b)
+    nodes["phase_s"] = time.perf_counter() - t4g
+    print("cluster: " + json.dumps(nodes), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     agreement(_small_model())
     agreement(_small_model(**MOE_SMALL))
     dense_f32 = dense_agreement()
@@ -3055,6 +3375,9 @@ def main():
         "launches_runtime_actor": actor["launches"],
         "launches_runtime_actor_by_family": actor["launches_by_family"],
         "launches_runtime_params_ref": actor["params_ref"]["launches"],
+        "launches_cluster_actor": nodes["launches"],
+        "launches_cluster_actor_by_family": nodes["launches_by_family"],
+        "launches_cluster_params_ref": nodes["params_ref"]["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in records),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

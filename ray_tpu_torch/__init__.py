@@ -21,17 +21,23 @@ Entry points run on the card (``device="cuda"``) and raise when CUDA is
 absent; pass ``device="cpu"`` for the plain-PyTorch versions the tests
 run.
 
-The single-host runtime (``core/``: tasks, actors, the shared-memory
-object store) is the reference's, with GPUs in the place of its TPUs: a
-spec that asks for ``num_gpus=n`` runs in a worker process that leases n
-device indices through ``CUDA_VISIBLE_DEVICES``; every other worker sees
-none.
+The runtime (``core/``: tasks, actors, the shared-memory object store,
+node agents and the object transfer between their stores, driver
+clients) is the reference's, with GPUs in the place of its TPUs: a spec
+that asks for ``num_gpus=n`` runs in a worker process that leases n
+device indices of its node through ``CUDA_VISIBLE_DEVICES``; every other
+worker sees none.
 
     import ray_tpu_torch as rt
     rt.init(num_cpus=4, num_gpus=1)
 
     @rt.remote(num_gpus=1)
     class Server: ...
+
+A second host joins with ``python -m ray_tpu_torch.core.node_agent
+--head <head_address()["address"]> --num-gpus N [--own-store]``, and
+another process attaches as a driver with
+``rt.init(address=<session>/cluster.json)``.
 
 The core API below is loaded at first attribute access (PEP 562), so
 ``import ray_tpu_torch`` stays light.
@@ -42,7 +48,7 @@ __version__ = "0.1.0"
 
 _CORE_API = (
     "available_resources", "cancel", "cluster_resources", "get",
-    "get_actor", "get_runtime_context", "init",
+    "get_actor", "get_runtime_context", "head_address", "init",
     "is_initialized", "kill", "kv_del", "kv_get", "kv_keys", "kv_put",
     "nodes", "put", "remote", "shutdown", "timeline", "wait",
 )

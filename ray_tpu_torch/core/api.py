@@ -1,9 +1,7 @@
 """Public core API: init/shutdown/remote/get/put/wait/kill/cancel/...
 
 A copy of ``ray_tpu/core/api.py`` for the PyTorch port: ``num_gpus`` (env
-``RTPU_NUM_GPUS``) takes the place of the reference's ``num_tpus``, and
-attaching to a running cluster (``address=``, ``RTPU_ADDRESS``) waits for
-the port's driver client (``core/client.py``) and raises.
+``RTPU_NUM_GPUS``) takes the place of the reference's ``num_tpus``.
 
 Reference parity: python/ray/_private/worker.py (init :1336, get :2749,
 put :2885, wait :2950) and the @ray.remote decorator.
@@ -44,11 +42,17 @@ def init(address: Optional[str] = None,
     CUDA_VISIBLE_DEVICES); None reads ``RTPU_NUM_GPUS`` (default 0). The
     head never touches CUDA: it counts indices, it does not probe them.
 
-    ``address`` (and the ``RTPU_ADDRESS`` auto-connect) would attach this
-    process to a running cluster as a driver client; the port has no
-    client yet, so both raise NotImplementedError. None (or "local")
-    starts a new in-process head. ``enable_remote_nodes=True`` (nodes on
-    other hosts joining through a node agent) raises the same way.
+    ``address``: "auto" resolves the newest local cluster of this
+    package (or ``$RTPU_ADDRESS``, which job drivers inherit); otherwise a
+    path to a session's ``cluster.json``. None starts a new in-process
+    head — unless ``RTPU_ADDRESS`` is set (so a submitted job's plain
+    ``init()`` joins its cluster), matching the reference's env-driven
+    auto-connect. A cluster file that a ``ray_tpu`` head wrote is refused
+    with ConnectionError (core/client.py).
+
+    ``enable_remote_nodes=True`` binds the head's TCP listener and data
+    server on every interface, so node agents on other hosts can join
+    (``head_address()``); by default both face loopback only.
     """
     if rt_mod.get_runtime_if_exists() is not None:
         if ignore_reinit_error:
@@ -58,15 +62,8 @@ def init(address: Optional[str] = None,
     if address is None and os.environ.get("RTPU_ADDRESS") and not local_mode:
         address = "auto"
     if address is not None and address != "local":
-        raise NotImplementedError(
-            f"init(address={address!r}): attaching to a running cluster "
-            f"needs the driver client, ray_tpu_torch/core/client.py, which "
-            f"is not ported yet")
-    if _compat.get("enable_remote_nodes"):
-        raise NotImplementedError(
-            "init(enable_remote_nodes=True): nodes on other hosts join "
-            "through ray_tpu_torch/core/node_agent.py, which is not ported "
-            "yet; the head listens on this host only")
+        from .client import connect
+        return connect(address, namespace=namespace)
     if local_mode:
         rt = LocalModeRuntime()
         rt_mod.set_runtime(rt)
@@ -88,6 +85,8 @@ def init(address: Optional[str] = None,
     rt = Runtime(res,
                  object_store_memory=object_store_memory or None,
                  head_labels=labels,
+                 enable_remote_nodes=bool(
+                     _compat.get("enable_remote_nodes", False)),
                  log_to_driver=log_to_driver)
     rt.namespace = namespace or "default"
     rt_mod.set_runtime(rt)
@@ -272,3 +271,14 @@ class RuntimeContext:
 
 def get_runtime_context() -> RuntimeContext:
     return RuntimeContext(_runtime())
+
+
+def head_address() -> dict:
+    """Connection info for joining this cluster from another host:
+    `python -m ray_tpu_torch.core.node_agent --head <address>` with
+    ``RTPU_AUTHKEY=<authkey>`` in its environment (reference analog: the
+    bootstrap address `ray start --address=` dials)."""
+    rt = _runtime()
+    if not isinstance(rt, Runtime):
+        raise RuntimeError("head_address() only works on the head runtime")
+    return {"address": rt.head_address, "authkey": rt._authkey.hex()}

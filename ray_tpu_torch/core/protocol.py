@@ -9,9 +9,8 @@ cross-VERSION guarantee still matters: a worker, node agent, or driver
 built from a different checkout must be rejected at the handshake, not
 crash mid-job on a missing dataclass field.
 
-Every register message carries ``pv`` (the port's head takes a worker's
-`register`; a node agent's `register_node` and a driver client's
-`register_driver` wait for ``core/node_agent.py`` and ``core/client.py``); the head compares it against its own PROTOCOL_VERSION and
+Every register message (`register`, `register_node`, `register_driver`)
+carries ``pv``; the head compares it against its own PROTOCOL_VERSION and
 refuses mismatches with a structured error the peer surfaces to the user.
 Bump PROTOCOL_VERSION whenever a control-message shape, TaskSpec/ActorSpec
 field, or the object-store wire framing changes incompatibly.

@@ -9,7 +9,11 @@ once), and every other worker gets ``CUDA_VISIBLE_DEVICES=""``. An idle
 GPU worker is reused only by a spec that asks for the same count; when
 a request needs indices that idle GPU workers hold, one of them is
 reaped; a worker's indices go back to its node's free list when it
-exits, is killed or is reaped (``_release_gpus_locked``).
+exits, is killed or is reaped (``_release_gpus_locked``). The head alone
+leases indices, for node agents' nodes too: it sends the indices with its
+``spawn_worker`` request and the agent puts them into the worker's
+environment before the process starts; when an agent's node dies, its
+indices die with it.
 
 The module is the merged equivalent of three components of the Ray
 reference, collapsed into the driver process because a host runs one
@@ -27,8 +31,10 @@ socket fabric either way:
     reconstruction — reference: src/ray/core_worker/task_manager.h:175,
     reference_count.h:73, object_recovery_manager.h:43.
 
-Transport: `multiprocessing.connection` unix sockets (control plane) +
-the node-shared mmap object store (data plane, core/object_store.py).
+Transport: `multiprocessing.connection` unix sockets for this host's
+workers and TCP for node agents and driver clients (control plane), the
+node-shared mmap object store, and object transfer between the stores of
+own-store nodes (data plane, core/object_store.py, core/object_transfer.py).
 Scheduling policy is hybrid pack-then-spread like the reference's
 HybridSchedulingPolicy (scheduling/policy/hybrid_scheduling_policy.h:50):
 prefer the head/local node until utilization passes a threshold, then pick
@@ -57,11 +63,16 @@ from .ids import ActorID, JobID, NodeID, ObjectID, PlacementGroupID, TaskID
 from .object_store import GetTimeoutError as StoreTimeout
 from .object_store import ObjectStoreFullError, SharedObjectStore, SpillStore
 from .ref import ObjectRef
-from .protocol import ProtocolMismatchError, check_peer_version
+from .protocol import (PROTOCOL_VERSION, ProtocolMismatchError,
+                       check_peer_version)
 from .task_spec import ActorSpec, TaskSpec
 
 # directory states
 PENDING, READY, FAILED, SPILLED = 0, 1, 2, 3
+
+# the cluster file's `package` field: a client of this package attaches
+# only to a head of this package (core/client.py)
+CLUSTER_PACKAGE = "ray_tpu_torch"
 
 _runtime: Optional["Runtime"] = None
 _runtime_lock = threading.Lock()
@@ -71,6 +82,14 @@ def _state_not_ported(call: str):
     raise NotImplementedError(
         f"{call} needs the state API, ray_tpu_torch/state.py, which is not "
         f"ported yet")
+
+
+def session_base() -> str:
+    """Where this package's heads keep their sessions ($TMPDIR/ray_tpu_torch:
+    the reference's live under /tmp/ray_tpu, so neither finds the other's
+    cluster file)."""
+    import tempfile
+    return os.path.join(tempfile.gettempdir(), "ray_tpu_torch")
 
 
 def get_runtime_if_exists() -> Optional["Runtime"]:
@@ -92,6 +111,14 @@ class NodeInfo:
         self.name = name
         self.alive = True
         self.workers: set[str] = set()
+        # set for agent-backed nodes (a node_agent process joined over TCP);
+        # worker spawn/kill on this node routes through the agent
+        self.agent: Optional["_AgentHandle"] = None
+        # cross-node data plane (object_transfer.py): the node's data-server
+        # address, and whether it runs its OWN store (no shared /dev/shm —
+        # objects move via fetch, RPC replies via the control conn)
+        self.data_addr: Optional[str] = None
+        self.own_store = False
         # allow one worker per CPU plus headroom for zero-cpu tasks
         self.max_workers = int(resources.get("CPU", 1)) + 4
         # GPU indices no worker process of this node holds (the lease
@@ -153,12 +180,27 @@ class WorkerInfo:
             return False
 
 
+def host_ip() -> str:
+    """Best-effort externally-dialable IP of this host (connected-UDP-socket
+    trick; gethostbyname(hostname) commonly resolves to loopback)."""
+    import socket
+    try:
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+            s.connect(("10.255.255.255", 1))  # no packets sent
+            return s.getsockname()[0]
+    except OSError:
+        return "127.0.0.1"
+
+
 def build_worker_env(*, store_path: str, head_addr: str, authkey_hex: str,
-                     wid: str, node_id_hex: str, gpus: tuple = (),
-                     spill_dir: str = "") -> dict:
-    """Environment for a `python -m ray_tpu_torch.core.worker` process.
-    ``CUDA_VISIBLE_DEVICES`` is the worker's leased GPU indices, or ""
-    for a worker without a lease."""
+                     wid: str, node_id_hex: str, head_family: str = "AF_UNIX",
+                     gpus: tuple = (), spill_dir: str = "",
+                     own_store: bool = False) -> dict:
+    """Environment for a `python -m ray_tpu_torch.core.worker` process —
+    the ONE definition shared by the head's local pool and node agents,
+    so worker behavior cannot drift by host. ``CUDA_VISIBLE_DEVICES`` is
+    the worker's leased GPU indices, or "" for a worker without a
+    lease."""
     env = dict(os.environ)
     paths = [p for p in sys.path if p] + [env.get("PYTHONPATH", "")]
     # shadow the image's sitecustomize (it may import jax and an
@@ -177,8 +219,14 @@ def build_worker_env(*, store_path: str, head_addr: str, authkey_hex: str,
     for name, val in _cfg.overrides_for_env().items():
         env[name] = val
     env["RTPU_STORE_PATH"] = store_path
+    if own_store:
+        # node-local store: object misses resolve via locate+fetch and RPC
+        # replies arrive over the control conn (object_transfer.py)
+        env["RTPU_OWN_STORE"] = "1"
     if spill_dir:
         env["RTPU_SPILL_DIR"] = spill_dir
+    if head_family != "AF_UNIX":
+        env["RTPU_HEAD_FAMILY"] = head_family
     env["RTPU_HEAD_ADDR"] = head_addr
     env["RTPU_AUTHKEY"] = authkey_hex
     env["RTPU_WORKER_ID"] = wid
@@ -186,13 +234,101 @@ def build_worker_env(*, store_path: str, head_addr: str, authkey_hex: str,
     return env
 
 
+class _AgentHandle:
+    """Head-side handle on a node_agent control connection (the raylet-client
+    analog, reference: raylet_client/raylet_client.h — here the head asks the
+    agent to fork/kill workers instead of leasing from a local pool)."""
+
+    def __init__(self, conn: Connection):
+        self.conn = conn
+        self.send_lock = threading.Lock()
+
+    def send(self, msg) -> bool:
+        try:
+            with self.send_lock:
+                self.conn.send(msg)
+            return True
+        except (OSError, ValueError, BrokenPipeError):
+            return False
+
+
+class _RemoteProc:
+    """Process handle for a worker living under a node agent: mirrors the
+    subprocess.Popen surface the runtime uses (pid/kill/terminate/wait/poll),
+    delegating kills to the agent and completing on agent exit reports."""
+
+    def __init__(self, agent: _AgentHandle, wid: str):
+        self._agent = agent
+        self._wid = wid
+        self.pid: int | None = None
+        self.returncode: int | None = None
+        self._exited = threading.Event()
+
+    def kill(self):
+        self._agent.send({"t": "kill_worker", "wid": self._wid})
+
+    terminate = kill
+
+    def wait(self, timeout: float | None = None):
+        if not self._exited.wait(timeout):
+            raise subprocess.TimeoutExpired(f"agent-worker {self._wid}",
+                                            timeout)
+        return self.returncode
+
+    def poll(self):
+        return self.returncode
+
+    def mark_exited(self, rc: int | None):
+        self.returncode = rc if rc is not None else -1
+        self._exited.set()
+
+
+def _sever(conn: Optional[Connection]) -> None:
+    """Shut a control connection down in both directions. Unlike close(),
+    shutdown reaches the peer (EOF) even while another thread of this
+    process is blocked reading the same socket."""
+    if conn is None:
+        return
+    import socket
+    try:
+        with socket.socket(fileno=os.dup(conn.fileno())) as s:
+            s.shutdown(socket.SHUT_RDWR)
+    except (OSError, ValueError):
+        pass  # already closed
+
+
+class _ExternalProc:
+    """Proc shim for driver clients: the head supervises but never owns the
+    process — kill/wait are no-ops beyond state tracking."""
+
+    def __init__(self, pid: int):
+        self.pid = pid
+
+    def kill(self):
+        pass
+
+    def wait(self, timeout: float | None = None):
+        return 0
+
+    def poll(self):
+        return None
+
+
 class DirEntry:
-    __slots__ = ("state", "lineage", "error_brief")
+    # `locations` (node-id hexes known to hold a copy) stays None on
+    # single-host clusters (object_transfer.py data plane)
+    __slots__ = ("state", "lineage", "error_brief", "locations")
 
     def __init__(self, state=PENDING, lineage: TaskSpec | None = None):
         self.state = state
         self.lineage = lineage
         self.error_brief: str | None = None
+        self.locations: set[str] | None = None
+
+    def add_location(self, node_hex: str) -> None:
+        if self.locations is None:
+            self.locations = set()
+        self.locations.add(node_hex)
 
 
 class ActorInfo:
@@ -291,6 +427,7 @@ class Runtime:
                  object_store_memory: int | None = None,
                  session_dir: str | None = None,
                  head_labels: dict[str, str] | None = None,
+                 enable_remote_nodes: bool = False,
                  log_to_driver: bool = True):
         from .config import cfg
         if object_store_memory is None:
@@ -299,9 +436,8 @@ class Runtime:
         sid = self.job_id.hex()[:8]
         # the port's own roots: neither runtime can find the other's
         # cluster or store
-        import tempfile
         self.session_dir = session_dir or os.path.join(
-            tempfile.gettempdir(), "ray_tpu_torch", f"session_{sid}")
+            session_base(), f"session_{sid}")
         os.makedirs(self.session_dir, exist_ok=True)
         self.store_path = f"/dev/shm/ray_tpu_torch_{sid}"
         self.store = SharedObjectStore(
@@ -314,6 +450,11 @@ class Runtime:
         # graftlint GL001 enforces the annotations: every touch of these
         # outside `with self.lock` (or a *_locked method) is a finding
         self.directory: dict[ObjectID, DirEntry] = {}  # guarded by: self.lock
+        # oids this process's get() is blocked on, with their waiter
+        # counts: a result sealed on an own-store node is pulled into the
+        # head's store as soon as its task is done (_prefetch_locked),
+        # which wakes the waiter's store wait
+        self._head_gets: dict[ObjectID, int] = {}  # guarded by: self.lock
         # distributed refcounting (reference_count.h:73 analog):
         # which processes hold >=1 live ObjectRef, serialized-copy pins
         # (may go negative when a receiver's add outruns the sender's pin —
@@ -455,28 +596,47 @@ class Runtime:
                                   head_labels, name="head")
         self.nodes[self.head_node.node_id] = self.head_node
 
-        # control-plane listener: AF_UNIX for this host's workers (the
-        # TCP listener node agents and driver clients dial waits for
-        # core/node_agent.py and core/client.py; reference analog: the
-        # gRPC services every raylet/worker dials, rpc/grpc_server.h:88 —
-        # one authkeyed connection-oriented channel here)
+        # control-plane listeners: AF_UNIX for local workers, TCP for node
+        # agents / remote workers (reference analog: the gRPC services every
+        # raylet/worker dials, rpc/grpc_server.h:88 — one authkeyed
+        # connection-oriented channel here)
         addr = os.path.join(self.session_dir, "head.sock")
+        # a stable cluster authkey (RTPU_CLUSTER_AUTHKEY hex) + fixed
+        # cfg.head_tcp_port let agents and drivers re-dial a RESTARTED
+        # head at the same address — the role Redis's fixed address plays
+        # for reference GCS failover (redis_store_client.h:111)
         ak_env = os.environ.get("RTPU_CLUSTER_AUTHKEY")
         self._authkey = bytes.fromhex(ak_env) if ak_env else os.urandom(16)
         self.listener = Listener(addr, "AF_UNIX", authkey=self._authkey)
         self.listener_addr = addr
+        # loopback unless the user opts into remote nodes: the channel is
+        # authkey-HMAC-gated but carries pickles, so it must not face the
+        # network by default
+        self._tcp_host = "0.0.0.0" if enable_remote_nodes else "127.0.0.1"
+        self.tcp_listener = Listener(
+            (self._tcp_host, cfg.head_tcp_port), "AF_INET",
+            authkey=self._authkey)
+        self.tcp_port = self.tcp_listener.address[1]
         self._accept_thread = threading.Thread(
             target=self._accept_loop, args=(self.listener,),
             daemon=True, name="rtpu-accept")
         self._accept_thread.start()
+        self._tcp_accept_thread = threading.Thread(
+            target=self._accept_loop, args=(self.tcp_listener,),
+            daemon=True, name="rtpu-accept-tcp")
+        self._tcp_accept_thread.start()
 
-        # cluster file: what a job needs to dial this cluster (reference
-        # analog: the GCS address + redis password a reference driver
-        # resolves from --address; here a 0600 json since the authkey is a
-        # credential)
+        # cluster file: everything a driver client / node agent / job needs
+        # to dial this cluster (reference analog: the GCS address + redis
+        # password a reference driver resolves from --address; here a
+        # 0600 json since the authkey is a credential). `package` marks
+        # the file as this package's: the client refuses a cluster file
+        # without it (the reference package's heads write none).
         from .job_manager import JobManager
         self.cluster_file = os.path.join(self.session_dir, "cluster.json")
-        cf = {"unix_addr": addr, "authkey": self._authkey.hex(),
+        cf = {"package": CLUSTER_PACKAGE,
+              "unix_addr": addr, "tcp_host": self._tcp_host,
+              "tcp_port": self.tcp_port, "authkey": self._authkey.hex(),
               "store_path": self.store_path, "spill_dir": self.spill.dir,
               "session_dir": self.session_dir, "pid": os.getpid()}
         fd = os.open(self.cluster_file,
@@ -501,6 +661,7 @@ class Runtime:
         self.jobs = JobManager(self.session_dir, self.cluster_file)
         self.jobs.on_status = lambda job_id, status: self.pubsub.publish(
             "jobs", {"job_id": job_id, "status": status})
+        self._driver_seq = 0
 
         # worker stdout/stderr -> the driver console (reference:
         # log_to_driver / the log monitor tailing worker files)
@@ -508,7 +669,9 @@ class Runtime:
             threading.Thread(target=self._log_tail_loop, daemon=True,
                              name="rtpu-logtail").start()
 
-        # idle-worker eviction on the health-check period
+        # agent liveness: heartbeats guard against HUNG agents (conn EOF
+        # already covers dead processes) — gcs_health_check_manager.h:45;
+        # the same period evicts idle workers
         threading.Thread(target=self._health_check_loop, daemon=True,
                          name="rtpu-healthcheck").start()
         threading.Thread(target=self._pipeline_rebalance_loop, daemon=True,
@@ -523,6 +686,18 @@ class Runtime:
         if cfg.tsdb_enable:
             from ..obs.scraper import MetricsScraper
             self.obs = MetricsScraper(self).start()
+
+        # cross-node data plane: serve this node's store to pullers
+        # (object_manager.h:119 Push/Pull analog; object_transfer.py)
+        from .object_transfer import ObjectDataServer
+        self.data_server = ObjectDataServer(
+            self.store, self.spill,
+            host=("0.0.0.0" if enable_remote_nodes else "127.0.0.1"))
+        if enable_remote_nodes:
+            self.head_node.data_addr = (
+                f"{host_ip()}:{self.data_server.address.rsplit(':', 1)[1]}")
+        else:
+            self.head_node.data_addr = self.data_server.address
 
         # prestart the worker pool so first tasks don't pay process cold-start
         # (reference: worker_pool.h:283 PrestartWorkers / idle pool)
@@ -575,16 +750,42 @@ class Runtime:
                 continue
 
     def _health_check_loop(self):
-        """Reap idle workers every health-check period (the reference's
-        loop also declares hung node agents dead; the port has none yet,
-        core/node_agent.py)."""
+        """Every health-check period: declare node agents that stopped
+        heartbeating dead, and reap idle workers."""
         from .config import cfg
         period = cfg.health_check_period_ms / 1000.0
+        timeout = cfg.health_check_timeout_s
         if period <= 0:
             return
         while not self._shutdown:
             time.sleep(period)
+            now = time.monotonic()
+            with self.lock:
+                stale = [n for n in self.nodes.values()
+                         if n.agent is not None and n.alive
+                         and getattr(n, "last_heartbeat", None) is not None
+                         and now - n.last_heartbeat > timeout]
             self._reap_idle_workers()
+            for n in stale:
+                # declare the node dead DIRECTLY: closing the conn would
+                # not wake the agent loop's blocked read (Linux read()
+                # survives a concurrent close), so run the removal here —
+                # the loop's eventual EOF cleanup double-calls remove_node,
+                # which no-ops on a dead node
+                with self.lock:
+                    for wid in list(n.workers):
+                        w = self.workers.get(wid)
+                        if w is not None and isinstance(w.proc,
+                                                        _RemoteProc):
+                            w.proc.mark_exited(-1)
+                try:
+                    self.remove_node(n.node_id)
+                except Exception:
+                    pass  # agent-loop EOF path already removed it
+                try:
+                    n.agent.conn.close()
+                except Exception:
+                    pass  # already closed
 
     def _pipeline_rebalance_loop(self):
         """Periodic work-stealing fallback (own timer — NOT coupled to the
@@ -618,6 +819,7 @@ class Runtime:
             head_id = self.head_node.node_id
             floor = min(int(self.head_node.resources_total.get("CPU", 1)),
                         cfg.worker_prestart)
+            # head-pool scope only: agent nodes manage their own workers
             head_workers = [w for w in self.workers.values()
                             if w.node_id == head_id]
             idle = [w for w in head_workers
@@ -638,20 +840,74 @@ class Runtime:
             threading.Thread(target=self._recv_loop, args=(conn,),
                              daemon=True, name="rtpu-recv").start()
 
+    @property
+    def head_address(self) -> str:
+        """TCP address a node agent dials
+        (`ray_tpu_torch.core.node_agent --head <this>`). With the default
+        loopback bind this is only dialable from this host; pass
+        init(enable_remote_nodes=True) for other hosts."""
+        if self._tcp_host != "0.0.0.0":
+            return f"{self._tcp_host}:{self.tcp_port}"
+        return f"{host_ip()}:{self.tcp_port}"
+
     def _recv_loop(self, conn: Connection):
         wid = None
         try:
             msg = conn.recv()
-            if msg.get("t") != "register":
-                conn.close()
-                return
-            try:
-                check_peer_version(msg.get("pv"), "worker")
-            except ProtocolMismatchError as e:
+            if msg.get("t") in ("register", "register_node",
+                                "register_driver"):
+                who = {"register": "worker",
+                       "register_node": "node agent",
+                       "register_driver": "driver client"}[msg["t"]]
                 try:
-                    conn.send({"t": "rejected", "error": str(e)})
-                except Exception:
-                    pass  # peer hung up before reading the refusal
+                    check_peer_version(msg.get("pv"), who)
+                except ProtocolMismatchError as e:
+                    # structured refusal: agents/drivers raise it to the
+                    # user from their registration-reply check
+                    try:
+                        conn.send({"t": "rejected", "error": str(e)})
+                    except Exception:
+                        pass  # peer hung up before reading the refusal
+                    conn.close()
+                    return
+            if msg.get("t") == "register_node":
+                self._agent_loop(conn, msg)
+                return
+            if msg.get("t") == "register_driver":
+                # a driver client (reference analog: ray.init(address=...)
+                # attaching a driver core worker to a running cluster /
+                # the util/client proxy role). It speaks the full worker
+                # protocol but never executes tasks: it lives outside every
+                # node's worker pool so the scheduler cannot pick it.
+                with self.lock:
+                    self._driver_seq += 1
+                    wid = f"driver-{self._driver_seq:04d}"
+                    w = WorkerInfo(wid, self.head_node.node_id,
+                                   _ExternalProc(int(msg.get("pid", 0))))
+                    w.state = "driver"
+                    w.conn = conn
+                    self.workers[wid] = w
+                with w.send_lock:
+                    # session_dir + resumed_from let a reconnecting driver
+                    # verify this head is ITS cluster (same session, or a
+                    # restart resumed from its session) before attaching —
+                    # auto-resolve must never hijack onto an unrelated
+                    # local cluster (client.py _reconnect)
+                    conn.send({"t": "registered_driver", "wid": wid,
+                               "store_path": self.store_path,
+                               "spill_dir": self.spill.dir,
+                               "job_id": self.job_id.hex(),
+                               "session_dir": self.session_dir,
+                               "resumed_from": getattr(
+                                   self, "resumed_from", None),
+                               "pv": PROTOCOL_VERSION})
+                while True:
+                    m = conn.recv()
+                    try:
+                        self._handle_msg(wid, m)
+                    except Exception:
+                        traceback.print_exc()
+            if msg.get("t") != "register":
                 conn.close()
                 return
             wid = msg["wid"]
@@ -799,7 +1055,20 @@ class Runtime:
                 self.renv_registry.setdefault(msg["hash"], msg["blob"])
         elif t == "put":
             with self.lock:
-                self.directory[msg["oid"]] = DirEntry(READY)
+                e = self.directory[msg["oid"]] = DirEntry(READY)
+                w = self.workers.get(wid)
+                loc = self._own_store_loc_locked(w)
+                if loc is not None:
+                    e.add_location(loc)
+        elif t == "object_copied":
+            # a puller holds a copy now (object_transfer): free fanout and
+            # locate() must know (reference: object-directory location add)
+            with self.lock:
+                e = self.directory.get(ObjectID(msg["oid"]))
+                w = self.workers.get(wid)
+                loc = self._own_store_loc_locked(w)
+                if e is not None and loc is not None:
+                    e.add_location(loc)
         elif t == "put_spilled":
             with self.lock:
                 oid = ObjectID(msg["oid"])
@@ -808,6 +1077,9 @@ class Runtime:
                     e = self.directory[oid] = DirEntry(SPILLED)
                 else:
                     e.state = SPILLED  # keep lineage for later recovery
+                loc = self._own_store_loc_locked(self.workers.get(wid))
+                if loc is not None:
+                    e.add_location(loc)  # spill lives on that node's disk
         elif t == "contained":
             with self.lock:
                 self._register_contained_locked(
@@ -918,6 +1190,71 @@ class Runtime:
                     self._abandoned_rpcs.discard(oid)
                 self.store.delete(oid)
 
+    def _agent_loop(self, conn: Connection, msg: dict):
+        """Serve one node agent for its lifetime (reference analog: the
+        node-membership half of GcsNodeManager, gcs_node_manager.h:49 —
+        register on connect, dead on disconnect)."""
+        agent = _AgentHandle(conn)
+        node = NodeInfo(NodeID.from_random(), msg["resources"],
+                        msg.get("labels"), name=msg.get("name", "agent"))
+        node.agent = agent
+        node.data_addr = msg.get("data_addr")
+        node.own_store = bool(msg.get("own_store"))
+        # reply BEFORE the node becomes schedulable: otherwise a pending
+        # task could push a spawn_worker ahead of this reply and the agent's
+        # registration recv would read the wrong message. The agent already
+        # holds the authkey (it authenticated with it) — never echo it.
+        agent.send({"t": "registered", "node_id": node.node_id.hex(),
+                    "store_path": self.store_path,
+                    "spill_dir": self.spill.dir,
+                    "tcp_port": self.tcp_port, "pv": PROTOCOL_VERSION})
+        with self.lock:
+            self.nodes[node.node_id] = node
+            self._retry_pending_pgs_locked()
+            self._schedule_locked()
+        self.pubsub.publish("nodes", {"node_id": node.node_id.hex(),
+                                      "event": "added", "name": node.name})
+        node.last_heartbeat = time.monotonic()
+        try:
+            while True:
+                m = conn.recv()
+                t = m.get("t")
+                if t == "heartbeat":
+                    node.last_heartbeat = time.monotonic()
+                elif t == "worker_spawned":
+                    with self.lock:
+                        w = self.workers.get(m["wid"])
+                        if w is not None and isinstance(w.proc, _RemoteProc):
+                            w.proc.pid = m["pid"]
+                elif t == "worker_exit":
+                    with self.lock:
+                        w = self.workers.get(m["wid"])
+                        if w is not None and isinstance(w.proc,
+                                                        _RemoteProc):
+                            w.proc.mark_exited(m.get("rc"))
+                    self._on_worker_death(m["wid"])
+                elif t == "deregister":
+                    break
+        except (EOFError, OSError):
+            pass
+        finally:
+            try:
+                conn.close()
+            except Exception:
+                pass  # already closed
+            # complete every orphaned remote proc first so remove_node's
+            # per-worker proc.wait() returns immediately instead of timing
+            # out sequentially
+            with self.lock:
+                for wid in list(node.workers):
+                    w = self.workers.get(wid)
+                    if w is not None and isinstance(w.proc, _RemoteProc):
+                        w.proc.mark_exited(-1)
+            try:
+                self.remove_node(node.node_id)
+            except Exception:
+                pass  # double remove_node is a benign no-op
+
     # Worker→head request/reply: the reply value is written into the shared
     # store at a worker-chosen oid (reference analog: the CoreWorkerService /
     # GCS RPCs workers issue for name resolution and cluster state,
@@ -932,9 +1269,27 @@ class Runtime:
                     "user_metrics_dump", "pubsub_poll",
                     "metrics_history", "metrics_names", "slo_report",
                     "obs_signals", "cache_report",
-                    "kv_put", "kv_get", "kv_del", "kv_keys", "locate_many", "request_resources_rpc",
+                    "kv_put", "kv_get", "kv_del", "kv_keys", "locate",
+                    "locate_many", "request_resources_rpc",
                     "job_submit", "job_list", "job_status", "job_logs",
                     "job_stop")
+
+    def locate(self, oid_bytes: bytes) -> list[str]:
+        """Data-server addresses of nodes holding the object (ownership
+        object directory analog, ownership_object_directory.h). The head's
+        own store/spill is always checked — errors and driver puts live
+        there."""
+        oid = ObjectID(oid_bytes)
+        out = []
+        with self.lock:
+            e = self.directory.get(oid)
+            locs = set(e.locations or ()) if e is not None else set()
+            if self.store.contains(oid) or self.spill.contains(oid):
+                locs.add(self.head_node.node_id.hex())
+            for n in self.nodes.values():
+                if n.alive and n.node_id.hex() in locs and n.data_addr:
+                    out.append(n.data_addr)
+        return out
 
     def request_resources_rpc(self, bundles: list[dict]) -> None:
         """Replace the standing programmatic demand floor
@@ -943,8 +1298,8 @@ class Runtime:
             self.resource_requests = [dict(b) for b in bundles]
 
     def locate_many(self, oids: list[bytes]) -> list[bool]:
-        """Settled-ness (a result exists in the store or spill, or the
-        task terminally FAILED) for a batch of
+        """Settled-ness (a result exists anywhere — any store, spill, or
+        live holder node — or the task terminally FAILED) for a batch of
         objects in ONE round-trip: the saturated max_pending_calls prune
         asks about every pending result at once (actor.py
         _admit_pending) instead of one locate RPC per ref. FAILED counts
@@ -955,10 +1310,16 @@ class Runtime:
         undecided: list[tuple[int, ObjectID]] = []
         out = [False] * len(oids)
         with self.lock:
+            alive = {n.node_id.hex() for n in self.nodes.values()
+                     if n.alive}
             for i, ob in enumerate(oids):
                 oid = ObjectID(ob)
                 e = self.directory.get(oid)
                 if e is not None and e.state == FAILED:
+                    out[i] = True
+                    continue
+                locs = set(e.locations or ()) if e is not None else set()
+                if locs & alive:
                     out[i] = True
                 else:
                     undecided.append((i, oid))
@@ -980,10 +1341,31 @@ class Runtime:
     def kv_keys(self) -> list[str]:
         return self.kv.keys("user")
 
+    def _own_store_loc_locked(self, w) -> str | None:
+        """Node hex for location tracking — ONLY own-store nodes:
+        shared-store copies live in the head store the directory already
+        checks directly, and recording them would make eviction look like
+        a live remote copy (blocking lineage reconstruction)."""
+        if w is None:
+            return None
+        n = self.nodes.get(w.node_id)
+        if n is not None and n.own_store:
+            return n.node_id.hex()
+        return None
+
     def _deliver_payload(self, requester: str, reply_oid: bytes,
                          payload) -> None:
-        """Hand an out-of-band reply to a requester through the head
-        store, which the driver and every worker of this host share."""
+        """Hand an out-of-band reply to a requester: the head store for
+        the driver and shared-store workers, the control conn for
+        own-store workers (who cannot see the head store)."""
+        if requester != "driver":
+            with self.lock:
+                w = self.workers.get(requester)
+                n = self.nodes.get(w.node_id) if w is not None else None
+            if n is not None and n.own_store:
+                if w.send({"t": "rpc_reply", "reply_oid": reply_oid,
+                           "payload": payload}):
+                    return
         try:
             self.store.put(ObjectID(reply_oid), payload)
         except Exception:
@@ -1027,10 +1409,32 @@ class Runtime:
         # runs on the rpc pool (long-poll parks a pool thread, like pg_wait)
         return self.pubsub.poll(channel, cursor, timeout_s)
 
+    def _reply_via_conn(self, wid: str | None) -> bool:
+        """Workers on own-store nodes can't see the head store; their RPC
+        replies ride the control connection instead."""
+        if wid is None:
+            return False
+        with self.lock:
+            w = self.workers.get(wid)
+            if w is None:
+                return False
+            n = self.nodes.get(w.node_id)
+            return n is not None and n.own_store
+
     def _reply_rpc(self, wid: str | None, oid: ObjectID, payload) -> None:
-        """Deliver one rpc-style reply into the shared store (with the
+        """Deliver one rpc-style reply: over the control connection for
+        own-store peers, into the shared store otherwise (with the
         abandon-race reclaim). Shared by the rpc pool and the inline
         dir_query handler."""
+        if self._reply_via_conn(wid):
+            with self.lock:
+                w = self.workers.get(wid)
+            if w is not None:
+                # outside the lock: w.send pickles + writes the pipe
+                # under its own per-worker send_lock
+                w.send({"t": "rpc_reply", "reply_oid": oid.binary(),
+                        "payload": payload})
+            return
         self.store.put(oid, payload)
         # No directory entry: the worker polls the store directly and deletes
         # the reply once read. If the worker already gave up, reclaim now.
@@ -1112,16 +1516,32 @@ class Runtime:
         leases (from _lease_gpus_locked), its CUDA_VISIBLE_DEVICES."""
         self._worker_seq += 1
         wid = f"w{self._worker_seq:05d}"
+        if node.agent is not None:
+            # agent-backed node: the agent forks the worker on its host
+            # (with CUDA_VISIBLE_DEVICES = the indices leased here) and
+            # reports pid/exit back over its control connection
+            w = WorkerInfo(wid, node.node_id,
+                           _RemoteProc(node.agent, wid), gpus)
+            w.pending_spec = None
+            w.pending_actor = None
+            self.workers[wid] = w
+            node.workers.add(wid)
+            node.agent.send({
+                "t": "spawn_worker", "wid": wid, "gpus": list(gpus),
+                "node_id": node.node_id.hex()})
+            return w
         env = build_worker_env(
             store_path=self.store_path, head_addr=self.listener_addr,
-            authkey_hex=self._authkey.hex(),
+            head_family="AF_UNIX", authkey_hex=self._authkey.hex(),
             wid=wid, node_id_hex=node.node_id.hex(), gpus=gpus,
             spill_dir=self.spill.dir)
         log = open(os.path.join(self.session_dir, f"worker-{wid}.log"), "wb")
         # fork under the runtime lock is deliberate: wid allocation and
         # the workers-table insert must be atomic with the scheduling
         # pass that decided to spawn (dropping the lock here would let a
-        # concurrent pass double-assign the bundle).
+        # concurrent pass double-assign the bundle). The local-process
+        # path only runs on the head node — agent-backed nodes (the
+        # scale path) take the non-blocking send branch above.
         proc = subprocess.Popen(  # graftlint: disable=GL012,GL013
             [sys.executable, "-m", "ray_tpu_torch.core.worker"],
             env=env, stdout=log, stderr=subprocess.STDOUT,
@@ -1493,7 +1913,16 @@ class Runtime:
         e = self.directory.get(oid)
         if e is None or e.state == PENDING:
             return
+        e_locs = e.locations
         self.directory.pop(oid, None)
+        # copies on own-store nodes are freed by their agents (the head
+        # can't reach those stores); reference: FreeObjects fanout
+        if e_locs:
+            for n in self.nodes.values():
+                if (n.agent is not None and n.own_store
+                        and n.node_id.hex() in e_locs):
+                    n.agent.send({"t": "free_objects",
+                                  "oids": [oid.binary()]})
         if oid in self._pinned:
             self._pinned.discard(oid)
             try:
@@ -1530,6 +1959,16 @@ class Runtime:
             return
         if e is None or e.state != READY or self.store.contains(oid):
             return
+        if e.locations:
+            # a live copy on another node satisfies consumers via the
+            # transfer service — reconstruction would DOUBLE-RUN the
+            # producer (wrong for side-effecting tasks)
+            alive = {n.node_id.hex() for n in self.nodes.values()
+                     if n.alive}
+            live_copies = e.locations & alive
+            if live_copies:
+                return
+            e.locations = None  # every holder died: fall through to lineage
         if e.lineage is None:
             self._store_error(oid, exc.ObjectLostError(
                 f"object {oid} was evicted and has no lineage "
@@ -1805,6 +2244,13 @@ class Runtime:
                 # spill directory when the store misses
                 continue
             if not self.store.contains(d):
+                if e is not None and e.state == READY and e.locations and \
+                        any(n.alive and n.node_id.hex() in e.locations
+                            for n in self.nodes.values()):
+                    # a live copy on another node; the executing worker
+                    # pulls it via the transfer service (every worker can
+                    # fetch — see worker._try_fetch)
+                    continue
                 if e is not None and e.state == READY:
                     self._ensure_available_locked(d)  # evicted → reconstruct
                 return "wait"
@@ -2522,11 +2968,15 @@ class Runtime:
                     self._record_task_locked(spec, "FINISHED",
                                              finished_at=time.time(),
                                              duration_s=msg.get("dur"))
+                    loc = self._own_store_loc_locked(w)
                     for oid in spec.return_ids:
                         e = self.directory.get(oid)
                         if e is not None and e.state == PENDING:
                             # (a SPILLED return must stay SPILLED)
                             e.state = READY
+                        if e is not None and loc is not None:
+                            e.add_location(loc)
+                            self._prefetch_locked(oid)
                         # a consumer may have dropped its ref while we were
                         # still PENDING; re-check now that we're final
                         self._maybe_free_locked(oid)
@@ -2539,6 +2989,8 @@ class Runtime:
                         if ie is None:
                             ie = self.directory[ioid] = DirEntry(READY)
                         ie.lineage = spec
+                        if loc is not None:
+                            ie.add_location(loc)
                         self._maybe_free_locked(ioid)
                     self._drop_task_dep_interest_locked(spec)
                 elif msg.get("retryable"):
@@ -2549,11 +3001,17 @@ class Runtime:
                     self._record_task_locked(spec, "FAILED",
                                              finished_at=time.time(),
                                              error=msg.get("err"))
+                    # the error frame lives where the task ran: on an
+                    # own-store node, getters pull it from there
+                    loc = self._own_store_loc_locked(w)
                     for oid in spec.return_ids:
                         e = self.directory.get(oid)
                         if e is not None:
                             e.state = FAILED
                             e.error_brief = msg.get("err")
+                            if loc is not None:
+                                e.add_location(loc)
+                                self._prefetch_locked(oid)
                         self._maybe_free_locked(oid)
                     self._drop_task_dep_interest_locked(spec)
                     self._sweep_failed_deps_locked()
@@ -3067,6 +3525,11 @@ class Runtime:
                     w.proc.kill()
                 except Exception:
                     pass  # already dead
+                if isinstance(w.proc, _RemoteProc):
+                    # the agent may be dead with its kill request unread:
+                    # end the worker's control connection so the worker
+                    # exits on its EOF instead of outliving its node
+                    _sever(w.conn)
                 self._on_worker_death(wid)
 
     # ------------------------------------------------------------------ #
@@ -3077,17 +3540,44 @@ class Runtime:
         single = isinstance(refs, ObjectRef)
         ref_list = [refs] if single else list(refs)
         deadline = None if timeout is None else time.monotonic() + timeout
-        if len(ref_list) > 1:
-            # bulk fast path: park in chunked wait_sealed calls (GIL
-            # released, one futex wait services whichever result seals
-            # first) until everything is readable, THEN materialize in
-            # order — instead of a blocking store.get per ref, each of
-            # which woke the driver on every unrelated seal
-            self._wait_all_present([r.id() for r in ref_list], deadline)
-        out = []
-        for r in ref_list:
-            out.append(self._get_one(r.id(), deadline))
+        oids = [r.id() for r in ref_list]
+        with self.lock:
+            for oid in oids:
+                self._head_gets[oid] = self._head_gets.get(oid, 0) + 1
+                self._prefetch_locked(oid)
+        try:
+            if len(ref_list) > 1:
+                # bulk fast path: park in chunked wait_sealed calls (GIL
+                # released, one futex wait services whichever result
+                # seals first) until everything is readable, THEN
+                # materialize in order — instead of a blocking store.get
+                # per ref, each of which woke the driver on every
+                # unrelated seal
+                self._wait_all_present(oids, deadline)
+            out = []
+            for oid in oids:
+                out.append(self._get_one(oid, deadline))
+        finally:
+            with self.lock:
+                for oid in oids:
+                    n = self._head_gets.pop(oid, 1) - 1
+                    if n > 0:
+                        self._head_gets[oid] = n
         return out[0] if single else out
+
+    def _prefetch_locked(self, oid: ObjectID) -> None:
+        """Start pulling `oid` into the head's store when get() waits for
+        it and its only copies (or its error frame) live on own-store
+        nodes: the waiter then wakes on the seal instead of finding the
+        remote copy at the end of its store-wait slice."""
+        if oid not in self._head_gets or self.store.contains(oid):
+            return
+        e = self.directory.get(oid)
+        if e is None or e.state not in (READY, FAILED) or not e.locations:
+            return
+        if any(n.alive and n.own_store and n.node_id.hex() in e.locations
+               for n in self.nodes.values()):
+            self._rpc_pool.submit(self._fetch_remote, oid)
 
     def _sealed_is_exception(self, oid: ObjectID) -> bool:
         """Peek a sealed object's frame flags without deserializing."""
@@ -3112,10 +3602,19 @@ class Runtime:
             return False
 
     def _satisfiable_elsewhere_locked(self, oid: ObjectID) -> bool:
-        """True when _get_one can resolve `oid` without a seal in the
-        store: spilled to disk, or terminally failed."""
+        """True when _get_one can resolve `oid` without a LOCAL seal:
+        spilled to disk, terminally failed, or a live remote copy that
+        the per-ref loop will pull over."""
         e = self.directory.get(oid)
-        return e is not None and e.state in (SPILLED, FAILED)
+        if e is None:
+            return False
+        if e.state in (SPILLED, FAILED):
+            return True
+        if e.state == READY and e.locations:
+            alive = {n.node_id.hex() for n in self.nodes.values()
+                     if n.alive}
+            return bool(e.locations & alive)
+        return False
 
     def _wait_all_present(self, oids, deadline):
         """Block until every oid the ordered materialization loop will
@@ -3202,7 +3701,10 @@ class Runtime:
     def _mux_nudge(self, oid: ObjectID):
         """Completion-mux recovery hook (core/completion.py): an awaited
         oid stayed unsealed past the nudge window — re-ensure it (lineage
-        re-execution of evicted objects)."""
+        re-execution of evicted objects) and, when a live remote copy
+        exists, pull it off-thread so the mux never blocks on transfer
+        IO."""
+        pull = False
         with self.lock:
             e = self.directory.get(oid)
             if e is None or e.state == PENDING:
@@ -3216,18 +3718,25 @@ class Runtime:
                 # the re-ensure requeued its lineage: run one pass so
                 # the reconstruction actually dispatches
                 self._schedule_locked()
+            elif e is not None and e.state == READY and e.locations:
+                pull = True
+        if pull:
+            self._rpc_pool.submit(self._fetch_remote, oid)
 
     def _recover_lost_spill(self, oid: ObjectID) -> None:
-        """A SPILLED object's file is gone: flip to the lineage path
-        (reconstructable) or FAILED (loud)."""
+        """A SPILLED object's file is gone and no live node holds a copy:
+        flip to the lineage path (reconstructable) or FAILED (loud)."""
         with self.lock:
             e = self.directory.get(oid)
             if e is None or e.state != SPILLED:
                 return
-            if self.spill.contains(oid):
-                return  # written back meanwhile; the next load reads it
+            alive = {n.node_id.hex() for n in self.nodes.values()
+                     if n.alive}
+            if (e.locations or set()) & alive or self.spill.contains(oid):
+                return  # a holder is still up; keep pulling
             if e.lineage is not None:
                 e.state = READY      # reuse the evicted-object recovery
+                e.locations = None
                 self._ensure_available_locked(oid)
                 self._schedule_locked()
             else:
@@ -3236,6 +3745,22 @@ class Runtime:
                     f"has no lineage to reconstruct from"))
                 e.state = FAILED
                 self._sweep_failed_deps_locked()
+
+    def _fetch_remote(self, oid: ObjectID) -> bool:
+        """Pull an object produced on an own-store node into the head's
+        store (object_transfer.py); False when no remote copy exists."""
+        with self.lock:
+            e = self.directory.get(oid)
+            locs = set(e.locations or ()) if e is not None else set()
+            locs.discard(self.head_node.node_id.hex())
+            addrs = [n.data_addr for n in self.nodes.values()
+                     if n.alive and n.own_store and n.data_addr
+                     and n.node_id.hex() in locs]
+        from .object_transfer import fetch_resilient
+        try:
+            return fetch_resilient(addrs, oid, self.store, self.spill)
+        except OSError:
+            return False
 
     def _get_one(self, oid: ObjectID, deadline: float | None):
         while True:
@@ -3257,12 +3782,16 @@ class Runtime:
                     try:
                         return self.spill.load(oid)
                     except FileNotFoundError:
-                        # the file is gone: reconstruct via lineage or
+                        # spilled on an own-store NODE: pull it over; if
+                        # every holder died, reconstruct via lineage or
                         # fail loudly — never spin silently
-                        self._recover_lost_spill(oid)
+                        if not self._fetch_remote(oid):
+                            self._recover_lost_spill(oid)
                         continue
                     except exc.RayTaskError as e:
                         raise e.as_instanceof_cause() from e
+                if self._fetch_remote(oid):
+                    continue  # pulled into the local store; next get hits
                 with self.lock:
                     self._ensure_available_locked(oid)
                     self._schedule_locked()
@@ -3891,6 +4420,9 @@ class Runtime:
         self.jobs.shutdown()
         for w in workers:
             w.send({"t": "exit"})
+        for node in list(self.nodes.values()):
+            if node.agent is not None:
+                node.agent.send({"t": "shutdown"})
         # wake pg_wait blockers so rpc-pool threads exit promptly, then
         # release the pool without joining in-flight handlers
         self._sched_evt.set()  # release the scheduler pump
@@ -3908,10 +4440,12 @@ class Runtime:
                     w.proc.kill()
                 except Exception:
                     pass  # already dead
-        try:
-            self.listener.close()
-        except Exception:
-            pass  # already closed
+        for lst in (self.listener, self.tcp_listener):
+            try:
+                lst.close()
+            except Exception:
+                pass  # already closed
+        self.data_server.stop()
         # sever control-plane connections so recv threads exit before the
         # store mapping goes away (they may touch the store while handling
         # late messages)

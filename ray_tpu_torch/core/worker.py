@@ -97,10 +97,18 @@ class WorkerRuntime:
         self.func_registry: dict[str, object] = {}
         self._sent_fids: set[str] = set()
         self._sent_renvs: set[str] = set()
+        # own-store node: misses pull via object_transfer; RPC replies come
+        # over the conn into this dict instead of the (invisible) head store
+        self.own_store = os.environ.get("RTPU_OWN_STORE") == "1"
         # fallback namespace when no task is executing (the head's);
         # during execution the SUBMITTING driver's namespace is active
         # (core/actor.py qualify_actor_name reads self.namespace)
         self._default_ns = os.environ.get("RTPU_NAMESPACE", "default")
+        self._rpc_replies: dict[bytes, object] = {}
+        self._rpc_reply_evt = threading.Event()
+        self._rpc_abandoned: set[bytes] = set()
+        self._last_fetch: dict = {}
+        self._last_fetch_sweep = 0.0
         self.current_task_name = ""
         # process-local ObjectRef counts; 0<->1 transitions notify the head
         # (reference_count.h:73 borrower protocol, simplified)
@@ -422,7 +430,7 @@ class WorkerRuntime:
         actually reach is sealed in the store (or readable from spill),
         servicing whichever seals first via os_wait_sealed — the
         futex-on-seal notification path. Slices are only the re-check
-        cadence for spill re-checks and grow exponentially; a
+        cadence for spill/cross-node fetches and grow exponentially; a
         seal wakes the waiter immediately regardless of slice length.
         Sequential-get parity: _get_one raises a stored task error at the
         FIRST errored index once everything before it resolved — so a
@@ -478,6 +486,9 @@ class WorkerRuntime:
                     if self._present_is_exception(o, sealed=f):
                         err_before = min(err_before, i)
                     continue
+                # ANY worker may need a cross-node pull (throttled to one
+                # locate per object per second inside _try_fetch)
+                self._try_fetch(o)
                 still.append((i, o))
             missing = still
             slice_ms = min(slice_ms * 2, 200)
@@ -485,8 +496,10 @@ class WorkerRuntime:
     def _mux_nudge(self, oid: ObjectID):
         """Completion-mux recovery hook (core/completion.py): an awaited
         oid stayed unsealed past the nudge window — ask the head to make
-        it available (lineage re-exec of evicted objects)."""
+        it available (lineage re-exec of evicted objects) and try a
+        cross-node pull (throttled inside _try_fetch)."""
         self.send({"t": "ensure", "oids": [oid.binary()]})
+        self._try_fetch(oid)
 
     _did_block = False
 
@@ -522,14 +535,54 @@ class WorkerRuntime:
                     on_wait()
                     self.send({"t": "ensure", "oids": [oid.binary()]})
                     first = False
+                # ANY worker may need a cross-node pull (a shared-store
+                # worker can consume an own-store node's output too)
+                self._try_fetch(oid)
                 continue
             except exc.RayTaskError as e:
                 raise e.as_instanceof_cause() from e
 
+    def _try_fetch(self, oid: ObjectID) -> bool:
+        """Pull a missing object from a holder node into the local store
+        (the reference's PullManager retry loop, pull_manager.h:49 —
+        throttled to one locate per object per second)."""
+        now = time.monotonic()
+        if now - self._last_fetch.get(oid, 0.0) < 1.0:
+            return False
+        self._last_fetch[oid] = now
+        if len(self._last_fetch) > 1024 and \
+                now - self._last_fetch_sweep > 10.0:
+            # bounded: entries for refs that never fetch successfully are
+            # only popped on success, so expire anything far outside the
+            # 1s throttle window or a long-lived driver leaks the dict.
+            # Time-gated so a bulk wait over >1024 hot refs (nothing
+            # expirable yet) doesn't rebuild the dict on every attempt.
+            self._last_fetch_sweep = now
+            cutoff = now - 10.0
+            self._last_fetch = {o: t for o, t in self._last_fetch.items()
+                                if t > cutoff}
+        try:
+            addrs = self._rpc("locate", oid.binary(), timeout=10.0)
+        except Exception:
+            return False
+        from .object_transfer import fetch_resilient
+        try:
+            if fetch_resilient(addrs, oid, self.store, self.spill):
+                self._last_fetch.pop(oid, None)
+                if self.own_store:
+                    # the head must know this node holds a copy now
+                    # (free fanout + future locates)
+                    self.send({"t": "object_copied",
+                               "oid": oid.binary()})
+                return True
+        except OSError:
+            pass
+        return False
+
     def wait(self, refs, num_returns=1, timeout=None, fetch_local=True):
         # multi-oid wait primitive (os_wait_sealed): a seal wakes this
         # waiter immediately; the growing slice is only the fallback
-        # cadence for spill re-checks —
+        # cadence for spill re-checks and cross-node fetch retries —
         # replaces the fixed 2ms sleep poll that burned CPU and added up
         # to 2ms latency per completion
         ref_list = list(refs)
@@ -566,6 +619,8 @@ class WorkerRuntime:
                          and self.spill.contains(r.id())):
                     ready.append(r)
                     continue
+                if fetch_local:
+                    self._try_fetch(r.id())
                 still.append(r)
             pending = still
             slice_ms = min(slice_ms * 2, 200)  # exponential backoff
@@ -621,7 +676,21 @@ class WorkerRuntime:
         msg = {**msg, "reply_oid": reply.binary()}
         self.send(msg)
         deadline = time.monotonic() + timeout
+        rb = reply.binary()
         while True:
+            got = self._rpc_replies.pop(rb, None)
+            if got is not None:
+                status, payload = got
+                break
+            if self.own_store:
+                # reply arrives over the conn; park on the event
+                self._rpc_reply_evt.wait(timeout=0.1)
+                self._rpc_reply_evt.clear()
+                if time.monotonic() > deadline:
+                    self._rpc_abandoned.add(rb)
+                    raise exc.GetTimeoutError(
+                        f"head rpc {label} timed out") from None
+                continue
             # event-driven: the reply's seal wakes this futex wait
             # immediately (was: a 100ms store.get poll slice per pass);
             # the bounded slice only re-arms against a reconnect-swapped
@@ -690,6 +759,9 @@ def _dial_head(addr: str, authkey: bytes, timeout_s: float = 15.0):
     delay = 0.05
     while True:
         try:
+            if os.environ.get("RTPU_HEAD_FAMILY") == "AF_INET":
+                host, port = addr.rsplit(":", 1)
+                return Client((host, int(port)), authkey=authkey)
             return Client(addr, "AF_UNIX", authkey=authkey)
         except (BlockingIOError, InterruptedError, ConnectionRefusedError,
                 ConnectionResetError):
@@ -1105,6 +1177,12 @@ class WorkerLoop:
                 else:
                     pool.submit(self._exec_wrapper, self._run_actor_task,
                                 msg["spec"])
+            elif t == "rpc_reply":
+                if msg["reply_oid"] in self.rt._rpc_abandoned:
+                    self.rt._rpc_abandoned.discard(msg["reply_oid"])
+                else:
+                    self.rt._rpc_replies[msg["reply_oid"]] = msg["payload"]
+                    self.rt._rpc_reply_evt.set()
             elif t == "device_get":
                 # serve a device-object fetch; serialization can be large,
                 # keep the recv loop free

@@ -90,7 +90,12 @@ def test_port_modules_load_no_jax_and_no_ray_tpu():
                  "ray_tpu_torch.obs", "ray_tpu_torch.obs.scraper",
                  "ray_tpu_torch.obs.tsdb", "ray_tpu_torch.obs.slo",
                  "ray_tpu_torch.util.placement_group",
-                 "ray_tpu_torch.util.scheduling_strategies"):
+                 "ray_tpu_torch.util.scheduling_strategies",
+                 # the runtime across hosts
+                 "ray_tpu_torch.core.client",
+                 "ray_tpu_torch.core.node_agent",
+                 "ray_tpu_torch.core.object_transfer",
+                 "ray_tpu_torch.cluster_utils", "ray_tpu_torch.util.gpu"):
         assert want in modules, (want, sorted(modules))
     assert lines["BANNED"] == "", lines["BANNED"]
 
@@ -124,6 +129,45 @@ def test_port_worker_processes_load_no_jax_and_no_ray_tpu():
         assert ray_tpu_torch.get(task.remote(), timeout=60) == ("", [])
         assert ray_tpu_torch.get(Holder.remote().report.remote(),
                                  timeout=60) == ("0", [])
+    finally:
+        ray_tpu_torch.shutdown()
+
+
+def test_node_agent_and_its_workers_load_no_jax_no_ray_tpu_no_cuda():
+    """A node agent process (started as a second host would start it)
+    maps neither torch nor CUDA nor jaxlib, though its own-store worker
+    ran a task that holds a fake GPU; that worker has neither JAX nor the
+    reference package in sys.modules."""
+    import jax  # noqa: F401 — loaded in the driver on purpose
+    import ray_tpu  # noqa: F401
+    import ray_tpu_torch
+    from ray_tpu_torch.cluster_utils import node_agent
+    from ray_tpu_torch.util.scheduling_strategies import \
+        NodeAffinitySchedulingStrategy
+    if ray_tpu_torch.is_initialized():
+        ray_tpu_torch.shutdown()
+    ray_tpu_torch.init(num_cpus=1, object_store_memory=64 * 1024 * 1024)
+    try:
+        with node_agent("contract", num_gpus=1, own_store=True,
+                        store_capacity=64 << 20) as agent:
+            def loaded():
+                import sys as _sys
+                return os.environ["CUDA_VISIBLE_DEVICES"], sorted(
+                    n for n in _sys.modules
+                    if any(n == p or n.startswith(p + ".")
+                           for p in ("jax", "jaxlib", "ml_dtypes",
+                                     "ray_tpu")))
+
+            task = ray_tpu_torch.remote(num_gpus=1)(loaded)
+            strat = NodeAffinitySchedulingStrategy(node_id=agent.node_id,
+                                                   soft=False)
+            assert ray_tpu_torch.get(task.options(
+                scheduling_strategy=strat).remote(), timeout=60) == ("0", [])
+            with open(f"/proc/{agent.proc.pid}/maps") as f:
+                maps = f.read()
+            for lib in ("libtorch", "libcuda", "libcudart", "jaxlib",
+                        "xla_extension"):
+                assert lib not in maps, lib
     finally:
         ray_tpu_torch.shutdown()
 

@@ -14,7 +14,6 @@ resource table keys with "GPU" in the place of "TPU".
 The remote functions and classes are defined inside the tests, so they
 pickle by value: a worker never imports this module (nor, through it,
 the reference package)."""
-import os
 import time
 
 import numpy as np
@@ -321,41 +320,6 @@ def test_local_mode():
         assert ray.get(c.m.remote()) == "local"
     finally:
         ray.shutdown()
-
-
-def test_attaching_to_a_cluster_is_not_ported():
-    """init(address=...) and the RTPU_ADDRESS auto-connect need the
-    driver client (core/client.py, not ported): they raise, naming it,
-    and start nothing."""
-    if ray.is_initialized():
-        ray.shutdown()
-    with pytest.raises(NotImplementedError, match="core/client.py"):
-        ray.init(address="auto")
-    old = os.environ.get("RTPU_ADDRESS")
-    os.environ["RTPU_ADDRESS"] = "/nowhere/cluster.json"
-    try:
-        with pytest.raises(NotImplementedError, match="core/client.py"):
-            ray.init(num_cpus=1)
-    finally:
-        if old is None:
-            del os.environ["RTPU_ADDRESS"]
-        else:
-            os.environ["RTPU_ADDRESS"] = old
-    assert not ray.is_initialized()
-
-
-def test_remote_nodes_are_not_ported():
-    """Nodes on other hosts need the node agent (core/node_agent.py, not
-    ported): init(enable_remote_nodes=True) raises, naming it, and the
-    head exposes no address for agents to dial."""
-    if ray.is_initialized():
-        ray.shutdown()
-    with pytest.raises(NotImplementedError, match="core/node_agent.py"):
-        ray.init(num_cpus=1, enable_remote_nodes=True)
-    assert not ray.is_initialized()
-    assert "head_address" not in ray.__all__
-    with pytest.raises(AttributeError):
-        ray.head_address
 
 
 def test_state_rpcs_are_not_ported(rt):
