@@ -193,7 +193,9 @@ and prints no result line):
    temporary file, loading neither jax nor ray_tpu) attaches with
    init(address=<cluster.json>), takes the actor with get_actor and
    sends phase 4's first greedy request: its tokens must equal phase
-   4's. After kill the agent's node has its GPU back; a new one-GPU
+   4's, and state.list_actors() over its rpc must list the actor (it
+   runs inside the dag step, below). After kill the agent's node has
+   its GPU back; a new one-GPU
    actor there gets phase 5's small f32 model through an ObjectRef put
    in the head's store, pulled into the agent's own store (tokens equal
    to the CPU engine's, logprobs within 1e-4). One bf16 tensor (its host
@@ -208,6 +210,34 @@ and prints no result line):
    Prints the agent's registration, the actor's start-up, tokens/s,
    TTFT, launches, the median actor-call round trip (now over TCP), the
    second driver's attach, and both transfers' bytes, seconds and GB/s.
+dag (in 4f and again in 4g, on their 8B actor after its mix and before
+   its kill): the compiled-DAG layer (ray_tpu_torch.dag) around that
+   actor. inp -> host.complete_many (phase 4's bodies at once from a
+   thread pool) -> Collect.tokens (a num_cpus=1 actor: token ids and the
+   greedy flag of each result), compiled with max_inflight=2. Phase 4's
+   seed-0 mix runs as one execute, then split in three parts, all three
+   executed before the first get (the third drains the first from the
+   ring); in each run every greedy request's tokens must equal phase 4's
+   bit for bit and the ragged kernel must launch in both families inside
+   the actor (its counts set to 0 just before the run, read just after).
+   While the DAG lives, from the head's driver: state.list_actors() has
+   the named actor alive, state.list_workers() its worker with the
+   actor's pid (and, in 4g, the agent's node),
+   state.summary()["active_channels"] grows by the DAG's channel count,
+   state.stack_report() shows the actor's loop thread parked on a
+   channel (channel_recv), state.timeline(flight=True) has a chan_seal
+   and a chan_wake for every edge of the last execute, and
+   state.memory_summary() has store totals; in 4g the second driver also
+   runs here and finds the actor through state.list_actors(). Then a
+   one-stage DAG inp -> host.echo gives the median of 200
+   execute(i).get() round trips after one warm one. After teardown each
+   loop returns, no channel is counted, every store's object count
+   (the head's, and in 4g the agent's) is back to its count before the
+   compile, and a plain complete call gives phase 4's first greedy
+   tokens. In 4f every stage shares the driver's store ("store":
+   "shared"); in 4g the host sits on the agent's own store and Collect
+   on the head's node, so the edges cross both ways ("store": "across").
+   Prints one dag: line per phase, with the card and its power limit.
 5b. dense agreement: phase 5's small f32 model through InferenceEngine on
    the card and on the CPU gives identical greedy tokens; the f32
    forward kernel's launches are counted as in phase 7.
@@ -276,14 +306,19 @@ TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (1e-2, 2 ** -7)}
 ROW_ATOL_REL = 2 ** -7
 
 
-def probe() -> str:
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: CUDA is not available")
-    card = subprocess.run(
+def _card() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+def probe() -> str:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: CUDA is not available")
+    card = _card()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"probe: {torch.cuda.get_device_name(0)} | {card} | torch "
@@ -1370,6 +1405,29 @@ def _server_host(rt):
         def complete(self, body):
             return self.srv.completions(dict(body))
 
+        def complete_many(self, bodies):  # the dag step's middle stage
+            """Every body at once from a thread pool; each result in
+            order, with its request's token ids as the engine gave
+            them."""
+            from concurrent.futures import ThreadPoolExecutor
+            with ThreadPoolExecutor(max_workers=len(bodies)) as pool:
+                resps = list(pool.map(self.complete, bodies))
+            out = []
+            for body, resp in zip(bodies, resps):
+                ids = next(ids for p, ids, _lp, _t in reversed(self.served)
+                           if p == list(body["prompt"]))
+                out.append({"response": resp, "token_ids": ids,
+                            "temperature": body["temperature"]})
+            return out
+
+        def echo(self, x):
+            return x
+
+        def store_objects(self):
+            """Objects in this worker's store (an own-store node's)."""
+            from ray_tpu_torch.core import runtime as rt_mod
+            return rt_mod.get_runtime_if_exists().store.num_objects()
+
         def counts(self):                 # main path ends here
             return {"launches": self.rpa.launches,
                     "launches_by_family": dict(self.fam),
@@ -1506,6 +1564,213 @@ def _params_ref_actor(rt, Host, label: str, **options) -> dict:
             "launches_by_family": counts["launches_by_family"]}
 
 
+def _collect_class(rt):
+    """The last stage of the dag step: a CPU actor that takes the 8B
+    stage's results and returns each one's token ids and greedy flag."""
+
+    @rt.remote(num_cpus=1)
+    class Collect:
+        def tokens(self, results):
+            return [(r["token_ids"], not r["temperature"]) for r in results]
+
+    return Collect
+
+
+def _dag_run(rt, cdag, host, bodies: list, parts: list, greedy: dict,
+             label: str) -> dict:
+    """One run of phase 4's mix through the 8B DAG, executed as `parts`
+    (slices of `bodies`), every execute before the first get: between
+    the actor's reset and its counts, every greedy request's tokens must
+    equal phase 4's and the ragged kernel must launch in both families
+    inside the actor."""
+    rt.get(host.reset.remote(), timeout=60)
+    t0 = time.perf_counter()
+    refs = [cdag.execute(bodies[a:b]) for a, b in parts]
+    got = [x for ref in refs for x in ref.get(timeout_s=900)]
+    wall = time.perf_counter() - t0
+    counts = rt.get(host.counts.remote(), timeout=60)
+    if len(got) != len(bodies):
+        raise AssertionError(f"{label}: {len(got)} results for "
+                             f"{len(bodies)} requests")
+    n_greedy = 0
+    for i, (body, (ids, is_greedy)) in enumerate(zip(bodies, got)):
+        if is_greedy != (not body["temperature"]):
+            raise AssertionError(f"{label} request {i}: greedy flag "
+                                 f"{is_greedy}")
+        if is_greedy:
+            want = greedy[tuple(body["prompt"])]
+            if ids != want:
+                raise AssertionError(f"{label} greedy request {i}: dag "
+                                     f"{ids} != phase 4 {want}")
+            n_greedy += 1
+    if n_greedy != len(greedy):
+        raise AssertionError(f"{label}: {n_greedy} greedy results, phase 4 "
+                             f"gave {len(greedy)}")
+    for name, n in counts["launches_by_family"].items():
+        if n <= 0:
+            raise AssertionError(f"{label}: the ragged kernel never "
+                                 f"launched in {name} inside the actor")
+    n_out = sum(len(ids) for ids, _g in got)
+    return {"executes": len(parts), "wall_s": wall, "tokens_out": n_out,
+            "tokens_per_s": n_out / wall, "greedy_equal_phase4": n_greedy,
+            "launches": counts["launches"],
+            "launches_by_family": counts["launches_by_family"]}
+
+
+def _settled(read, want: int, timeout_s: float = 15.0) -> int:
+    """Poll `read()` until it is at most `want`; return the last value
+    (the caller compares it)."""
+    deadline = time.monotonic() + timeout_s
+    got = read()
+    while got > want and time.monotonic() < deadline:
+        time.sleep(0.1)
+        got = read()
+    return got
+
+
+def dag_step(rt, host, collect, bodies: list, greedy: dict, store: str,
+             agent_node=None, during=None) -> dict:
+    """The dag step of phases 4f and 4g: the compiled-DAG layer around
+    the warmed 8B actor `host`, with `collect` (a Collect actor) as the
+    last stage. `store` is "shared" when every stage shares the driver's
+    store, "across" when `host` sits on an own-store agent node
+    (`agent_node`). `during` runs while the DAG lives. Returns the
+    figures; raises on any failure."""
+    import ray_tpu_torch.dag  # noqa: F401 — gives ActorMethod its .bind
+    from ray_tpu_torch import state
+    from ray_tpu_torch.core import flight
+    from ray_tpu_torch.core import runtime as rt_mod
+    from ray_tpu_torch.dag import InputNode
+    label = f"dag ({store})"
+    head_store = rt_mod.get_runtime_if_exists().store
+    first = next((b for b in bodies if not b["temperature"]), None)
+    if first is None or not greedy:
+        raise AssertionError(f"{label}: phase 4 gave no greedy result")
+    info = rt.get(host.info.remote(), timeout=60)
+    fig = {"store": store}
+    objects = {"head": [head_store.num_objects()]}
+    if store == "across":
+        objects["agent"] = [rt.get(host.store_objects.remote(), timeout=60)]
+    chans = [state.summary()["active_channels"]]
+    t0 = time.perf_counter()
+    with InputNode() as inp:
+        out = collect.tokens.bind(host.complete_many.bind(inp))
+    cdag = out.experimental_compile(max_inflight=2)
+    fig["compile_s"] = time.perf_counter() - t0
+    if (store == "across") != bool(cdag._push_addrs):
+        raise AssertionError(f"{label}: push routes {cdag._push_addrs}")
+    try:
+        third = -(-len(bodies) // 3)
+        fig["whole"] = _dag_run(rt, cdag, host, bodies, [(0, len(bodies))],
+                                greedy, label)
+        fig["split"] = _dag_run(rt, cdag, host, bodies,
+                                [(0, third), (third, 2 * third),
+                                 (2 * third, len(bodies))], greedy, label)
+
+        # state while the DAG lives, from the head's driver
+        name = next(a for a in state.list_actors()
+                    if a["actor_id"] == host._actor_id.hex())
+        worker = next(w for w in state.list_workers()
+                      if w["actor_id"] == name["actor_id"])
+        if name["state"] != "ALIVE" or not name["name"] or \
+                worker["pid"] != info["pid"] or \
+                (agent_node and worker["node"] != agent_node):
+            raise AssertionError(f"{label}: actor row {name}, worker row "
+                                 f"{worker}, actor {info['pid']} on "
+                                 f"{info['node']}")
+        chans.append(state.summary()["active_channels"])
+        if chans[1] - chans[0] != cdag._n_chans:
+            raise AssertionError(f"{label}: active_channels {chans} for "
+                                 f"{cdag._n_chans} channels")
+        time.sleep(0.3)                  # every loop parks again
+        stacks = state.stack_report()
+        parked = [t["name"] for p in stacks["procs"]
+                  if p.get("pid") == info["pid"]
+                  for t in p.get("threads", [])
+                  if t.get("wait", {}).get("kind") == "channel_recv"]
+        if not parked:
+            raise AssertionError(f"{label}: no thread of the actor's "
+                                 f"worker parked on a channel")
+        # one more execute after the reports: the DAG still serves
+        ids, is_greedy = cdag.execute([first]).get(timeout_s=300)[0]
+        if not is_greedy or ids != greedy[tuple(first["prompt"])]:
+            raise AssertionError(f"{label}: last execute gave {ids}")
+        # this DAG's edges (the driver's ring still holds 4f's DAG's)
+        last = cdag._seq - 1
+        edges = {flight.lo48(b) for bases in cdag._lands.values()
+                 for b in bases}
+        events = state.timeline(flight=True)["traceEvents"]
+        flow = {kind: {e["args"]["chan"] for e in events
+                       if e.get("name") == kind
+                       and e["args"].get("seq") == last
+                       and e["args"]["chan"] in edges}
+                for kind in ("chan_seal", "chan_wake")}
+        if flow["chan_seal"] != edges or flow["chan_wake"] != edges or \
+                len(edges) != cdag._n_chans:
+            raise AssertionError(f"{label}: flight flows of execute "
+                                 f"{last}: {flow} for {cdag._n_chans} "
+                                 f"channels")
+        mem = state.memory_summary(limit=10)["object_store"]
+        if mem["capacity"] <= 0:
+            raise AssertionError(f"{label}: memory summary {mem}")
+        fig["state"] = {"actor": name["name"], "worker_node": worker["node"],
+                        "channels": cdag._n_chans, "parked": parked,
+                        "flows": len(flow["chan_seal"]),
+                        "store_bytes_in_use": mem["bytes_in_use"]}
+        if during is not None:
+            fig.update(during())
+    finally:
+        cdag.teardown()
+    loops = rt.get(cdag._loop_refs, timeout=60)
+    if not all(isinstance(n, int) for n in loops):
+        raise AssertionError(f"{label}: loops returned {loops}")
+
+    # the round trip of a one-stage DAG beside the actor call's
+    with InputNode() as inp:
+        out = host.echo.bind(inp)
+    echo = out.experimental_compile(max_inflight=2)
+    try:
+        echo.execute(-1).get(timeout_s=60)
+        trips = []
+        for i in range(200):
+            tc = time.perf_counter()
+            if echo.execute(i).get(timeout_s=60) != i:
+                raise AssertionError(f"{label}: echo {i}")
+            trips.append(time.perf_counter() - tc)
+    finally:
+        echo.teardown()
+    loops += rt.get(echo._loop_refs, timeout=60)
+    fig["round_trip_ms_median"] = 1e3 * statistics.median(trips)
+    del cdag, echo, out
+    gc.collect()
+
+    # teardown: no channel counted, every store back to its count
+    chans.append(state.summary()["active_channels"])
+    if chans[2] != chans[0]:
+        raise AssertionError(f"{label}: active_channels {chans}")
+    objects["head"].append(_settled(head_store.num_objects,
+                                    objects["head"][0]))
+    if store == "across":
+        objects["agent"].append(_settled(
+            lambda: rt.get(host.store_objects.remote(), timeout=60),
+            objects["agent"][0]))
+    for where, (before, after) in objects.items():
+        if after > before:
+            raise AssertionError(f"{label}: {where} store holds {after} "
+                                 f"objects after teardown, {before} "
+                                 f"before the compile")
+    rt.get(host.reset.remote(), timeout=60)
+    rt.get(host.complete.remote(first), timeout=300)
+    served = rt.get(host.counts.remote(), timeout=60)["served"]
+    if [ids for _p, ids, _lp, _t in served] != \
+            [greedy[tuple(first["prompt"])]]:
+        raise AssertionError(f"{label}: plain call after teardown {served}")
+    fig.update({"active_channels": chans, "store_objects": objects,
+                "loops_returned": loops, "card": _card()})
+    print("dag: " + json.dumps(fig), flush=True)
+    return fig
+
+
 def runtime(model_cfg, greedy: dict, **engine_kw) -> dict:
     """Phase 4f, on the card: the port's runtime, its GPU lease and
     LLMServer as an actor. ``greedy`` maps phase 4's greedy prompts
@@ -1539,7 +1804,7 @@ def runtime(model_cfg, greedy: dict, **engine_kw) -> dict:
         # captures the sampled and logprob keys in traffic, the second
         # replays them. Warming the sampled keys too (warmup_sampled)
         # made the warmup 3.8x longer on the H100 (65.6 s against 17.4)
-        host = Host.remote(LLMConfig(
+        host = Host.options(name="llama3-8b").remote(LLMConfig(
             model_id="llama3-8b", warmup=True,
             engine=PagedEngineConfig(model=model_cfg, **engine_kw)),
             [], "cuda")
@@ -1582,6 +1847,12 @@ def runtime(model_cfg, greedy: dict, **engine_kw) -> dict:
             {tuple(p): (ids, ttft) for p, ids, _lp, ttft in
              second[len(served):]}, wall)
         fig["actor_call_ms_median"] = _actor_call_ms(rt, host)
+        # the dag step: every stage in the driver's store
+        t4 = time.perf_counter()
+        fig["dag"] = dag_step(rt, host, _collect_class(rt).remote(),
+                              _phase4_bodies(model_cfg.vocab_size), greedy,
+                              "shared")
+        fig["dag"]["step_s"] = time.perf_counter() - t4
         rt.get(host.stop.remote(), timeout=120)
         rt.kill(host)
         deadline = time.monotonic() + 60
@@ -1648,6 +1919,9 @@ with open(sys.argv[3]) as f:
 t1 = time.perf_counter()
 rt.get(host.complete.remote(body), timeout=600)
 call_s = time.perf_counter() - t1
+from ray_tpu_torch import state
+listed = any(a["name"] == sys.argv[2] and a["state"] == "ALIVE"
+             for a in state.list_actors())
 served = rt.get(host.counts.remote(), timeout=60)["served"]
 tokens = [ids for p, ids, _lp, _t in served if p == body["prompt"]][-1]
 banned = sorted(n for n in sys.modules
@@ -1655,7 +1929,8 @@ banned = sorted(n for n in sys.modules
                                        "ray_tpu"))
 rt.shutdown()
 print(json.dumps({"attach_s": attach_s, "call_s": call_s,
-                  "tokens": tokens, "banned": banned}), flush=True)
+                  "tokens": tokens, "banned": banned, "listed": listed}),
+      flush=True)
 """
 
 
@@ -1772,19 +2047,33 @@ def cluster(model_cfg, greedy: dict, **engine_kw) -> dict:
                 "gpu_available_while_held": gpu_held,
                 "actor_call_ms_median": _actor_call_ms(rt, host)})
 
-            # a second driver attaches and sends phase 4's first greedy
-            # request to the same actor
+            # the dag step across stores (the host on the agent's store,
+            # Collect on the head's node); while its DAG lives a second
+            # driver attaches, finds the actor through the state API and
+            # sends phase 4's first greedy request to it
             first = next(b for b in bodies if not b["temperature"])
-            second = _second_driver(
-                rt_mod.get_runtime_if_exists().cluster_file,
-                "llama3-8b-agent", first)
-            if second["tokens"] != greedy[tuple(first["prompt"])] or \
-                    second["banned"]:
-                raise AssertionError(f"4g second driver: {second}")
-            fig["second_driver"] = {k: second[k]
-                                    for k in ("attach_s", "call_s")}
-            print(f"4g: second driver attached in "
-                  f"{second['attach_s']:.3f} s", flush=True)
+
+            def second_driver() -> dict:
+                second = _second_driver(
+                    rt_mod.get_runtime_if_exists().cluster_file,
+                    "llama3-8b-agent", first)
+                if second["tokens"] != greedy[tuple(first["prompt"])] or \
+                        second["banned"] or not second["listed"]:
+                    raise AssertionError(f"4g second driver: {second}")
+                print(f"4g: second driver attached in "
+                      f"{second['attach_s']:.3f} s", flush=True)
+                return {"second_driver": {
+                    k: second[k] for k in ("attach_s", "call_s")}}
+
+            collect = _collect_class(rt).options(
+                scheduling_strategy=NodeAffinitySchedulingStrategy(
+                    node_id=head_row["NodeID"], soft=False)).remote()
+            t5 = time.perf_counter()
+            fig["dag"] = dag_step(rt, host, collect, bodies, greedy,
+                                  "across", agent_node=agent.node_id,
+                                  during=second_driver)
+            fig["dag"]["step_s"] = time.perf_counter() - t5
+            fig["second_driver"] = fig["dag"].pop("second_driver")
             rt.get(host.stop.remote(), timeout=120)
             rt.kill(host)
             deadline = time.monotonic() + 60
@@ -3378,6 +3667,13 @@ def main():
         "launches_cluster_actor": nodes["launches"],
         "launches_cluster_actor_by_family": nodes["launches_by_family"],
         "launches_cluster_params_ref": nodes["params_ref"]["launches"],
+        # inside the compiled DAG's loop, per run of the mix (dag step)
+        "launches_runtime_dag_by_family": {
+            run: actor["dag"][run]["launches_by_family"]
+            for run in ("whole", "split")},
+        "launches_cluster_dag_by_family": {
+            run: nodes["dag"][run]["launches_by_family"]
+            for run in ("whole", "split")},
         "max_abs_err": max(r["max_abs_err"] for r in records),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

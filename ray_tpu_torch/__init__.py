@@ -37,7 +37,10 @@ worker sees none.
 A second host joins with ``python -m ray_tpu_torch.core.node_agent
 --head <head_address()["address"]> --num-gpus N [--own-store]``, and
 another process attaches as a driver with
-``rt.init(address=<session>/cluster.json)``.
+``rt.init(address=<session>/cluster.json)``. ``ray_tpu_torch.state``
+lists the cluster's tasks, actors, objects, workers and nodes, and
+``ray_tpu_torch.dag`` compiles actor methods into a graph that sealed
+ring channels in the object store drive.
 
 The core API below is loaded at first attribute access (PEP 562), so
 ``import ray_tpu_torch`` stays light.
@@ -55,7 +58,7 @@ _CORE_API = (
 
 __all__ = [
     "__version__", "exceptions", *_CORE_API, "ObjectRef", "ActorHandle",
-    "util",
+    "util", "state",
 ]
 
 
@@ -66,6 +69,6 @@ def __getattr__(name):
         return importlib.import_module(".core.ref", __name__).ObjectRef
     if name == "ActorHandle":
         return importlib.import_module(".core.actor", __name__).ActorHandle
-    if name in ("exceptions", "util"):
+    if name in ("exceptions", "util", "state"):
         return importlib.import_module(f".{name}", __name__)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

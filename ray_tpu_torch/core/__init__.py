@@ -6,6 +6,7 @@ other hosts (``node_agent``), the object transfer between node stores
 (``object_transfer``), driver clients that attach to a running head
 (``client``), the public API (``api``), the typed config flags
 (``config``) and the flight recorder (``flight``). Copies of the
-matching modules of ``ray_tpu.core``; the state API and compiled-DAG
-channels are not ported yet.
+matching modules of ``ray_tpu.core``. The state API is
+``ray_tpu_torch.state`` and the compiled-DAG channels are
+``ray_tpu_torch.dag``.
 """

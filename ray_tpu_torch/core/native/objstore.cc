@@ -85,6 +85,8 @@ struct ObjEntry {
   int32_t creator_pid;   // pid that os_create'd (abortable while kCreated)
   int32_t overflow_pins;
   PinSlot pins[kPinSlots];
+  int32_t delete_pending;  // deleted while pinned: freed at the last unpin
+  int32_t pad0;
 };
 
 // Free block header, stored inside the heap region itself.
@@ -497,6 +499,7 @@ uint64_t os_create(void* hv, const uint8_t* id, uint64_t size) {
   e->creator_pid = h->pid;
   e->overflow_pins = 0;
   memset(e->pins, 0, sizeof(e->pins));
+  e->delete_pending = 0;
   e->state = kCreated;
   h->hdr->num_objects++;
   // churn workloads (eviction-heavy, no explicit deletes) accumulate
@@ -674,7 +677,17 @@ void os_release(void* hv, const uint8_t* id) {
   Handle* h = reinterpret_cast<Handle*>(hv);
   lock(h);
   ObjEntry* e = find(h, id);
-  if (e) unpin(e, h->pid);
+  if (e) {
+    unpin(e, h->pid);
+    if (e->refcnt == 0 && e->delete_pending) {
+      // the last pin of an object deleted while pinned (a zero-copy view
+      // outlived its channel slot): free it now, not at some eviction
+      dealloc(h, e->offset);
+      tombstone(h->hdr, e);
+      maybe_rehash(h);
+      bump_seal_seq(h);
+    }
+  }
   unlock(h);
 }
 
@@ -706,6 +719,10 @@ int os_reclaim_pid(void* hv, int32_t pid) {
           touched++;
         }
       }
+      if (e->refcnt == 0 && e->delete_pending) {
+        dealloc(h, e->offset);
+        tombstone(hdr, e);
+      }
     }
   }
   maybe_rehash(h);
@@ -717,8 +734,9 @@ int os_reclaim_pid(void* hv, int32_t pid) {
 }
 
 // Delete an object (abort an unsealed create or free a sealed object).
-// Objects pinned by readers are deleted lazily: marked unreferenced-sealed and
-// reclaimed by eviction; here we only free immediately when refcnt hits 0.
+// Objects pinned by readers are deleted lazily: marked delete-pending and
+// freed when the last pin is released (os_release, os_reclaim_pid), or
+// evicted earlier under pressure once unpinned.
 int os_delete(void* hv, const uint8_t* id) {
   Handle* h = reinterpret_cast<Handle*>(hv);
   lock(h);
@@ -732,9 +750,10 @@ int os_delete(void* hv, const uint8_t* id) {
     // delete-then-recreate (error overwrite) never strands a blocked get
     bump_seal_seq(h);
   } else {
-    // readers still hold it: make it evictable as soon as they release
+    // readers still hold it: free it at their last release
     e->lru_tick = 0;
     e->state = kSealed;
+    e->delete_pending = 1;
   }
   unlock(h);
   return 0;

@@ -78,12 +78,6 @@ _runtime: Optional["Runtime"] = None
 _runtime_lock = threading.Lock()
 
 
-def _state_not_ported(call: str):
-    raise NotImplementedError(
-        f"{call} needs the state API, ray_tpu_torch/state.py, which is not "
-        f"ported yet")
-
-
 def session_base() -> str:
     """Where this package's heads keep their sessions ($TMPDIR/ray_tpu_torch:
     the reference's live under /tmp/ray_tpu, so neither finds the other's
@@ -1390,20 +1384,32 @@ class Runtime:
                                   ("err", f"device-object owner {owner} "
                                           f"is gone"))
 
-    # The state API (util/state/api.py in the reference) serves these
-    # four rpcs; the port has no state module yet.
-
     def state_list(self, kind, limit=1000, filters=None):
-        _state_not_ported("state_list")
+        """State-API rows for workers/driver clients (util/state/api.py)."""
+        from .. import state as state_api
+        fn = getattr(state_api, f"list_{kind}", None)
+        if fn is None:
+            raise ValueError(f"unknown state kind {kind!r}")
+        import inspect
+        params = inspect.signature(fn).parameters
+        kwargs = {}
+        if "limit" in params:
+            kwargs["limit"] = limit
+        if "filters" in params and filters:
+            kwargs["filters"] = filters
+        return fn(**kwargs)
 
     def state_summary(self):
-        _state_not_ported("state_summary")
+        from .. import state as state_api
+        return state_api.summary()
 
     def memory_summary(self, limit: int = 1000):
-        _state_not_ported("memory_summary")
+        from .. import state as state_api
+        return state_api.memory_summary(limit)
 
     def autoscaler_status(self):
-        _state_not_ported("autoscaler_status")
+        from .. import state as state_api
+        return state_api.autoscaler_status()
 
     def pubsub_poll(self, channel, cursor=0, timeout_s=20.0):
         # runs on the rpc pool (long-poll parks a pool thread, like pg_wait)

@@ -65,6 +65,8 @@ def test_port_modules_load_no_jax_and_no_ray_tpu():
                  "ray_tpu_torch.serve.multiplex", "ray_tpu_torch.core.usage",
                  "ray_tpu_torch.core.ids",
                  "ray_tpu_torch.dag", "ray_tpu_torch.dag.channel",
+                 "ray_tpu_torch.dag.compiled", "ray_tpu_torch.dag.nodes",
+                 "ray_tpu_torch.state",
                  "ray_tpu_torch.llm.lora", "ray_tpu_torch.llm.tiering",
                  "ray_tpu_torch.llm.multilora",
                  "ray_tpu_torch.llm.multilora.slots",
@@ -129,6 +131,42 @@ def test_port_worker_processes_load_no_jax_and_no_ray_tpu():
         assert ray_tpu_torch.get(task.remote(), timeout=60) == ("", [])
         assert ray_tpu_torch.get(Holder.remote().report.remote(),
                                  timeout=60) == ("0", [])
+    finally:
+        ray_tpu_torch.shutdown()
+
+
+def test_compiled_dag_loop_workers_load_no_jax_and_no_ray_tpu():
+    """The loop of a compiled DAG reaches its actor's worker by reference
+    (``ray_tpu_torch.dag.compiled._dag_actor_loop_sealed``): that worker
+    then runs the loop with neither JAX nor the reference package in
+    sys.modules, though the driver here has both."""
+    import jax  # noqa: F401 — loaded in the driver on purpose
+    import ray_tpu  # noqa: F401
+    import ray_tpu_torch
+    from ray_tpu_torch.dag import InputNode
+    if ray_tpu_torch.is_initialized():
+        ray_tpu_torch.shutdown()
+    ray_tpu_torch.init(num_cpus=1, object_store_memory=64 * 1024 * 1024)
+    try:
+        @ray_tpu_torch.remote
+        class Stage:
+            def loaded(self, x):
+                import sys as _sys
+                return x, sorted(
+                    n for n in _sys.modules
+                    if any(n == p or n.startswith(p + ".")
+                           for p in ("jax", "jaxlib", "ml_dtypes",
+                                     "ray_tpu"))), \
+                    "ray_tpu_torch.dag.compiled" in _sys.modules
+
+        s = Stage.remote()
+        with InputNode() as inp:
+            out = s.loaded.bind(inp)
+        cdag = out.experimental_compile(max_inflight=2)
+        try:
+            assert cdag.execute(3).get(timeout_s=60) == (3, [], True)
+        finally:
+            cdag.teardown()
     finally:
         ray_tpu_torch.shutdown()
 

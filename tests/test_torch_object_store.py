@@ -417,3 +417,41 @@ def test_put_pickles_tensors_through_the_ports_reducer(store, monkeypatch):
         assert torch.equal(out[k], val[k])
     assert out["b"].requires_grad
 
+
+
+def test_delete_while_pinned_frees_at_the_last_release(tmp_path):
+    """A delete of an object a zero-copy view still pins is deferred, not
+    lost: the object stays readable under the view, and the last release
+    frees its memory and its entry at once (the sealed ring channels
+    delete every slot right after reading it, pinned or not)."""
+    import gc
+
+    from ray_tpu_torch.core.config import cfg
+    st = SharedObjectStore(str(tmp_path / "pend"), capacity=64 << 20,
+                           create=True)
+    cfg.override(zero_copy_get=True)
+    try:
+        oid = ObjectID.from_random()
+        src = np.arange(1 << 20, dtype=np.float32)
+        st.put(oid, src)
+        base = st.bytes_in_use()
+        views = [st.get(oid), st.get(oid)]       # two pins
+        st.delete(oid)
+        assert st.num_objects() == 1 and st.bytes_in_use() == base
+        np.testing.assert_array_equal(views[0], src)
+        del views[0]
+        gc.collect()
+        assert st.num_objects() == 1             # one pin left
+        np.testing.assert_array_equal(views[0][-4:], src[-4:])
+        del views
+        gc.collect()
+        assert st.num_objects() == 0 and st.bytes_in_use() == 0
+        assert st.evictions() == 0
+        assert not st.contains(oid)
+        # an unpinned delete still frees at once
+        st.put(oid, src)
+        st.delete(oid)
+        assert st.num_objects() == 0
+    finally:
+        cfg.reset("zero_copy_get")
+        st.close(unlink=True)
