@@ -238,11 +238,48 @@ dag (in 4f and again in 4g, on their 8B actor after its mix and before
    "shared"); in 4g the host sits on the agent's own store and Collect
    on the head's node, so the edges cross both ways ("store": "across").
    Prints one dag: line per phase, with the card and its power limit.
+4h. serve_cluster: Serve over the port's runtime, in a runtime session
+   of its own after 4f and 4g have shut theirs down:
+   ray_tpu_torch.init(num_cpus=4, num_gpus=1). The app is
+   build_openai_app's (the OpenAI router over one LLM deployment:
+   Llama-3-8B at full width, phase 4's engine settings, seed-0 weights
+   made in the replica, the default warmup, gpus_per_replica=1, so the
+   replica asks for {"num_gpus": 1}), its LLM deployment's class a
+   recording subclass of LLMServer (reset() and counts(): token ids and
+   TTFT served, and the ragged kernel's launches by family in the
+   replica's process). serve.run(app, name="llm", http_port=<a free
+   port>, num_proxies=1); deploy seconds, then ready seconds (the
+   replica's check_health passes and serve.status() lists it running
+   and the proxy on that port). The replica must see
+   CUDA_VISIBLE_DEVICES "0", run on cuda:0, load neither jax nor
+   ray_tpu, and available_resources()["GPU"] must read 0 while it
+   lives. Phase 4's seed-0 mix goes twice as 11 concurrent POST
+   /llm/v1/completions requests (threads, urllib) to the proxy actor:
+   every response a 200 text_completion, every greedy request's tokens
+   (read from the replica's counts through the controller's replica
+   handle) equal to phase 4's captured run bit for bit, and the ragged
+   kernel launched in both families inside the replica in each pass.
+   The head's directory must then hold serve:prefix:llama3-8b entries
+   that name the replica. Phase 4's first greedy request goes once with
+   "stream": true: the SSE chunks must join to the first pass's text
+   and end in data: [DONE], its tokens phase 4's; then once to gRPC's
+   /raytpu.Serve/Call (serve.start_grpc_proxy()): the same text and
+   tokens. Counts are set to 0 just before the first pass and read
+   after the gRPC call. The median of 20 GET /llm/v1/models round trips
+   times the HTTP hop alone. serve.metrics_summary() must then show
+   every HTTP request admitted and proxied, none shed, no error, the
+   proxy's latency histogram, prefix-directory publishes, and the
+   stream's items on the ring channel ("chan") with no stream_next
+   polls. After serve.shutdown() the controller, router, replica, HTTP
+   and gRPC proxy workers are gone, the GPU is back and the head's
+   store holds as many objects as before the deploy; after the
+   runtime's shutdown no worker of the port is left. Prints one
+   serve_cluster: line with the card and its power limit.
 5b. dense agreement: phase 5's small f32 model through InferenceEngine on
    the card and on the CPU gives identical greedy tokens; the f32
    forward kernel's launches are counted as in phase 7.
 
-Phases run in the order 1, 2, 3, 3c, 3b, 4, 4b, 4c, 4d, 4e, 4f, 4g, 5,
+Phases run in the order 1, 2, 3, 3c, 3b, 4, 4b, 4c, 4d, 4e, 4f, 4g, 4h, 5,
 5b, 6, 7, and the total seconds are printed before the kernels' record.
 The
 second-to-last line is the card from nvidia-smi, the one before it the
@@ -274,6 +311,7 @@ dense step, the device time of its copies (dtype casts, contiguous
 operands) by shape. Last, the batch witness: each greedy request of the
 mix against itself alone (no result line).
 """
+import dataclasses
 import gc
 import json
 import os
@@ -1614,7 +1652,8 @@ def _dag_run(rt, cdag, host, bodies: list, parts: list, greedy: dict,
     return {"executes": len(parts), "wall_s": wall, "tokens_out": n_out,
             "tokens_per_s": n_out / wall, "greedy_equal_phase4": n_greedy,
             "launches": counts["launches"],
-            "launches_by_family": counts["launches_by_family"]}
+            "launches_by_family": counts["launches_by_family"],
+            "programs_after": counts["programs"]}
 
 
 def _settled(read, want: int, timeout_s: float = 15.0) -> int:
@@ -1842,10 +1881,12 @@ def runtime(model_cfg, greedy: dict, **engine_kw) -> dict:
         t3 = time.perf_counter()
         rt.get([host.complete.remote(b) for b in bodies], timeout=900)
         wall = time.perf_counter() - t3
-        second = rt.get(host.counts.remote(), timeout=60)["served"]
+        second = rt.get(host.counts.remote(), timeout=60)
         fig["second_pass"] = _mix_figures(
             {tuple(p): (ids, ttft) for p, ids, _lp, ttft in
-             second[len(served):]}, wall)
+             second["served"][len(served):]}, wall)
+        # keys the second mix met first in traffic are captured there
+        fig["programs_after_second_pass"] = second["programs"]
         fig["actor_call_ms_median"] = _actor_call_ms(rt, host)
         # the dag step: every stage in the driver's store
         t4 = time.perf_counter()
@@ -2177,6 +2218,400 @@ def cluster(model_cfg, greedy: dict, **engine_kw) -> dict:
     if glob.glob("/dev/shm/ray_tpu_torch_*"):
         raise AssertionError(f"4g stores left: "
                              f"{glob.glob('/dev/shm/ray_tpu_torch_*')}")
+    return fig
+
+
+# -- phase 4h: Serve over the port's runtime -------------------------------
+
+def _recording_server():
+    """The deployment class of phase 4h: LLMServer plus reset() and
+    counts(). It counts the ragged kernel's launches by family in the
+    replica's own process (around the engine's prefill and decode steps,
+    as phase 4 does) and records each request's prompt ids, token ids
+    and TTFT from the engine's results. Defined in a function body, so
+    the deployment pickles it by value."""
+    from ray_tpu_torch.llm import LLMServer
+
+    class RecordingServer(LLMServer):
+        def __init__(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            super().__init__(*args, **kwargs)
+            self.server_s = time.perf_counter() - t0
+            from ray_tpu_torch.ops.ragged_paged_attention import \
+                ragged_paged_attention as rpa
+            self._rpa = rpa
+            eng = self.engine
+            self._fam = {"prefill": 0, "decode": 0}
+            for name in self._fam:
+                step = getattr(eng, f"_{name}_step")
+
+                def counted(step=step, name=name):
+                    before = rpa.launches
+                    step()
+                    self._fam[name] += rpa.launches - before
+                setattr(eng, f"_{name}_step", counted)
+            self._served = []
+            result = eng._result
+
+            def recording(req):
+                out = result(req)
+                self._served.append((list(req.prompt_ids),
+                                     [int(t) for t in out["token_ids"]],
+                                     out["ttft_s"]))
+                return out
+            eng._result = recording
+
+        def reset(self):                  # main path starts here
+            self._rpa.launches = 0
+            self._fam = {k: 0 for k in self._fam}
+            self._served = []
+
+        def counts(self):                 # main path ends here
+            graphs = self.engine._graphs
+            return {"launches": self._rpa.launches,
+                    "launches_by_family": dict(self._fam),
+                    "served": list(self._served),
+                    "programs": len(graphs) if graphs is not None else 0,
+                    "server_s": self.server_s,
+                    "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    "device": str(self.device), "pid": os.getpid(),
+                    "banned": _banned_modules()}
+
+    return RecordingServer
+
+
+def _http_post(port: int, path: str, body: dict, timeout: float = 900):
+    """(status, content type, body bytes) of one POST to the proxy."""
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/{path}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, r.headers.get("Content-Type", ""), r.read()
+
+
+def _http_mix(port: int, bodies: list) -> tuple:
+    """Every body at once, one thread each, to /llm/v1/completions; every
+    response must be a 200 and a well-formed text_completion. Returns
+    (responses in order, wall seconds)."""
+    import threading
+    out = [None] * len(bodies)
+    errors = []
+
+    def send(i):
+        try:
+            code, _ct, raw = _http_post(port, "llm/v1/completions",
+                                        bodies[i])
+            out[i] = (code, json.loads(raw))
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append((i, repr(e)))
+
+    threads = [threading.Thread(target=send, args=(i,))
+               for i in range(len(bodies))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"4h HTTP mix failed: {errors}")
+    for i, (code, resp) in enumerate(out):
+        if code != 200 or resp.get("object") != "text_completion" or \
+                not resp.get("choices") or "usage" not in resp:
+            raise AssertionError(f"4h request {i}: {code} {resp}")
+    return [resp for _code, resp in out], wall
+
+
+def _greedy_checked(served: list, bodies: list, greedy: dict,
+                    label: str) -> dict:
+    """prompt -> (ids, ttft) of one pass's `served` records, after
+    checking one record per body and phase 4's tokens for every greedy
+    body."""
+    got = {tuple(p): (ids, ttft) for p, ids, ttft in served}
+    if len(served) != len(bodies) or len(got) != len(bodies):
+        raise AssertionError(f"{label}: {len(served)} results for "
+                             f"{len(bodies)} requests")
+    n_greedy = 0
+    for i, body in enumerate(bodies):
+        if body["temperature"]:
+            continue
+        ids = got[tuple(body["prompt"])][0]
+        if ids != greedy[tuple(body["prompt"])]:
+            raise AssertionError(f"{label} greedy request {i}: replica "
+                                 f"{ids} != phase 4 "
+                                 f"{greedy[tuple(body['prompt'])]}")
+        n_greedy += 1
+    if n_greedy != len(greedy):
+        raise AssertionError(f"{label}: {n_greedy} greedy results, phase 4 "
+                             f"gave {len(greedy)}")
+    return got
+
+
+def serve_cluster(model_cfg, greedy: dict, device="cuda",
+                  **engine_kw) -> dict:
+    """Phase 4h (also rehearsed on the CPU at tiny size, on a fake GPU):
+    Serve over the port's runtime. ``build_openai_app``'s app (the
+    OpenAI router over one LLM deployment with ``gpus_per_replica=1``,
+    its class the recording subclass of LLMServer, seeded weights made
+    in the replica, the default warmup) under ``serve.run(app,
+    name="llm", http_port=<free>, num_proxies=1)``; phase 4's seed-0 mix
+    twice over HTTP to the proxy, then one SSE stream and one gRPC call.
+    ``greedy`` maps phase 4's greedy prompts to the captured run's
+    tokens. Returns the figures; raises on any failure."""
+    import socket
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.core import directory as cdir
+    from ray_tpu_torch.core import runtime as rt_mod
+    from ray_tpu_torch.llm import (LLMConfig, PagedEngineConfig,
+                                   build_openai_app)
+    from ray_tpu_torch.serve.api import CONTROLLER_NAME
+    cuda = torch.device(device).type == "cuda"
+    model_id = "llama3-8b"
+    fig = {"card": _card() if cuda else "cpu"}
+    bodies = [dict(b, model=model_id)
+              for b in _phase4_bodies(model_cfg.vocab_size)]
+    first = next((b for b in bodies if not b["temperature"]), None)
+    if first is None or not greedy:
+        raise AssertionError("4h: phase 4 gave no greedy result")
+    t0 = time.perf_counter()
+    rt.init(num_cpus=4, num_gpus=1)
+    try:
+        fig["init_s"] = time.perf_counter() - t0
+        head_store = rt_mod.get_runtime_if_exists().store
+        objects_before = head_store.num_objects()
+        app = build_openai_app([LLMConfig(
+            model_id=model_id, gpus_per_replica=1, warmup=True,
+            engine=PagedEngineConfig(model=model_cfg, **engine_kw))],
+            device=device)
+        (child,) = app.ingress.children()
+        child.spec = dataclasses.replace(child.spec,
+                                         func_or_class=_recording_server())
+        if child.spec.ray_actor_options != {"num_gpus": 1}:
+            raise AssertionError(f"4h replica options "
+                                 f"{child.spec.ray_actor_options}")
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        t1 = time.perf_counter()
+        serve.run(app, name="llm", http_port=port, num_proxies=1)
+        fig["deploy_s"] = time.perf_counter() - t1
+        ctrl = rt.get_actor(CONTROLLER_NAME)
+        dep = f"llm:{model_id}"
+        _v, (replica,) = rt.get(ctrl.get_replicas.remote("llm", dep),
+                                timeout=60)
+
+        def call(method, *args):
+            return rt.get(replica.handle_request.remote(
+                method, args, {}, None), timeout=900)
+
+        # ready: the controller lists the replica running and its
+        # check_health passes (its constructor, warmup included, is done)
+        if not rt.get(replica.health_check.remote(), timeout=900):
+            raise AssertionError("4h replica health check failed")
+        status = serve.status()
+        running = status["applications"]["llm"]["deployments"][dep][
+            "running_replicas"]
+        fig["ready_s"] = time.perf_counter() - t1
+        if running != 1 or len(status["proxies"]) != 1 or \
+                status["proxies"][0]["port"] != port:
+            raise AssertionError(f"4h status {status}")
+        info = call("counts")
+        fig.update({"replica_server_s": info["server_s"],
+                    "replica_visible": info["visible"],
+                    "replica_device": info["device"],
+                    "programs_after_warmup": info["programs"]})
+        if info["visible"] != "0" or info["banned"] or \
+                (cuda and info["device"] != "cuda:0"):
+            raise AssertionError(f"4h replica: {info}")
+        time.sleep(0.5)
+        gpu_held = rt.available_resources().get("GPU")
+        if gpu_held != 0.0:
+            raise AssertionError(f"GPU available {gpu_held} while the "
+                                 f"replica holds the card")
+        fig["gpu_available_while_held"] = gpu_held
+
+        # the mix over HTTP, twice; counts at 0 just before the first
+        # pass, read after each step of the main path
+        call("reset")
+        passes = []
+        prev = {"launches_by_family": {"prefill": 0, "decode": 0},
+                "served": []}
+        for i in range(2):
+            resps, wall = _http_mix(port, bodies)
+            if i == 0:
+                resps0 = resps
+            counts = call("counts")
+            fam = {k: n - prev["launches_by_family"][k]
+                   for k, n in counts["launches_by_family"].items()}
+            for name, n in fam.items():
+                if cuda and n <= 0:
+                    raise AssertionError(f"4h pass {i + 1}: the ragged "
+                                         f"kernel never launched in {name} "
+                                         f"inside the replica")
+            got = _greedy_checked(counts["served"][len(prev["served"]):],
+                                  bodies, greedy, f"4h pass {i + 1}")
+            passes.append({**_mix_figures(got, wall),
+                           "launches_by_family": fam,
+                           "greedy_equal_phase4": len(greedy),
+                           "programs_after": counts["programs"]})
+            prev = counts
+        fig["first_pass"], fig["second_pass"] = passes
+
+        # the directory: the replica published its pages under its handle
+        prefix_dir = f"serve:prefix:{model_id}"
+        deadline = time.monotonic() + 15
+        owned = 0
+        while not owned and time.monotonic() < deadline:
+            entries = (cdir.query(prefix_dir) or {}).get("entries") or {}
+            owned = sum(1 for v in entries.values()
+                        if getattr(v, "_actor_id", None) ==
+                        replica._actor_id)
+            time.sleep(0.1)
+        if not owned:
+            raise AssertionError(f"4h: no {prefix_dir} entry names the "
+                                 f"replica")
+        fig["directory_entries_owned"] = owned
+
+        # one stream: phase 4's first greedy request with stream=True
+        code, ctype, raw = _http_post(port, "llm/v1/completions",
+                                      dict(first, stream=True))
+        lines = [ln for ln in raw.decode().split("\n\n") if ln]
+        if code != 200 or not ctype.startswith("text/event-stream") or \
+                lines[-1] != "data: [DONE]" or \
+                not all(ln.startswith("data: ") for ln in lines):
+            raise AssertionError(f"4h stream: {code} {ctype} {lines[-3:]}")
+        chunks = [json.loads(ln[len("data: "):]) for ln in lines[:-1]]
+        text = "".join(c["choices"][0]["text"] for c in chunks)
+        want_text = resps0[bodies.index(first)]["choices"][0]["text"]
+        if text != want_text:
+            raise AssertionError(f"4h stream text {text!r} != "
+                                 f"{want_text!r}")
+        counts = call("counts")
+        stream_ids = counts["served"][len(prev["served"]):]
+        if [ids for _p, ids, _t in stream_ids] != \
+                [greedy[tuple(first["prompt"])]]:
+            raise AssertionError(f"4h stream tokens {stream_ids}")
+        prev = counts
+        fig["stream"] = {"chunks": len(chunks),
+                         "finish_reason":
+                             chunks[-1]["choices"][0]["finish_reason"]}
+
+        # one gRPC call through the generic service
+        import grpc
+        _gp, gport = serve.start_grpc_proxy()
+        with grpc.insecure_channel(f"127.0.0.1:{gport}") as ch:
+            tg = time.perf_counter()
+            out = json.loads(ch.unary_unary("/raytpu.Serve/Call")(
+                json.dumps({"app": "llm", "method": "v1_completions",
+                            "payload": first}).encode(), timeout=900))
+            fig["grpc_s"] = time.perf_counter() - tg
+        counts = call("counts")               # main path ends here
+        grpc_ids = counts["served"][len(prev["served"]):]
+        if out.get("object") != "text_completion" or \
+                out["choices"][0]["text"] != want_text or \
+                [ids for _p, ids, _t in grpc_ids] != \
+                [greedy[tuple(first["prompt"])]]:
+            raise AssertionError(f"4h gRPC: {out}, tokens {grpc_ids}")
+        fig["launches"] = counts["launches"]
+        fig["launches_by_family"] = counts["launches_by_family"]
+        if cuda and counts["launches"] != sum(
+                counts["launches_by_family"].values()):
+            raise AssertionError(f"4h launches {counts['launches']} outside "
+                                 f"the counted steps "
+                                 f"{counts['launches_by_family']}")
+
+        # the HTTP hop alone: GET /llm/v1/models, 20 in turn
+        import urllib.request
+        trips = []
+        for _ in range(20):
+            tm = time.perf_counter()
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/llm/v1/models",
+                    timeout=60) as r:
+                models = json.loads(r.read())
+            trips.append(time.perf_counter() - tm)
+        if [m["id"] for m in models["data"]] != [model_id]:
+            raise AssertionError(f"4h models {models}")
+        fig["models_round_trip_ms_median"] = 1e3 * statistics.median(trips)
+
+        # the front door's and the directory's counters (the proxy's and
+        # the replica's registries flush to the head every ~2 s)
+        n_http = 2 * len(bodies) + 1 + len(trips)
+        deadline = time.monotonic() + 30
+        while True:
+            ms = serve.metrics_summary()
+            adm = ms.get("admission") or {}
+            pd = ms.get("prefix_directory") or {}
+            chan = (ms.get("stream") or {}).get("chan") or {}
+            if adm.get("admitted", 0) >= n_http and \
+                    ms["requests"]["proxy"] >= n_http and \
+                    pd.get("publishes", 0) > 0 and \
+                    chan.get("items", 0) >= len(chunks):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"4h metrics summary {ms}")
+            time.sleep(0.5)
+        if adm.get("shed", 0) != 0 or ms["requests"]["errors"] != 0 or \
+                not (ms.get("e2e_latency") or {}).get("count"):
+            raise AssertionError(f"4h metrics summary {ms}")
+        # the stream rode the sealed ring channel (proxy <- router <-
+        # replica, all in the head's store), never stream_next polls
+        if (ms.get("stream") or {}).get("poll"):
+            raise AssertionError(f"4h stream polled: {ms['stream']}")
+        fig["metrics"] = {"admission": adm, "prefix_directory": pd,
+                          "stream": ms["stream"],
+                          "requests": ms["requests"],
+                          "e2e_latency": ms["e2e_latency"]}
+        fig["http_requests"] = n_http
+
+        # teardown: every Serve worker gone, the lease back, the store at
+        # its count before the deploy
+        proxies = [p["actor"] for p in rt.get(ctrl.get_proxies.remote(),
+                                              timeout=60)]
+        _v, actors = rt.get(ctrl.get_replicas.remote("llm", "openai-router"),
+                            timeout=60)
+        pids = [rt.get(a._exec(lambda _i: os.getpid()), timeout=60)
+                for a in [ctrl, replica, *actors, *proxies, _gp]]
+        if len(set(pids)) != 5:
+            raise AssertionError(f"4h Serve workers {pids}")
+        del actors, proxies, _gp, replica, ctrl
+        t2 = time.perf_counter()
+        serve.shutdown()
+        fig["shutdown_s"] = time.perf_counter() - t2
+
+        def alive(pid):
+            try:
+                with open(f"/proc/{pid}/stat") as f:
+                    return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+            except OSError:
+                return False
+
+        deadline = time.monotonic() + 60
+        while (any(alive(p) for p in pids) or
+               rt.available_resources().get("GPU") != 1.0):
+            if time.monotonic() > deadline:
+                raise AssertionError(
+                    f"4h after shutdown: workers {[p for p in pids if alive(p)]}"
+                    f" alive, {rt.available_resources()}")
+            time.sleep(0.1)
+        fig["gpu_available_after_shutdown"] = \
+            rt.available_resources().get("GPU")
+        gc.collect()
+        after = _settled(head_store.num_objects, objects_before, 30.0)
+        if after > objects_before:
+            raise AssertionError(f"4h: {after} objects in the store after "
+                                 f"shutdown, {objects_before} before")
+        fig["store_objects"] = [objects_before, after]
+    finally:
+        rt.shutdown()
+    deadline = time.monotonic() + 30
+    while _port_procs() and time.monotonic() < deadline:
+        time.sleep(0.2)
+    if _port_procs():
+        raise AssertionError(f"4h port workers left: {_port_procs()}")
     return fig
 
 
@@ -3642,6 +4077,12 @@ def main():
     print("cluster: " + json.dumps(nodes), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
+    t4h = time.perf_counter()
+    fronted = serve_cluster(llama.llama3_8b(), greedy, **engine_8b)
+    fronted["phase_s"] = time.perf_counter() - t4h
+    print("serve_cluster: " + json.dumps(fronted), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     agreement(_small_model())
     agreement(_small_model(**MOE_SMALL))
     dense_f32 = dense_agreement()
@@ -3674,6 +4115,10 @@ def main():
         "launches_cluster_dag_by_family": {
             run: nodes["dag"][run]["launches_by_family"]
             for run in ("whole", "split")},
+        # inside the Serve replica of phase 4h: both HTTP passes, the SSE
+        # stream and the gRPC call
+        "launches_serve_cluster": fronted["launches"],
+        "launches_serve_cluster_by_family": fronted["launches_by_family"],
         "max_abs_err": max(r["max_abs_err"] for r in records),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

@@ -7,11 +7,14 @@ streaming), built as a plain Serve deployment. ``OpenAIRouter`` only
 calls ``handle.options(method_name=...[, stream=True]).remote(body)``
 and ``.result(timeout_s=...)`` on the handles it is given, so any
 object with that surface drives it. ``build_openai_app`` makes it the
-ingress over one ``build_llm_deployment`` per config; until cluster
-Serve and its HTTP proxy are ported, the app runs in process:
+ingress over one ``build_llm_deployment`` per config. ``serve.run``
+deploys it on the port's runtime, reachable over HTTP at
+``/<app>/v1/completions`` (and the gRPC proxy's ``/raytpu.Serve/Call``);
+with ``local_testing_mode=True`` it runs in this process:
 
-    app = build_openai_app([LLMConfig(model_id="m1", engine=...)])
-    router = serve.run(app, local_testing_mode=True)
+    app = build_openai_app([LLMConfig(model_id="m1", engine=...,
+                                      gpus_per_replica=1)])
+    router = serve.run(app, name="llm", http_port=8000)
     out = router.v1_completions.remote({"model": "m1",
                                         "prompt": "hi"}).result()
 """

@@ -1,4 +1,4 @@
-"""The engine behind a Serve deployment, in process (counterpart of
+"""The engine behind a Serve deployment (counterpart of
 ``ray_tpu/llm/serving.py``: ``LLMConfig`` and ``LLMServer``).
 
 Reference parity: llm/_internal/serve/deployments/llm/llm_server.py:409
@@ -28,8 +28,9 @@ prefix import.
 
 ``build_llm_deployment`` wraps an ``LLMConfig`` as a Serve deployment
 (``llm/openai_api.build_openai_app`` puts the OpenAI router in front of
-one per config); ``serve.run(..., local_testing_mode=True)`` runs it in
-this process, the only Serve mode the port has.
+one per config): ``serve.run`` deploys it as replica actors of the
+port's runtime, each leasing ``gpus_per_replica`` whole devices, and
+``serve.run(..., local_testing_mode=True)`` builds it in this process.
 
 ``params_ref`` is an ``ObjectRef`` of the params (as in the reference:
 the server ``get``s it from the runtime's object store, then carries the
@@ -37,8 +38,15 @@ tensors onto its device), the params dict itself, or None (seeded random
 weights). ``LLMServer`` runs as an actor of the port's runtime: an actor
 with ``num_gpus=1`` leases one card.
 
-Off in the port, each until its part is ported: cluster Serve, and the
-cluster prefix directory (``set_replica_handle`` is a no-op).
+Cluster prefix directory (``serve/frontdoor/prefix.py``): a base paged
+engine with its prefix cache on, under ``cfg.serve_prefix_directory``,
+publishes its page hashes once the controller hands the replica its own
+handle (``set_replica_handle``), and imports a prefix another replica
+warmed before it submits a prompt. A server that is not a Serve replica
+never gets a handle: it neither publishes nor looks a prompt up. The
+reference's server looks every prompt up in any case; on the card that
+per-request lookup shifted which batch shapes 4f's actor met, so its
+second pass captured programs in traffic (``chip_smoke.py`` phase 4f).
 """
 from __future__ import annotations
 
@@ -62,9 +70,11 @@ class LLMConfig:
     ``engine`` may be an EngineConfig (dense slot cache) or a
     PagedEngineConfig (paged-KV continuous batching — the production
     path); the default is paged. ``num_replicas``,
-    ``max_ongoing_requests`` and ``tpus_per_replica`` go into the Serve
-    deployment's spec (``build_llm_deployment``), as in the reference;
-    local testing mode builds one instance and reads none of them. LoRA:
+    ``max_ongoing_requests`` and ``gpus_per_replica`` go into the Serve
+    deployment's spec (``build_llm_deployment``); ``gpus_per_replica``
+    (the reference's ``tpus_per_replica``) is a whole number of devices,
+    0 for a replica on the CPU. Local testing mode builds one instance
+    and reads none of them. LoRA:
     batched on a paged engine with ``max_adapters > 0`` (registry
     namespace ``lora_namespace``, default the model_id), else merged
     engines over ``lora_dir``, at most ``max_loras`` resident (the module
@@ -73,7 +83,7 @@ class LLMConfig:
     engine: Optional[EngineConfig | PagedEngineConfig] = None
     num_replicas: int = 1
     max_ongoing_requests: int = 64
-    tpus_per_replica: float = 0.0
+    gpus_per_replica: int = 0
     lora_dir: Optional[str] = None
     max_loras: int = 2
     # registry namespace for batched multi-LoRA (None -> model_id)
@@ -83,6 +93,14 @@ class LLMConfig:
     # its key ladder (warmup_sampled adds the sampled and top-k modes)
     warmup: bool = True
     warmup_sampled: bool = False
+
+    def __post_init__(self):
+        n = self.gpus_per_replica
+        if isinstance(n, bool) or not float(n).is_integer() or n < 0:
+            raise ValueError(
+                f"gpus_per_replica must be a whole number of devices >= 0, "
+                f"got {n!r}")
+        self.gpus_per_replica = int(n)
 
 
 def _to_device(tree, device):
@@ -143,7 +161,22 @@ class LLMServer:
         self._error: Optional[BaseException] = None
         # serializes engine stepping against slot loads, page imports
         # and exports: those write or read the tensors a dispatch uses
+        # (on the card, the pages under a captured graph's replay)
         self._steplock = threading.Lock()
+        # cluster prefix directory (serve/frontdoor/prefix.py): base
+        # paged engine only — LoRA-merged engines produce different KV
+        # for the same tokens and must stay out of the shared-by-model
+        # directory. The controller injects this replica's own handle
+        # via set_replica_handle; the client serves the loop and
+        # admission (_prefix_dir) from then on.
+        self._prefix_dir = None
+        self._prefix_client = None
+        from ..core.config import cfg as rcfg
+        if rcfg.serve_prefix_directory and \
+                getattr(self.engine, "_prefix_on", False):
+            from ..serve.frontdoor.prefix import PrefixDirectoryClient
+            self._prefix_client = PrefixDirectoryClient(cfg.model_id)
+            self.engine.track_page_publish = True
         # batched multi-LoRA: the manager resolves adapter ids to
         # resident slot-table rows at admission
         self._multilora = None
@@ -229,6 +262,11 @@ class LLMServer:
                         with self._steplock:
                             eng.step()
                         worked = True
+                if self._prefix_dir is not None:
+                    # drain newly published/evicted page hashes to the
+                    # cluster directory (rate-limited inside; this IS
+                    # the stepping thread, per the drain contract)
+                    self._prefix_dir.maybe_publish(self.engine)
                 if getattr(self.engine, "spill", None) is not None:
                     now = time.monotonic()
                     if now - self._last_rewarm >= 0.25:
@@ -280,6 +318,11 @@ class LLMServer:
             try:
                 prompt = (eng.tokenizer.encode(prompt)
                           if isinstance(prompt, str) else list(prompt))
+                if self._prefix_dir is not None:
+                    # tenant-salted hashes: directory entries for this
+                    # (adapter_id, version) can only match its own pages
+                    self._prefix_dir.maybe_import(eng, self._steplock,
+                                                  prompt, salt=salt)
                 req = eng.submit(prompt, sp, adapter_slot=slot,
                                  prefix_salt=salt)
             finally:
@@ -287,8 +330,15 @@ class LLMServer:
             self._wake.set()
             return eng, req
         eng = self._engine_for(request)
+        # tokenize ONCE: the prefix-directory lookup and submit share
+        # the ids
         prompt = (eng.tokenizer.encode(prompt)
                   if isinstance(prompt, str) else list(prompt))
+        if self._prefix_dir is not None and eng is self.engine:
+            # cluster prefix directory: admission-match a prefix warmed
+            # on ANY replica by importing its KV pages before submit —
+            # best effort, a miss/failure just means a cold prefill
+            self._prefix_dir.maybe_import(eng, self._steplock, prompt)
         if sp.logprobs and not isinstance(eng, PagedInferenceEngine):
             # dense InferenceEngine never fills out_logps: refuse loudly
             # instead of returning a well-formed response missing the
@@ -375,8 +425,13 @@ class LLMServer:
                             "finish_reason": out["finish_reason"]}]}
 
     def set_replica_handle(self, handle) -> None:
-        """The reference's hook for the cluster prefix directory: a no-op
-        until the directory is ported."""
+        """Controller-injected handle to THIS replica's actor: the value
+        every prefix-directory entry carries, so peer replicas can call
+        export_prefix on the owner. Publishing and admission-time
+        imports start here."""
+        if self._prefix_client is not None:
+            self._prefix_client.set_replica_handle(handle)
+            self._prefix_dir = self._prefix_client
 
     def export_prefix(self, hashes):
         """Serve another engine's prefix import: gather the cached KV
@@ -418,8 +473,9 @@ def build_llm_deployment(cfg: LLMConfig, params_ref=None, device="cuda"):
     ``params_ref`` is an ObjectRef of the params, the params dict, or
     None (seeded random weights);
     ``device`` reaches ``LLMServer`` (``"cpu"`` for the plain versions).
-    The spec keeps the reference's name, replica count, request cap and
-    accelerator request, which only cluster Serve reads."""
+    The spec keeps the reference's name, replica count and request cap;
+    a replica asks for ``gpus_per_replica`` whole devices (none for 0),
+    which only cluster Serve reads."""
     from .. import serve
     dep = serve.deployment(
         LLMServer,
@@ -427,7 +483,7 @@ def build_llm_deployment(cfg: LLMConfig, params_ref=None, device="cuda"):
         num_replicas=cfg.num_replicas,
         max_ongoing_requests=cfg.max_ongoing_requests,
         ray_actor_options=(
-            {"num_tpus": cfg.tpus_per_replica}
-            if cfg.tpus_per_replica else {}),
+            {"num_gpus": cfg.gpus_per_replica}
+            if cfg.gpus_per_replica else {}),
     )
     return dep.bind(cfg, params_ref, device=device)

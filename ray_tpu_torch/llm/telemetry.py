@@ -14,8 +14,9 @@ deployments stay separable; gauges additionally carry a ``proc``
 (host:pid) label because they are last-write-wins on the head — without
 it, replicas of the same engine kind would overwrite each other. When
 tracing is enabled each request carries the trace context it was
-submitted under (``util/tracing.py``); the reference's ``llm.request``
-span, recorded into its runtime's timeline, is not ported yet. Under the
+submitted under (``util/tracing.py``) and, at retire, records one
+``llm.request`` span into the runtime's timeline, parented to the span
+it was submitted under (a Serve replica's task span). Under the
 port's runtime a worker's registry flushes to the head
 (``util/metrics.py``), and a worker's exit zeroes its per-proc gauges
 first (``zero_proc_gauges``).
@@ -202,6 +203,7 @@ def on_finish(engine, req, finish: Optional[str] = None) -> None:
         _hist("rtpu_llm_inter_token_seconds",
               "mean inter-token gap over the request").observe(
             max(now - req.first_token_t, 0.0) / (n - 1), tags=tags)
+    _emit_request_span(req)
 
 
 @_never_raise
@@ -447,3 +449,21 @@ def on_lora_stats(manager) -> None:
            "slot-table rows currently holding an adapter").set(
         float(len(manager._resident)),
         tags={"engine": "paged", "proc": _proc()})
+
+
+def _emit_request_span(req) -> None:
+    ctx: Optional[tuple] = getattr(req, "trace_ctx", None)
+    if ctx is None:
+        return
+    try:
+        from ..util import tracing
+        trace_id, parent_id = ctx
+        rec = {"trace_id": trace_id, "span_id": tracing.new_span_id(),
+               "parent_id": parent_id, "name": "llm.request",
+               "start_s": req.submit_wall,
+               "dur_s": max(time.time() - req.submit_wall, 0.0)}
+        if getattr(req, "request_id", ""):
+            rec["request_id"] = req.request_id
+        tracing.record_span(rec)
+    except Exception:
+        pass  # span loss must never break retire

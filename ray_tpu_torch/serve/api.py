@@ -5,24 +5,22 @@ python/ray/serve/api.py run :691, the deployment decorator and the
 Application/BuiltApplication model, and serve/deployment.py).
 Deployments are declarative specs; ``.bind()`` composes them into an
 application DAG whose non-ingress nodes are injected into their parents
-as handles (reference: model composition via handle passing).
+as DeploymentHandles (reference: model composition via handle passing).
 
-Only the reference's local testing mode runs an application in the
-port: ``run(app, local_testing_mode=True)`` builds it in this process
-(``local_mode.py``). Cluster Serve — the controller, replica actors over
-the port's runtime, the HTTP proxy and ``update_user_config`` — is not
-ported yet and raises ``NotImplementedError`` instead of running
-anything in its place.
+``run`` deploys on the port's runtime: a singleton controller actor
+reconciles the specs into replica actors (``controller.py``), and a
+replica that asks for ``ray_actor_options={"num_gpus": n}`` leases n
+whole devices of its node. With ``local_testing_mode=True`` the
+application is built in this process instead (``local_mode.py``).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Optional
 
-_CLUSTER_NOT_PORTED = (
-    "cluster Serve (controller, replica actors, HTTP proxy) is not ported "
-    "to ray_tpu_torch yet; run the application in process with "
-    "serve.run(app, local_testing_mode=True)")
+from .handle import DeploymentHandle
+
+CONTROLLER_NAME = "rtpu:serve:controller"
 
 
 @dataclasses.dataclass
@@ -45,10 +43,13 @@ class DeploymentSpec:
     autoscaling_config: Optional[AutoscalingConfig] = None
     init_args: tuple = ()
     init_kwargs: dict = dataclasses.field(default_factory=dict)
-    # pushed to the instance's reconfigure(user_config) when it is built
+    # pushed to replicas' reconfigure(user_config) at boot and on
+    # update_user_config — lightweight updates without restarts
     user_config: Any = None
-    # MPMD stage role within the app (e.g. "prefill"/"decode"), read by
-    # the reference's controller to pair role groups; kept for its spec
+    # MPMD stage role within the app (e.g. "prefill"/"decode"): the
+    # controller pairs same-app role groups after reconcile — each
+    # prefill replica gets a sealed KV ring to its paired decode
+    # replica (the reference's llm/pd_disagg.py channel handoff)
     role: Optional[str] = None
 
 
@@ -149,60 +150,175 @@ def deployment(_func_or_class=None, *, name: Optional[str] = None,
 # run / status / shutdown
 # ---------------------------------------------------------------------------
 
+def _ray():
+    import ray_tpu_torch
+    if not ray_tpu_torch.is_initialized():
+        ray_tpu_torch.init()
+    return ray_tpu_torch
+
+
+def _controller(create: bool = True):
+    ray = _ray()
+    from .controller import ServeController
+    try:
+        return ray.get_actor(CONTROLLER_NAME)
+    except ValueError:
+        if not create:
+            raise
+    cls = ray.remote(ServeController)
+    return cls.options(name=CONTROLLER_NAME, max_concurrency=512).remote()
+
+
+def _check_actor_options(specs: list[DeploymentSpec]) -> None:
+    """The port's runtime schedules whole GPUs (``num_gpus``); a spec
+    that still asks for the reference's ``num_tpus`` would start a
+    replica with no device lease, so it is refused before anything
+    deploys."""
+    for spec in specs:
+        if "num_tpus" in spec.ray_actor_options:
+            raise ValueError(
+                f"deployment {spec.name!r} asks for num_tpus; the port's "
+                f"runtime leases GPUs: use ray_actor_options="
+                f"{{'num_gpus': n}}")
+
+
 def run(app: Application, *, name: str = "default",
         route_prefix: Optional[str] = "/", blocking: bool = False,
         http_port: Optional[int] = None,
         num_proxies: Optional[int] = None,
         local_testing_mode: bool = False,
-        _local_testing_mode: bool = False):
-    """Deploy an application; returns the ingress handle (reference:
-    serve/api.py:691). With ``local_testing_mode=True`` (or the
-    reference's ``_local_testing_mode`` spelling) the whole application
-    runs in this process (``local_mode.build_local_app``). Without it,
-    raises ``NotImplementedError``: cluster Serve is not ported, and a
-    local app is never built in its place. ``route_prefix``,
-    ``blocking``, ``http_port`` and ``num_proxies`` are the cluster
-    deploy's."""
+        _local_testing_mode: bool = False) -> DeploymentHandle:
+    """Deploy an application; returns the ingress handle
+    (reference: serve/api.py:691). With ``local_testing_mode=True`` the
+    whole application runs in-process with no cluster — unit-test speed
+    for composition/async/streaming logic (reference:
+    serve/_private/local_testing_mode.py; also accepted under the
+    reference's ``_local_testing_mode`` spelling).
+
+    ``num_proxies`` (default cfg.serve_num_proxies) scales the HTTP
+    front door: the controller keeps N proxy actors alive on ports
+    http_port..http_port+N-1, each applying SLO-aware admission control
+    from the shared route table (serve/frontdoor/). A deployment whose
+    ``ray_actor_options`` name ``num_tpus`` raises ``ValueError``."""
+    import cloudpickle
     from ..core.usage import record_library_usage
     record_library_usage("serve")
     if local_testing_mode or _local_testing_mode:
         from .local_mode import build_local_app
         return build_local_app(app, name)
-    raise NotImplementedError(_CLUSTER_NOT_PORTED)
+    specs = app.specs()
+    _check_actor_options(specs)
+    # a cluster deploy supersedes any local-mode app of the same name —
+    # otherwise get_app_handle/delete keep shadowing the cluster app with
+    # the stale in-process one
+    from .local_mode import delete_local_app
+    delete_local_app(name)
+    ray = _ray()
+    ctrl = _controller()
+    specs_blob = cloudpickle.dumps(
+        (specs, app.ingress.spec.name, route_prefix))
+    ray.get(ctrl.deploy_application.remote(name, specs_blob, http_port,
+                                           num_proxies))
+    handle = DeploymentHandle(app.ingress.spec.name, name, ctrl)
+    if blocking:  # pragma: no cover - interactive use
+        import time
+        while True:
+            time.sleep(1)
+    return handle
 
 
-def get_app_handle(name: str = "default"):
-    """The ingress handle of the local app ``name``; raises
-    ``NotImplementedError`` for any other (a cluster app is looked up in
-    the controller, which is not ported)."""
+def get_app_handle(name: str = "default") -> DeploymentHandle:
     from .local_mode import get_local_app
     local = get_local_app(name)
     if local is not None:
         return local
-    raise NotImplementedError(f"no local app {name!r}: "
-                              + _CLUSTER_NOT_PORTED)
+    ray = _ray()
+    ctrl = _controller(create=False)
+    ingress = ray.get(ctrl.get_ingress.remote(name))
+    return DeploymentHandle(ingress, name, ctrl)
 
 
 def update_user_config(app: str, deployment_name: str,
                        user_config: Any) -> None:
-    """The reference pushes a new user_config to a deployment's live
-    cluster replicas; there are none without the runtime, so this
-    raises ``NotImplementedError``."""
-    raise NotImplementedError(_CLUSTER_NOT_PORTED)
+    """Push a new user_config to a deployment's live replicas without
+    restarting them (reference: lightweight config updates via
+    reconfigure())."""
+    ray = _ray()
+    ctrl = _controller(create=False)
+    ray.get(ctrl.update_user_config.remote(app, deployment_name,
+                                           user_config))
 
 
 def status() -> dict:
-    """Cluster applications by name: always none, as the reference
-    reports when no controller runs (local apps are not listed there
-    either)."""
-    return {"applications": {}}
+    ray = _ray()
+    try:
+        ctrl = _controller(create=False)
+    except ValueError:
+        return {"applications": {}}
+    return ray.get(ctrl.status.remote())
 
 
 def delete(name: str = "default") -> None:
+    import ray_tpu_torch
+
     from .local_mode import delete_local_app
     delete_local_app(name)
+    if not ray_tpu_torch.is_initialized():
+        # nothing cluster-side to delete — and NEVER boot a whole cluster
+        # just to tear down an app
+        return
+    ray = ray_tpu_torch
+    try:
+        ctrl = _controller(create=False)
+    except ValueError:
+        return
+    ray.get(ctrl.delete_application.remote(name))
+
+
+def _await_released(ray, name: str, timeout_s: float = 30.0) -> None:
+    """Wait until the killed actor ``name`` is unregistered: a kill is
+    observed asynchronously, and a ``run`` right after ``shutdown`` must
+    start a new controller, not look up the dying one."""
+    import time
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        try:
+            ray.get_actor(name)
+        except ValueError:
+            return
+        time.sleep(0.02)
 
 
 def shutdown() -> None:
+    """Stop the gRPC proxy, every application, the proxy fleet and the
+    controller; returns once their names are released."""
+    import ray_tpu_torch
+
     from .local_mode import _REGISTRY
     _REGISTRY.clear()
+    if not ray_tpu_torch.is_initialized():
+        return  # nothing cluster-side to stop; never BOOT one to shut down
+    ray = _ray()
+    try:
+        gp = ray.get_actor("rtpu:serve:grpc-proxy")
+        try:
+            ray.get(gp.stop.remote())
+        except Exception:
+            pass  # proxy dying; kill below finishes it
+        ray.kill(gp)
+        _await_released(ray, "rtpu:serve:grpc-proxy")
+    except ValueError:
+        pass
+    try:
+        ctrl = _controller(create=False)
+    except ValueError:
+        return
+    try:
+        ray.get(ctrl.shutdown.remote())
+    except Exception:
+        pass  # controller dying; kill below finishes it
+    try:
+        ray.kill(ctrl)
+    except Exception:
+        pass  # already dead
+    _await_released(ray, CONTROLLER_NAME)

@@ -7,8 +7,9 @@ most ``batch_wait_timeout_s`` after the first), invokes the wrapped
 function ONCE with the list, and fans results back out to the callers'
 futures. The wrapped function must take a list and return a list of
 equal length (or raise — the exception fans out to every caller in the
-batch). The reference's batch-size and batch-wait histograms belong to
-its Serve metrics module, which is not ported yet.
+batch). Each drained batch records its size and its oldest item's wait
+in the ``rtpu_serve_batch_size`` and ``rtpu_serve_batch_wait_seconds``
+histograms (``metrics.py``).
 """
 from __future__ import annotations
 
@@ -53,6 +54,16 @@ class _BatchQueue:
                         batch.append(self.queue.get_nowait())
                     except asyncio.QueueEmpty:
                         break
+            try:
+                from . import metrics as sm
+                sm.batch_size().observe(len(batch),
+                                        tags={"fn": self.fn_name})
+                # FIFO queue: batch[0] is the oldest item
+                sm.batch_wait().observe(
+                    max(asyncio.get_event_loop().time() - batch[0][2], 0.0),
+                    tags={"fn": self.fn_name})
+            except Exception:
+                pass  # telemetry must never fail the batch
             args = [a for a, _, _ in batch]
             futs = [f for _, f, _ in batch]
             try:

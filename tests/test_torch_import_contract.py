@@ -63,6 +63,15 @@ def test_port_modules_load_no_jax_and_no_ray_tpu():
                  "ray_tpu_torch.serve.local_mode",
                  "ray_tpu_torch.serve.batching",
                  "ray_tpu_torch.serve.multiplex", "ray_tpu_torch.core.usage",
+                 # Serve over the runtime
+                 "ray_tpu_torch.serve.controller",
+                 "ray_tpu_torch.serve.handle", "ray_tpu_torch.serve.proxy",
+                 "ray_tpu_torch.serve.grpc_proxy",
+                 "ray_tpu_torch.serve.metrics",
+                 "ray_tpu_torch.serve.frontdoor",
+                 "ray_tpu_torch.serve.frontdoor.admission",
+                 "ray_tpu_torch.serve.frontdoor.prefix",
+                 "ray_tpu_torch.serve.frontdoor.routetable",
                  "ray_tpu_torch.core.ids",
                  "ray_tpu_torch.dag", "ray_tpu_torch.dag.channel",
                  "ray_tpu_torch.dag.compiled", "ray_tpu_torch.dag.nodes",
@@ -132,6 +141,56 @@ def test_port_worker_processes_load_no_jax_and_no_ray_tpu():
         assert ray_tpu_torch.get(Holder.remote().report.remote(),
                                  timeout=60) == ("0", [])
     finally:
+        ray_tpu_torch.shutdown()
+
+
+def test_serve_workers_load_no_jax_and_no_ray_tpu():
+    """The Serve controller, a replica, the HTTP proxy and the gRPC
+    proxy of the port's cluster Serve each run in a worker with neither
+    JAX nor the reference package in sys.modules, though the driver
+    here has both."""
+    import jax  # noqa: F401 — loaded in the driver on purpose
+    import ray_tpu  # noqa: F401
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve.api import CONTROLLER_NAME
+    if ray_tpu_torch.is_initialized():
+        ray_tpu_torch.shutdown()
+    ray_tpu_torch.init(num_cpus=2, object_store_memory=64 * 1024 * 1024)
+    try:
+        @serve.deployment
+        def echo(x=None):
+            return x
+
+        import socket
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        assert serve.run(echo.bind(), name="contract",
+                         http_port=port).remote(3).result(
+            timeout_s=60) == 3
+        grpc_proxy, _gport = serve.start_grpc_proxy()
+        ctrl = ray_tpu_torch.get_actor(CONTROLLER_NAME)
+        _v, replicas = ray_tpu_torch.get(
+            ctrl.get_replicas.remote("contract", "echo"), timeout=60)
+        proxies = [p["actor"] for p in ray_tpu_torch.get(
+            ctrl.get_proxies.remote(), timeout=60)]
+        assert len(replicas) == 1 and len(proxies) == 1
+
+        def loaded(_inst):
+            import os as _os
+            import sys as _sys
+            return _os.getpid(), sorted(
+                n for n in _sys.modules
+                if any(n == p or n.startswith(p + ".")
+                       for p in ("jax", "jaxlib", "ml_dtypes", "ray_tpu")))
+
+        seen = [ray_tpu_torch.get(a._exec(loaded), timeout=60)
+                for a in [ctrl, *replicas, *proxies, grpc_proxy]]
+        assert len({pid for pid, _ in seen}) == 4
+        assert all(mods == [] for _, mods in seen), seen
+    finally:
+        serve.shutdown()
         ray_tpu_torch.shutdown()
 
 

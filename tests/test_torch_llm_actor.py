@@ -95,6 +95,7 @@ def test_port_actor_matches_the_reference_actor():
     import ray_tpu
     import ray_tpu_torch
     from ray_tpu.core.config import cfg as jax_rcfg
+    from ray_tpu_torch.core.config import cfg as port_rcfg
     from ray_tpu.llm import PagedEngineConfig as JaxPagedConfig
     from ray_tpu.llm.serving import LLMConfig as JaxLLMConfig
     from ray_tpu.llm.serving import LLMServer as JaxLLMServer
@@ -120,10 +121,15 @@ def test_port_actor_matches_the_reference_actor():
     port_params = params_from_numpy(jax.tree.map(np.asarray, jax_params),
                                     tllama.llama_tiny(**SHAPE),
                                     device="cpu")
-    port = _serve(ray_tpu_torch, LLMServer, LLMConfig(
-        model_id="tiny", warmup=False,
-        engine=PagedEngineConfig(model=tllama.llama_tiny(**SHAPE),
-                                 **ENGINE)), port_params, {"device": "cpu"})
+    port_rcfg.override(serve_prefix_directory=False)
+    try:
+        port = _serve(ray_tpu_torch, LLMServer, LLMConfig(
+            model_id="tiny", warmup=False,
+            engine=PagedEngineConfig(model=tllama.llama_tiny(**SHAPE),
+                                     **ENGINE)), port_params,
+            {"device": "cpu"})
+    finally:
+        port_rcfg.reset("serve_prefix_directory")
 
     assert port["process"] == ("", [])
     for body, (ids_r, lp_r, text_r), (ids_p, lp_p, text_p) in zip(

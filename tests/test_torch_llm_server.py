@@ -29,6 +29,7 @@ from ray_tpu.models import llama as jllama
 from ray_tpu_torch.llm import (EngineConfig, LLMConfig, LLMServer,
                                OpenAIRouter, PagedEngineConfig)
 from ray_tpu_torch.models import llama as tllama
+from ray_tpu_torch.core.config import cfg as port_rcfg
 from ray_tpu_torch.models.convert import params_from_numpy
 from ray_tpu_torch.util import metrics
 
@@ -60,8 +61,8 @@ def _port_params(jax_params):
 
 
 def _servers(model_id="tiny", **engine_kw):
-    """(reference server, port server) over the same weights, with the
-    reference's prefix directory off."""
+    """(reference server, port server) over the same weights, with both
+    packages' prefix directories off."""
     jax_rcfg.override(serve_prefix_directory=False)
     try:
         ref = JaxLLMServer(JaxLLMConfig(
@@ -70,11 +71,15 @@ def _servers(model_id="tiny", **engine_kw):
                                   **engine_kw)))
     finally:
         jax_rcfg.reset("serve_prefix_directory")
-    port = LLMServer(LLMConfig(
-        model_id=model_id, warmup=False,
-        engine=PagedEngineConfig(model=tllama.llama_tiny(**SHAPE),
-                                 **engine_kw)),
-        params_ref=_port_params(ref.engine.params), device="cpu")
+    port_rcfg.override(serve_prefix_directory=False)
+    try:
+        port = LLMServer(LLMConfig(
+            model_id=model_id, warmup=False,
+            engine=PagedEngineConfig(model=tllama.llama_tiny(**SHAPE),
+                                     **engine_kw)),
+            params_ref=_port_params(ref.engine.params), device="cpu")
+    finally:
+        port_rcfg.reset("serve_prefix_directory")
     return ref, port
 
 
@@ -298,11 +303,15 @@ def _lora_servers(tmp_path, batched: bool):
             engine=JaxPagedConfig(model=mc, **ENGINE, **kw)))
     finally:
         jax_rcfg.reset("serve_prefix_directory")
-    port = LLMServer(LLMConfig(
-        model_id="tiny", warmup=False, **extra,
-        engine=PagedEngineConfig(model=tllama.llama_tiny(**SHAPE),
-                                 **ENGINE, **kw)),
-        params_ref=_port_params(ref.engine.params), device="cpu")
+    port_rcfg.override(serve_prefix_directory=False)
+    try:
+        port = LLMServer(LLMConfig(
+            model_id="tiny", warmup=False, **extra,
+            engine=PagedEngineConfig(model=tllama.llama_tiny(**SHAPE),
+                                     **ENGINE, **kw)),
+            params_ref=_port_params(ref.engine.params), device="cpu")
+    finally:
+        port_rcfg.reset("serve_prefix_directory")
     return ref, port
 
 

@@ -2,8 +2,9 @@
 package's serve.run(..., local_testing_mode=True), in process, on the
 same weights.
 
-The reference app builds its replica with its own random init (its
-cluster prefix directory off; the port has none); the port's app gets
+The reference app builds its replica with its own random init (each
+package's cluster prefix directory off, as the reference's tests do:
+local apps have no replica handle to publish under); the port's app gets
 that replica's params, converted with ``models/convert.params_from_numpy``,
 through ``params_refs``, f32 on the CPU. Requests go one at a time
 through each ingress handle: completions give identical responses (text,
@@ -27,6 +28,7 @@ from ray_tpu.llm.serving import \
     build_llm_deployment as jax_build_llm_deployment
 from ray_tpu.models import llama as jllama
 from ray_tpu_torch import serve
+from ray_tpu_torch.core.config import cfg as port_rcfg
 from ray_tpu_torch.llm import (LLMConfig, LLMServer, OpenAIRouter,
                                PagedEngineConfig, build_llm_deployment,
                                build_openai_app)
@@ -86,12 +88,16 @@ def routers():
     params = params_from_numpy(
         jax.tree.map(np.asarray, _replica(ref).engine.params),
         tllama.llama_tiny(**SHAPE), device="cpu")
-    port = serve.run(build_openai_app([LLMConfig(
-        model_id="tiny", warmup=False,
-        engine=PagedEngineConfig(model=tllama.llama_tiny(**SHAPE),
-                                 **ENGINE))],
-        params_refs=[params], device="cpu"),
-        name=APP, local_testing_mode=True)
+    port_rcfg.override(serve_prefix_directory=False)
+    try:
+        port = serve.run(build_openai_app([LLMConfig(
+            model_id="tiny", warmup=False,
+            engine=PagedEngineConfig(model=tllama.llama_tiny(**SHAPE),
+                                     **ENGINE))],
+            params_refs=[params], device="cpu"),
+            name=APP, local_testing_mode=True)
+    finally:
+        port_rcfg.reset("serve_prefix_directory")
     try:
         yield ref, port
     finally:
@@ -195,18 +201,41 @@ def test_models_and_unknown_model(routers):
                                     "prompt": "x"}).result(timeout_s=30)
 
 
+def _jax_kw(kw: dict) -> dict:
+    """The reference's LLMConfig fields for the port's: one TPU for each
+    GPU a replica asks for."""
+    out = {k: v for k, v in kw.items() if k != "gpus_per_replica"}
+    if "gpus_per_replica" in kw:
+        out["tpus_per_replica"] = float(kw["gpus_per_replica"])
+    return out
+
+
+def _gpu_for_tpu(opts: dict) -> dict:
+    """The reference's ray_actor_options with its TPU request spelled as
+    the port's whole-GPU request."""
+    return {("num_gpus" if k == "num_tpus" else k):
+            (int(v) if k == "num_tpus" else v) for k, v in opts.items()}
+
+
 @pytest.mark.parametrize("kw", [
     {}, {"model_id": "m7", "num_replicas": 3, "max_ongoing_requests": 7},
-    {"model_id": "acc", "tpus_per_replica": 1.0}])
+    {"model_id": "acc", "gpus_per_replica": 1}])
 def test_deployment_specs_match_reference(kw):
     """build_llm_deployment's spec (name, replicas, request cap,
     accelerator request) and build_openai_app's deployments are the
-    reference's; the port's device reaches LLMServer's init kwargs."""
-    a = jax_build_llm_deployment(JaxLLMConfig(**kw)).ingress.spec
+    reference's, GPU for TPU: ``gpus_per_replica=1`` asks for
+    ``{"num_gpus": 1}`` where ``tpus_per_replica=1.0`` asks for
+    ``{"num_tpus": 1.0}``; the port's device reaches LLMServer's init
+    kwargs."""
+    a = jax_build_llm_deployment(JaxLLMConfig(**_jax_kw(kw))).ingress.spec
     b = build_llm_deployment(LLMConfig(**kw), device="cpu").ingress.spec
     for field in ("name", "num_replicas", "max_ongoing_requests",
-                  "ray_actor_options", "autoscaling_config", "user_config"):
+                  "autoscaling_config", "user_config"):
         assert getattr(b, field) == getattr(a, field), field
+    assert b.ray_actor_options == _gpu_for_tpu(a.ray_actor_options)
+    if "gpus_per_replica" in kw:
+        assert b.ray_actor_options == {"num_gpus": 1}
+        assert a.ray_actor_options == {"num_tpus": 1.0}
     assert b.func_or_class is LLMServer
     assert b.init_args[1] is None and b.init_kwargs == {"device": "cpu"}
     assert LLMConfig().num_replicas == JaxLLMConfig().num_replicas == 1
@@ -218,7 +247,7 @@ def test_deployment_specs_match_reference(kw):
     jcfgs = [JaxLLMConfig(model_id=c.model_id,
                           num_replicas=c.num_replicas,
                           max_ongoing_requests=c.max_ongoing_requests,
-                          tpus_per_replica=c.tpus_per_replica)
+                          tpus_per_replica=float(c.gpus_per_replica))
              for c in cfgs]
     ja, pa = jax_build_openai_app(jcfgs), build_openai_app(cfgs)
     assert [(s.name, s.num_replicas, s.max_ongoing_requests)

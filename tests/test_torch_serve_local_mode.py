@@ -1,10 +1,11 @@
 """The port's Serve in local testing mode: whole apps in process, no
 cluster (the reference's tests/test_serve_local_mode.py cases that need
 no cluster, run against ray_tpu_torch.serve), plus @serve.batch and
-@serve.multiplexed inside local apps. Cluster Serve is not ported:
-serve.run without local mode, and the calls that only a cluster serves,
-raise NotImplementedError and build nothing."""
+@serve.multiplexed inside local apps, and the reference's rule that a
+cluster deploy (on the port's runtime) supersedes a local app of the
+same name."""
 import asyncio
+import os
 
 import pytest
 
@@ -117,28 +118,42 @@ def test_local_mode_async_generator_streaming():
     assert got == [0, 2, 4]
 
 
-def test_run_without_local_mode_raises_and_builds_nothing():
-    built = []
+def test_cluster_run_supersedes_local_app():
+    """A cluster deploy of the same app name clears the local-mode
+    registry entry, so get_app_handle returns the CLUSTER handle (a
+    replica actor of the port's runtime), not the stale in-process
+    one (the reference's test_cluster_run_supersedes_local_app)."""
+    import ray_tpu_torch as rt
 
     @serve.deployment
-    class Model:
-        def __init__(self):
-            built.append(1)
+    def v1():
+        return "local"
 
-    with pytest.raises(NotImplementedError, match="cluster Serve"):
-        serve.run(Model.bind())
-    with pytest.raises(NotImplementedError, match="cluster Serve"):
-        serve.run(Model.bind(), name="other", http_port=8000)
-    assert built == []
-    assert get_local_app("default") is None
-    with pytest.raises(NotImplementedError, match="no local app"):
-        serve.get_app_handle("default")
-    with pytest.raises(NotImplementedError, match="cluster Serve"):
-        serve.update_user_config("default", "Model", {"x": 1})
-    # a local app of the same name is then built and found
-    h = serve.run(Model.bind(), local_testing_mode=True)
-    assert built == [1] and serve.get_app_handle("default") is h
-    serve.shutdown()
+    @serve.deployment
+    def v2():
+        import os
+        return "cluster", os.getpid()
+
+    if rt.is_initialized():
+        rt.shutdown()
+    rt.init(num_cpus=1, object_store_memory=64 * 1024 * 1024)
+    try:
+        local = serve.run(v1.bind(), local_testing_mode=True)
+        assert local.remote().result() == "local"
+        h = serve.run(v2.bind())
+        try:
+            got, pid = h.remote().result(timeout_s=60)
+            assert got == "cluster" and pid != os.getpid()
+            assert get_local_app("default") is None
+            # the app-handle lookup now routes to the cluster app
+            assert serve.get_app_handle("default").remote().result(
+                timeout_s=60)[0] == "cluster"
+        finally:
+            serve.delete("default")
+        assert "default" not in serve.status()["applications"]
+    finally:
+        serve.shutdown()
+        rt.shutdown()
     assert get_local_app("default") is None
 
 
