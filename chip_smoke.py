@@ -183,17 +183,20 @@ and prints no result line):
    --own-store` against head_address(), its store sized to at most half
    of /dev/shm's free bytes (printed). nodes() must show the GPU on the
    agent's node only. 4f's actor, named and pinned to the agent's node
-   (NodeAffinitySchedulingStrategy, soft=False), serves Llama-3-8B at
-   full width from a worker the agent forked with the index the head
+   (NodeAffinitySchedulingStrategy, soft=False), serves Llama-3-8B's
+   widths with the depth cut to 8 of 32 layers (4g holds transport, not
+   depth) from a worker the agent forked with the index the head
    leased it: it must report CUDA_VISIBLE_DEVICES "0", the card, the
    agent node's RTPU_NODE_ID and neither jax nor ray_tpu; phase 4's mix
-   must give phase 4's greedy tokens bit for bit, the ragged kernel must
+   must give bit for bit the greedy tokens that one captured engine of
+   the same 8-layer model gives it in the driver just before (4g's
+   reference tokens), the ragged kernel must
    launch in both families inside it, and available_resources()["GPU"]
    must read 0 while it lives. A second driver (a script written to a
    temporary file, loading neither jax nor ray_tpu) attaches with
    init(address=<cluster.json>), takes the actor with get_actor and
-   sends phase 4's first greedy request: its tokens must equal phase
-   4's, and state.list_actors() over its rpc must list the actor (it
+   sends phase 4's first greedy request: its tokens must equal 4g's
+   reference, and state.list_actors() over its rpc must list the actor (it
    runs inside the dag step, below). After kill the agent's node has
    its GPU back; a new one-GPU
    actor there gets phase 5's small f32 model through an ObjectRef put
@@ -218,7 +221,8 @@ dag (in 4f and again in 4g, on their 8B actor after its mix and before
    seed-0 mix runs as one execute, then split in three parts, all three
    executed before the first get (the third drains the first from the
    ring); in each run every greedy request's tokens must equal phase 4's
-   bit for bit and the ragged kernel must launch in both families inside
+   (in 4g: 4g's reference) bit for bit and the ragged kernel must
+   launch in both families inside
    the actor (its counts set to 0 just before the run, read just after).
    While the DAG lives, from the head's driver: state.list_actors() has
    the named actor alive, state.list_workers() its worker with the
@@ -275,12 +279,51 @@ dag (in 4f and again in 4g, on their 8B actor after its mix and before
    store holds as many objects as before the deploy; after the
    runtime's shutdown no worker of the port is left. Prints one
    serve_cluster: line with the card and its power limit.
+4i. serve_pd: prefill/decode disaggregation under Serve, in a runtime
+   session of its own: ray_tpu_torch.init(num_cpus=4, num_gpus=1) and a
+   second node of one GPU sharing the head's store
+   (cluster_utils.Cluster().add_node(num_gpus=1)); each node's lease is
+   index 0 of the one card, so the two replicas share it. The app is
+   build_pd_openai_app's (the OpenAI router over PDServer over one
+   prefill and one decode replica of Llama-3-8B at full width, phase 4's
+   engine settings, seed-0 weights made in each replica,
+   use_channels=True, gpus_per_replica=1), its replica classes recording
+   subclasses (reset() and counts(): the ragged kernel's launches by
+   family in each replica's process, the prefill side's exports with
+   their payload bytes and wall times, the decode side's imports, token
+   ids served and wait_cid results), the prefill replica warmed for
+   prefill programs only and the decode replica for decode and verify.
+   serve.run(app, name="llm", http_port=<a free port>, num_proxies=1);
+   deploy seconds, then ready seconds (both replicas healthy and the
+   controller's pairing seen through has_kv_channel on prefill replica
+   0; it fails if the roles never pair). Both replicas must see
+   CUDA_VISIBLE_DEVICES "0", run on cuda:0 in two processes, load
+   neither jax nor ray_tpu, and available_resources()["GPU"] must read 0
+   while they live. Phase 4's seed-0 mix goes twice as 11 concurrent
+   unary POST /llm/v1/completions (the KV payloads over the sealed ring,
+   the results through wait_cid), then its first greedy request once
+   with "stream": true (prefill_ref, then decode_stream): every greedy
+   request's tokens, read in the decode replica, equal phase 4's
+   captured run bit for bit, the stream's text joins to the pass's, and
+   in each of the three steps (counts set to 0 just before, read just
+   after) the ragged kernel launched in prefill only in the prefill
+   replica and in decode only in the decode replica. The ring's counters
+   (rtpu_llm_pd_chan_kv_writes_total and kv_imports_total) and the
+   decode replica's wait_cid results must each equal the 22 unary
+   requests. After serve.shutdown() the six Serve workers are gone, both
+   GPUs are back and the head's store holds as many objects as before
+   the deploy; after the runtime's shutdown no worker of the port is
+   left. Prints one serve_pd: line: deploy and ready seconds, each
+   replica's warmup seconds and programs, tokens/s, TTFT (call start at
+   the prefill replica to import end at the decode replica) per pass,
+   payload MiB per request and ms from export to import, the ring's
+   counters (credit stalls included), with the card and its power limit.
 5b. dense agreement: phase 5's small f32 model through InferenceEngine on
    the card and on the CPU gives identical greedy tokens; the f32
    forward kernel's launches are counted as in phase 7.
 
-Phases run in the order 1, 2, 3, 3c, 3b, 4, 4b, 4c, 4d, 4e, 4f, 4g, 4h, 5,
-5b, 6, 7, and the total seconds are printed before the kernels' record.
+Phases run in the order 1, 2, 3, 3c, 3b, 4, 4b, 4c, 4d, 4e, 4f, 4g, 4h, 4i,
+5, 5b, 6, 7, and the total seconds are printed before the kernels' record.
 The
 second-to-last line is the card from nvidia-smi, the one before it the
 kernels' JSON record, and the last line {"ok": true, "device": ...}.
@@ -880,6 +923,12 @@ MOE_DEPTH_CUT = ("8 of 32 layers: 32 layers of this config are 45B "
                  "parameters, ~90 GB in bf16, more than the card's 80 GB")
 # EngineConfig's prefill buckets at phase 4b's max_seq_len 1024
 SERVE_BUCKETS = (32, 64, 128, 256, 512, 1024)
+# phase 4g at 8 of Llama-3-8B's 32 layers (full widths): its checks are
+# on transport (TCP, two stores, a second driver, the node's loss), and
+# the whole smoke stays near 600 s with 4i beside it
+CLUSTER_LAYERS = 8
+CLUSTER_DEPTH_CUT = ("8 of 32 layers: 4g holds transport, not depth; its "
+                     "greedy tokens come from one engine at that depth")
 
 
 def _flash_inputs(b, sq, sk, h, kvh, d, dtype, seed):
@@ -1214,6 +1263,22 @@ def _serve_run(params, cfg, device, seed: int, eager: bool) -> dict:
                 "capture_s_max": (max(graphs.capture_s)
                                   if graphs is not None
                                   and graphs.capture_s else None)}}
+
+
+def _greedy_tokens(model_cfg, device, seed: int = 0, **engine_kw) -> dict:
+    """Phase 4's greedy tokens for ``model_cfg`` (seed-``seed`` weights
+    made on ``device``) from one engine on captured programs, warmed by
+    default, generating phase 4's mix: the reference of a phase served at
+    another depth than phase 4's. Maps each greedy prompt to its ids."""
+    from ray_tpu_torch.llm import PagedEngineConfig, PagedInferenceEngine
+    eng = PagedInferenceEngine(PagedEngineConfig(model=model_cfg,
+                                                 **engine_kw),
+                               rng_seed=seed, device=device)
+    eng.warmup()
+    prompts, sps = _requests(model_cfg.vocab_size, seed)
+    out = eng.generate(prompts, sps)
+    return {tuple(p): r["token_ids"] for p, r, sp in zip(prompts, out, sps)
+            if not sp.temperature}
 
 
 def serve(model_cfg, device, seed: int = 0, **engine_kw) -> dict:
@@ -2290,7 +2355,7 @@ def _http_post(port: int, path: str, body: dict, timeout: float = 900):
         return r.status, r.headers.get("Content-Type", ""), r.read()
 
 
-def _http_mix(port: int, bodies: list) -> tuple:
+def _http_mix(port: int, bodies: list, label: str = "4h") -> tuple:
     """Every body at once, one thread each, to /llm/v1/completions; every
     response must be a 200 and a well-formed text_completion. Returns
     (responses in order, wall seconds)."""
@@ -2315,11 +2380,11 @@ def _http_mix(port: int, bodies: list) -> tuple:
         t.join(timeout=900)
     wall = time.perf_counter() - t0
     if errors or any(t.is_alive() for t in threads):
-        raise AssertionError(f"4h HTTP mix failed: {errors}")
+        raise AssertionError(f"{label} HTTP mix failed: {errors}")
     for i, (code, resp) in enumerate(out):
         if code != 200 or resp.get("object") != "text_completion" or \
                 not resp.get("choices") or "usage" not in resp:
-            raise AssertionError(f"4h request {i}: {code} {resp}")
+            raise AssertionError(f"{label} request {i}: {code} {resp}")
     return [resp for _code, resp in out], wall
 
 
@@ -2612,6 +2677,417 @@ def serve_cluster(model_cfg, greedy: dict, device="cuda",
         time.sleep(0.2)
     if _port_procs():
         raise AssertionError(f"4h port workers left: {_port_procs()}")
+    return fig
+
+
+# -- phase 4i: prefill/decode disaggregation under Serve ----------------------
+
+def _recording_pd():
+    """The replica classes of phase 4i: PrefillReplica and DecodeReplica
+    plus reset() and counts(). Each times its own warmup (the families
+    its base class warms), counts the ragged kernel's launches by family
+    in its own process (around the engine's prefill and decode steps, as
+    phase 4h does) and records, per prompt, when and what crossed: the
+    prefill side the call's start, the export's end (wall clock: both
+    replicas run on this machine) and the payload's bytes; the decode
+    side the import's end, the token ids served and the wait_cid
+    results. Defined in a function body, so the deployments pickle the
+    classes by value."""
+    from ray_tpu_torch.llm import pd_disagg as pd
+    from ray_tpu_torch.ops.ragged_paged_attention import \
+        ragged_paged_attention as rpa
+
+    def counted_steps(self):
+        self._rpa = rpa
+        self._fam = {"prefill": 0, "decode": 0}
+        eng = self.engine
+        for name in self._fam:
+            step = getattr(eng, f"_{name}_step")
+
+            def counted(step=step, name=name):
+                before = rpa.launches
+                step()
+                self._fam[name] += rpa.launches - before
+            setattr(eng, f"_{name}_step", counted)
+
+    def warm(self, families):
+        with pd._device_scope(self.device):
+            t0 = time.perf_counter()
+            self.engine.warmup(families=families)
+            self.warmup_s = time.perf_counter() - t0
+
+    def info(self):
+        graphs = self.engine._graphs
+        return {"launches": self._rpa.launches,
+                "launches_by_family": dict(self._fam),
+                "programs": len(graphs) if graphs is not None else 0,
+                "server_s": self.server_s, "warmup_s": self.warmup_s,
+                "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "device": str(self.device), "pid": os.getpid(),
+                "banned": _banned_modules()}
+
+    class RecordingPrefill(pd.PrefillReplica):
+        def __init__(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            super().__init__(*args, **{**kwargs, "warmup": False})
+            warm(self, ("prefill",))
+            self.server_s = time.perf_counter() - t0
+            counted_steps(self)
+            self._exports = []
+
+        def _export(self, prompt, params):
+            t0 = time.time()
+            payload = super()._export(prompt, params)
+            nbytes = sum(a.nbytes for layer in payload["pages"]
+                         for a in layer.values())
+            self._exports.append((list(payload["prompt_ids"]), t0,
+                                  time.time(), nbytes))
+            return payload
+
+        def reset(self):                  # a step of the main path starts
+            self._rpa.launches = 0
+            self._fam = {k: 0 for k in self._fam}
+            self._exports = []
+
+        def counts(self):                 # and ends here
+            return {**info(self), "exports": list(self._exports)}
+
+    class RecordingDecode(pd.DecodeReplica):
+        def __init__(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            super().__init__(*args, **{**kwargs, "warmup": False})
+            warm(self, ("decode", "verify"))
+            self.server_s = time.perf_counter() - t0
+            counted_steps(self)
+            self._imports, self._served, self._waited = [], [], 0
+            self._dispatches0 = 0
+            result = self.engine._result
+
+            def recording(req):
+                out = result(req)
+                self._served.append((list(req.prompt_ids),
+                                     [int(t) for t in out["token_ids"]]))
+                return out
+            self.engine._result = recording
+
+        def start(self, payload, params=None):
+            t0 = time.time()
+            rid = super().start(payload, params)
+            t1 = time.time()                 # the step lock's wait inside
+            self._imports.append((list(self._reqs[rid].prompt_ids), t1,
+                                  t1 - t0))
+            return rid
+
+        def wait_cid(self, cid, timeout=600.0):
+            out = super().wait_cid(cid, timeout)
+            self._waited += 1
+            return out
+
+        def reset(self):
+            self._rpa.launches = 0
+            self._fam = {k: 0 for k in self._fam}
+            self._imports, self._served, self._waited = [], [], 0
+            self._dispatches0 = self.engine.stats["decode_dispatches"]
+
+        def counts(self):
+            return {**info(self), "imports": list(self._imports),
+                    "served": list(self._served),
+                    "wait_cid_results": self._waited,
+                    "decode_dispatches": self.engine.stats[
+                        "decode_dispatches"] - self._dispatches0}
+
+    return RecordingPrefill, RecordingDecode
+
+
+def _pd_counters() -> dict:
+    """The rtpu_llm_pd_chan_* counters merged in the head's store."""
+    from ray_tpu_torch.util import metrics as um
+    store = um.collect_store()
+    return {name: sum(((store.get(f"rtpu_llm_pd_chan_{name}_total") or {})
+                       .get("series") or {}).values())
+            for name in ("kv_writes", "kv_imports", "results",
+                         "credit_stalls")}
+
+
+def serve_pd(model_cfg, greedy: dict, device="cuda", **engine_kw) -> dict:
+    """Phase 4i (also rehearsed on the CPU at tiny size, on fake GPUs):
+    prefill/decode disaggregation under Serve. A head with one GPU and a
+    second node of one GPU sharing its store (cluster_utils.Cluster
+    .add_node): both map to index 0 of the one card, so the prefill and
+    the decode replica share it. build_pd_openai_app's app (the OpenAI
+    router over PDServer over a prefill and a decode group, each replica
+    asking for one whole GPU; phase 4's engine settings and seed-0
+    weights made in each replica, each warmed for its families), its
+    replica classes the recording subclasses, use_channels=True, under
+    serve.run(app, name="llm", http_port=<free>, num_proxies=1). Once the
+    controller has paired the roles, phase 4's seed-0 mix goes twice as
+    concurrent unary HTTP completions (the KV ring), then its first
+    greedy request once with stream=true (prefill_ref, then
+    decode_stream). ``greedy`` maps phase 4's greedy prompts to the
+    captured run's tokens. Returns the figures; raises on any failure."""
+    import socket
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.core import runtime as rt_mod
+    from ray_tpu_torch.llm import PagedEngineConfig
+    from ray_tpu_torch.llm.pd_disagg import build_pd_openai_app
+    from ray_tpu_torch.serve.api import CONTROLLER_NAME
+    cuda = torch.device(device).type == "cuda"
+    model_id = "llama3-8b"
+    fig = {"card": _card() if cuda else "cpu",
+           "replicas_share_one_card": True}
+    bodies = [dict(b, model=model_id)
+              for b in _phase4_bodies(model_cfg.vocab_size)]
+    first = next((b for b in bodies if not b["temperature"]), None)
+    if first is None or not greedy:
+        raise AssertionError("4i: phase 4 gave no greedy result")
+    t0 = time.perf_counter()
+    rt.init(num_cpus=4, num_gpus=1)
+    try:
+        Cluster().add_node(num_cpus=2, num_gpus=1, name="pd-second")
+        if rt.cluster_resources().get("GPU") != 2.0:
+            raise AssertionError(f"4i cluster {rt.cluster_resources()}")
+        fig["init_s"] = time.perf_counter() - t0
+        head_store = rt_mod.get_runtime_if_exists().store
+        objects_before = head_store.num_objects()
+        counters_before = _pd_counters()
+        app = build_pd_openai_app(
+            model_id, n_prefill=1, n_decode=1,
+            engine_cfg=PagedEngineConfig(model=model_cfg, **engine_kw),
+            use_channels=True, device=device, gpus_per_replica=1)
+        (pd_dep,) = app.ingress.children()
+        pre_dep, dec_dep = pd_dep.children()
+        for dep, cls in zip((pre_dep, dec_dep), _recording_pd()):
+            if dep.spec.ray_actor_options != {"num_gpus": 1}:
+                raise AssertionError(f"4i {dep.spec.role} options "
+                                     f"{dep.spec.ray_actor_options}")
+            dep.spec = dataclasses.replace(dep.spec, func_or_class=cls)
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        t1 = time.perf_counter()
+        serve.run(app, name="llm", http_port=port, num_proxies=1)
+        fig["deploy_s"] = time.perf_counter() - t1
+        ctrl = rt.get_actor(CONTROLLER_NAME)
+        reps = {}
+        for role in ("prefill", "decode"):
+            _v, (reps[role],) = rt.get(ctrl.get_replicas.remote(
+                "llm", f"pd-{role}:{model_id}"), timeout=60)
+
+        def call(role, method, *args):
+            return rt.get(reps[role].handle_request.remote(
+                method, args, {}, None), timeout=900)
+
+        # 1. ready once both replicas pass check_health and the
+        # controller has paired the prefill replica with a decode ring
+        for role in reps:
+            if not rt.get(reps[role].health_check.remote(), timeout=900):
+                raise AssertionError(f"4i {role} health check failed")
+        # (through the replica actor: a DeploymentHandle here would leave
+        # its long-poll thread calling the controller after shutdown)
+        deadline = time.monotonic() + 120
+        while not call("prefill", "has_kv_channel"):
+            if time.monotonic() > deadline:
+                raise AssertionError("4i: the controller never paired "
+                                     "the prefill and decode roles")
+            time.sleep(0.2)
+        fig["ready_s"] = time.perf_counter() - t1
+        info = {role: call(role, "counts") for role in reps}
+        for role, i in info.items():
+            fig[f"{role}_replica"] = {
+                k: i[k] for k in ("server_s", "warmup_s", "programs",
+                                  "visible", "device")}
+            if i["visible"] != "0" or i["banned"] or \
+                    (cuda and i["device"] != "cuda:0"):
+                raise AssertionError(f"4i {role} replica: {i}")
+        if info["prefill"]["pid"] == info["decode"]["pid"]:
+            raise AssertionError("4i: both roles in one process")
+        time.sleep(0.5)
+        gpu_held = rt.available_resources().get("GPU")
+        if gpu_held != 0.0:
+            raise AssertionError(f"GPU available {gpu_held} while both "
+                                 f"replicas hold a lease")
+        fig["gpu_available_while_held"] = gpu_held
+
+        def step(label, run):
+            """One step of the main path between both replicas' reset()
+            and counts(): B1's prefill family only in the prefill
+            replica, its decode family only in the decode replica."""
+            for role in reps:
+                call(role, "reset")
+            t = time.perf_counter()
+            out = run()
+            wall = time.perf_counter() - t
+            got = {role: call(role, "counts") for role in reps}
+            pre_f = got["prefill"]["launches_by_family"]
+            dec_f = got["decode"]["launches_by_family"]
+            for role, c in got.items():
+                if cuda and c["launches"] != sum(
+                        c["launches_by_family"].values()):
+                    raise AssertionError(f"4i {label} {role}: launches "
+                                         f"outside the counted steps {c}")
+            if cuda and not (pre_f["prefill"] > 0 and pre_f["decode"] == 0
+                             and dec_f["decode"] > 0
+                             and dec_f["prefill"] == 0):
+                raise AssertionError(f"4i {label}: B1 by family, prefill "
+                                     f"replica {pre_f}, decode replica "
+                                     f"{dec_f}")
+            return out, wall, got
+
+        def handoff(got, label):
+            """Per request: export end to import end (ms), call start to
+            import end (s: the first token on the decode side), payload
+            MiB."""
+            exports = {tuple(p): (ta, tb, n)
+                       for p, ta, tb, n in got["prefill"]["exports"]}
+            imports = {tuple(p): t for p, t, _w in got["decode"]["imports"]}
+            starts = [w for _p, _t, w in got["decode"]["imports"]]
+            if set(exports) != set(imports):
+                raise AssertionError(f"4i {label}: exports and imports "
+                                     f"differ")
+            ms = [1e3 * (imports[p] - exports[p][1]) for p in exports]
+            ttft = [imports[p] - exports[p][0] for p in exports]
+            mib = [exports[p][2] / 2 ** 20 for p in exports]
+            return {"export_to_import_ms_median": statistics.median(ms),
+                    "export_to_import_ms_max": max(ms),
+                    "ttft_median_s": statistics.median(ttft),
+                    "ttft_max_s": max(ttft),
+                    "payload_mib_mean": statistics.mean(mib),
+                    "payload_mib_max": max(mib),
+                    # one import call (DecodeReplica.start): mostly the
+                    # wait for the decode loop's step lock
+                    "import_call_ms_median": 1e3 * statistics.median(starts),
+                    "import_call_ms_max": 1e3 * max(starts),
+                    "decode_dispatches": got["decode"]["decode_dispatches"]}
+
+        # 2-3. the mix over HTTP, twice (the KV ring)
+        passes = []
+        for i in range(2):
+            (resps, wall), _w, got = step(
+                f"pass {i + 1}", lambda: _http_mix(port, bodies, "4i"))
+            served = got["decode"]["served"]
+            if got["decode"]["wait_cid_results"] != len(bodies):
+                raise AssertionError(f"4i pass {i + 1}: "
+                                     f"{got['decode']['wait_cid_results']}"
+                                     f" ring results for {len(bodies)}")
+            checked = _greedy_checked([(p, ids, 0.0) for p, ids in served],
+                                      bodies, greedy, f"4i pass {i + 1}")
+            n_out = sum(len(ids) for ids, _t in checked.values())
+            passes.append({
+                "generate_s": wall, "tokens_out": n_out,
+                "tokens_per_s": n_out / wall,
+                **handoff(got, f"pass {i + 1}"),
+                "greedy_equal_phase4": len(greedy),
+                "launches_prefill_replica":
+                    got["prefill"]["launches_by_family"],
+                "launches_decode_replica":
+                    got["decode"]["launches_by_family"],
+                "programs_after": {r: got[r]["programs"] for r in got}})
+        fig["first_pass"], fig["second_pass"] = passes
+        n_unary = 2 * len(bodies)
+
+        # 4. the first greedy request once as an SSE stream (the ref path)
+        (code, ctype, raw), _w, got = step(
+            "stream", lambda: _http_post(port, "llm/v1/completions",
+                                         dict(first, stream=True)))
+        lines = [ln for ln in raw.decode().split("\n\n") if ln]
+        if code != 200 or not ctype.startswith("text/event-stream") or \
+                lines[-1] != "data: [DONE]" or \
+                not all(ln.startswith("data: ") for ln in lines):
+            raise AssertionError(f"4i stream: {code} {ctype} {lines[-3:]}")
+        chunks = [json.loads(ln[len("data: "):]) for ln in lines[:-1]]
+        text = "".join(c["choices"][0]["text"] for c in chunks)
+        want_text = resps[bodies.index(first)]["choices"][0]["text"]
+        if text != want_text:
+            raise AssertionError(f"4i stream text {text!r} != "
+                                 f"{want_text!r}")
+        if [ids for _p, ids in got["decode"]["served"]] != \
+                [greedy[tuple(first["prompt"])]] or \
+                got["decode"]["wait_cid_results"] != 0:
+            raise AssertionError(f"4i stream tokens {got['decode']}")
+        fig["stream"] = {"chunks": len(chunks), **handoff(got, "stream"),
+                         "launches_prefill_replica":
+                             got["prefill"]["launches_by_family"],
+                         "launches_decode_replica":
+                             got["decode"]["launches_by_family"]}
+        fig["launches_prefill_by_family"] = {
+            k: sum(s[k] for s in [p["launches_prefill_replica"]
+                                  for p in passes]
+                   + [fig["stream"]["launches_prefill_replica"]])
+            for k in ("prefill", "decode")}
+        fig["launches_decode_by_family"] = {
+            k: sum(s[k] for s in [p["launches_decode_replica"]
+                                  for p in passes]
+                   + [fig["stream"]["launches_decode_replica"]])
+            for k in ("prefill", "decode")}
+
+        # the ring's counters, from both replicas' registries (flushed to
+        # the head every ~2 s): one write and one import per unary request
+        deadline = time.monotonic() + 30
+        while True:
+            chan = {k: v - counters_before[k]
+                    for k, v in _pd_counters().items()}
+            if chan["kv_writes"] >= n_unary and \
+                    chan["kv_imports"] >= n_unary:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"4i ring counters {chan}")
+            time.sleep(0.5)
+        if chan["kv_writes"] != n_unary or chan["kv_imports"] != n_unary:
+            raise AssertionError(f"4i ring counters {chan} for {n_unary} "
+                                 f"unary requests")
+        fig["ring"] = {**chan, "wait_cid_results": n_unary,
+                       "unary_requests": n_unary}
+
+        # teardown: both leases back, no PD worker left, the store at its
+        # count before the deploy
+        proxies = [p["actor"] for p in rt.get(ctrl.get_proxies.remote(),
+                                              timeout=60)]
+        actors = []
+        for dep in ("openai-router", f"pd:{model_id}"):
+            _v, a = rt.get(ctrl.get_replicas.remote("llm", dep), timeout=60)
+            actors += a
+        pids = [rt.get(a._exec(lambda _i: os.getpid()), timeout=60)
+                for a in [ctrl, *reps.values(), *actors, *proxies]]
+        if len(set(pids)) != 6:
+            raise AssertionError(f"4i Serve workers {pids}")
+        del actors, proxies, reps, ctrl
+        t2 = time.perf_counter()
+        serve.shutdown()
+        fig["shutdown_s"] = time.perf_counter() - t2
+
+        def alive(pid):
+            try:
+                with open(f"/proc/{pid}/stat") as f:
+                    return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+            except OSError:
+                return False
+
+        deadline = time.monotonic() + 60
+        while (any(alive(p) for p in pids) or
+               rt.available_resources().get("GPU") != 2.0):
+            if time.monotonic() > deadline:
+                raise AssertionError(
+                    f"4i after shutdown: workers {[p for p in pids if alive(p)]}"
+                    f" alive, {rt.available_resources()}")
+            time.sleep(0.1)
+        fig["gpu_available_after_shutdown"] = \
+            rt.available_resources().get("GPU")
+        gc.collect()
+        after = _settled(head_store.num_objects, objects_before, 30.0)
+        if after > objects_before:
+            raise AssertionError(f"4i: {after} objects in the store after "
+                                 f"shutdown, {objects_before} before")
+        fig["store_objects"] = [objects_before, after]
+    finally:
+        rt.shutdown()
+    deadline = time.monotonic() + 30
+    while _port_procs() and time.monotonic() < deadline:
+        time.sleep(0.2)
+    if _port_procs():
+        raise AssertionError(f"4i port workers left: {_port_procs()}")
     return fig
 
 
@@ -4072,7 +4548,12 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     t4g = time.perf_counter()
-    nodes = cluster(llama.llama3_8b(), greedy, **engine_8b)
+    mc_4g = llama.llama3_8b(n_layers=CLUSTER_LAYERS)
+    greedy_4g = _greedy_tokens(mc_4g, "cuda", **engine_8b)
+    gc.collect()
+    torch.cuda.empty_cache()
+    nodes = cluster(mc_4g, greedy_4g, **engine_8b)
+    nodes["depth"] = CLUSTER_DEPTH_CUT
     nodes["phase_s"] = time.perf_counter() - t4g
     print("cluster: " + json.dumps(nodes), flush=True)
     gc.collect()
@@ -4081,6 +4562,12 @@ def main():
     fronted = serve_cluster(llama.llama3_8b(), greedy, **engine_8b)
     fronted["phase_s"] = time.perf_counter() - t4h
     print("serve_cluster: " + json.dumps(fronted), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t4i = time.perf_counter()
+    disagg = serve_pd(llama.llama3_8b(), greedy, **engine_8b)
+    disagg["phase_s"] = time.perf_counter() - t4i
+    print("serve_pd: " + json.dumps(disagg), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     agreement(_small_model())
@@ -4119,6 +4606,10 @@ def main():
         # stream and the gRPC call
         "launches_serve_cluster": fronted["launches"],
         "launches_serve_cluster_by_family": fronted["launches_by_family"],
+        # inside phase 4i's prefill and decode replicas (both HTTP passes
+        # over the KV ring and the SSE stream over the ref path)
+        "launches_pd_prefill_by_family": disagg["launches_prefill_by_family"],
+        "launches_pd_decode_by_family": disagg["launches_decode_by_family"],
         "max_abs_err": max(r["max_abs_err"] for r in records),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

@@ -643,6 +643,12 @@ class WorkerRuntime:
 
     def create_actor(self, spec: ActorSpec):
         self.send({"t": "create_actor", "spec": spec})
+        # the handle can leave this process through the store before the
+        # head has read that frame (a get wakes on a seal, not on the
+        # head's tables); a call from another process would then meet
+        # an unknown actor. The head answers an rpc only after every
+        # frame sent before it, so its reply means the actor is known.
+        self._rpc("cluster_resources")
 
     def submit_actor_task_spec(self, spec: TaskSpec):
         spec.owner = self.wid

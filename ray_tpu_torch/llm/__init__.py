@@ -27,9 +27,14 @@ telemetry (``telemetry.py``):
 The paged engine also serves many LoRA tenants from one slot table
 (``multilora/``, adapters in ``lora.py``), spills evicted prefix pages
 to a host tier (``tiering.py``) and exports and imports KV payloads
-(PD and cross-engine prefixes). Cluster Serve and the HTTP route,
-the Dataset stages of batch inference, mesh serving and the PD
-deployment over channels are not ported yet.
+(PD and cross-engine prefixes). ``build_openai_app`` and
+``build_llm_deployment`` also run under cluster Serve
+(``serve.run(app, http_port=...)`` over the port's runtime), and
+``pd_disagg.py`` serves prefill and decode from separate replica
+groups (``build_pd_openai_app``, ``build_pd_proxy``; imported from the
+module, as the reference exports no PD names here). The Dataset stages
+of batch inference, mesh serving and the adapter registry's clustered
+store are not ported yet.
 """
 from .batch import LLMPredictor
 from .engine import EngineConfig, InferenceEngine, SamplingParams

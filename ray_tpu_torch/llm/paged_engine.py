@@ -489,7 +489,8 @@ class PagedInferenceEngine(_EngineBase):
 
     # -- public API --------------------------------------------------------
 
-    def warmup(self, sample_modes=((False, False),)) -> float:
+    def warmup(self, sample_modes=((False, False),),
+               families=("prefill", "decode", "verify")) -> float:
         """Build every program this engine dispatches before serving
         traffic; returns seconds. The reference compiles them here, as
         vLLM captures its execution graphs at engine start.
@@ -504,12 +505,15 @@ class PagedInferenceEngine(_EngineBase):
         once. Each is booked in the step profiler through
         ``record_compile`` at the reference's key. Dummy dispatches carry
         zero block tables and zero true lengths: every write routes to
-        sink page 0 and no visible engine state changes."""
+        sink page 0 and no visible engine state changes. ``families``
+        narrows the set for replicas that only ever run one side (a P/D
+        prefill replica never decodes; a decode replica never
+        prefills)."""
         t0 = time.perf_counter()
         if self.device.type == "cuda":
             from ..ops import _build
             _build.load("ragged_paged_attention")
-        for kind, key in self._warmup_keys(sample_modes):
+        for kind, key in self._warmup_keys(sample_modes, families):
             tw = time.perf_counter()
             self._run((kind, key), *self._dummy(kind, key))
             self.profiler.record_compile(time.perf_counter() - tw, kind, key)
@@ -517,9 +521,10 @@ class PagedInferenceEngine(_EngineBase):
             torch.cuda.synchronize(self.device)
         return time.perf_counter() - t0
 
-    def _warmup_keys(self, sample_modes) -> list:
-        """(family, static key) of every program warmup builds, in the
-        reference's order."""
+    def _warmup_keys(self, sample_modes,
+                     families=("prefill", "decode", "verify")) -> list:
+        """(family, static key) of every program warmup builds for
+        ``families``, in the reference's order."""
         cfg = self.cfg
         modes = [tuple(m) + (False,) * (3 - len(m)) for m in sample_modes]
         buckets = self._page_bucket_ladder()
@@ -534,11 +539,13 @@ class PagedInferenceEngine(_EngineBase):
                 rb <<= 1
         keys = []
         for mode in modes:
-            keys += [("prefill", (rb, mode, maxp)) for maxp in buckets
-                     for rb in rows(cfg.prefill_rows)]
-            keys += [("decode", (w, mode, maxp)) for maxp in buckets
-                     for w in sorted({1, cfg.decode_window})]
-        if cfg.spec_tokens > 0:
+            if "prefill" in families:
+                keys += [("prefill", (rb, mode, maxp)) for maxp in buckets
+                         for rb in rows(cfg.prefill_rows)]
+            if "decode" in families:
+                keys += [("decode", (w, mode, maxp)) for maxp in buckets
+                         for w in sorted({1, cfg.decode_window})]
+        if cfg.spec_tokens > 0 and "verify" in families:
             keys += [("verify", (rb, cfg.spec_tokens + 1, maxp, False))
                      for maxp in buckets for rb in rows(cfg.max_batch_size)]
         return keys

@@ -95,12 +95,17 @@ class LLMConfig:
     warmup_sampled: bool = False
 
     def __post_init__(self):
-        n = self.gpus_per_replica
-        if isinstance(n, bool) or not float(n).is_integer() or n < 0:
-            raise ValueError(
-                f"gpus_per_replica must be a whole number of devices >= 0, "
-                f"got {n!r}")
-        self.gpus_per_replica = int(n)
+        self.gpus_per_replica = whole_gpus(self.gpus_per_replica)
+
+
+def whole_gpus(n) -> int:
+    """A replica's ``gpus_per_replica`` as an int; ValueError unless it
+    is a whole number of devices >= 0 (leases are whole devices)."""
+    if isinstance(n, bool) or not float(n).is_integer() or n < 0:
+        raise ValueError(
+            f"gpus_per_replica must be a whole number of devices >= 0, "
+            f"got {n!r}")
+    return int(n)
 
 
 def _to_device(tree, device):

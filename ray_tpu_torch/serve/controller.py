@@ -502,6 +502,25 @@ class ServeController:
             except Exception:
                 pass  # replica dying; reconcile replaces then re-pairs
 
+    async def _close_pd_rings(self, app: str, states: dict) -> None:
+        """Close the KV ring of every prefill replica _pair_pd_roles
+        paired, before the application's replicas are killed: the
+        sentinel retires the decode replica's drain thread, which sweeps
+        the ring, and close_kv_channel returns once it has. Killed with
+        their rings open, the pair would leave the ring's trailing acks
+        in the store."""
+        paired = self._pd_paired.pop(app, set())
+        closes = [r.handle_request.remote("close_kv_channel", (), {}, None)
+                  for st in states.values()
+                  if getattr(st.spec, "role", None) == "prefill"
+                  for r in st.replicas
+                  if (getattr(r, "_actor_id", None) or id(r)) in paired]
+        for ref in closes:
+            try:
+                await asyncio.wait_for(ref, timeout=60)
+            except Exception:
+                pass  # replica dying: nothing left to close
+
     async def _scale_to_target(self, st: _DeploymentState):
         while len(st.replicas) < st.target:
             await self._start_replica(st)
@@ -622,6 +641,7 @@ class ServeController:
         self._publish_routes()
         if not states:
             return
+        await self._close_pd_rings(app, states)
         for st in states.values():
             for r in st.replicas:
                 try:

@@ -55,6 +55,7 @@ def test_port_modules_load_no_jax_and_no_ray_tpu():
                  "ray_tpu_torch.llm.chainstats",
                  "ray_tpu_torch.llm.tokenizer",
                  "ray_tpu_torch.llm.serving", "ray_tpu_torch.llm.openai_api",
+                 "ray_tpu_torch.llm.pd_disagg",
                  "ray_tpu_torch.llm.telemetry", "ray_tpu_torch.core.config",
                  "ray_tpu_torch.core.flight", "ray_tpu_torch.util.metrics",
                  "ray_tpu_torch.util.tracing",

@@ -239,6 +239,42 @@ def test_actor_handle_passing(rt):
     assert rt.get(s.get.remote("k"), timeout=60) == 42
 
 
+def test_actor_made_in_a_worker_is_known_before_its_handle_leaves(rt):
+    """An actor created inside a task is registered at the head before
+    ``.remote()`` returns there: its handle can leave through the store
+    (a get wakes on the result's seal, not on the head's bookkeeping),
+    and a call from the driver must find it even when the head reads
+    the creation frame late (here: registration waits one second with
+    the runtime's lock released, as a busy receive thread would)."""
+    from ray_tpu_torch.core import runtime as rt_mod
+    head = rt_mod.get_runtime_if_exists()
+    orig = head._create_actor_locked
+
+    def late(spec):
+        head.lock.release()
+        try:
+            time.sleep(1.0)
+        finally:
+            head.lock.acquire()
+        return orig(spec)
+
+    @rt.remote
+    class Echo:
+        def ping(self):
+            return "pong"
+
+    @rt.remote(num_cpus=0)
+    def make():
+        return [Echo.remote()]
+
+    head._create_actor_locked = late
+    try:
+        (h,) = rt.get(make.remote(), timeout=60)
+        assert rt.get(h.ping.remote(), timeout=60) == "pong"
+    finally:
+        head._create_actor_locked = orig
+
+
 def test_kill_actor(rt):
     @rt.remote
     class A:
