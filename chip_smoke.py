@@ -279,14 +279,49 @@ dag (in 4f and again in 4g, on their 8B actor after its mix and before
    store holds as many objects as before the deploy; after the
    runtime's shutdown no worker of the port is left. Prints one
    serve_cluster: line with the card and its power limit.
+4j. serve_lora: multi-LoRA across processes, inside 4h's runtime and
+   behind its proxy, after 4h's app is deleted (its replica and router
+   gone, the GPU back) and before 4h's serve.shutdown(). The app is
+   build_openai_app's over one LLM deployment of Llama-3-8B at full
+   width (seed-0 weights made in the replica, phase 4's engine settings,
+   the default warmup, gpus_per_replica=1) with phase 4d's slot table:
+   3 adapter slots of rank 8 on wq/wk/wv/wo/lm_head, lora_namespace set;
+   its class a recording subclass (4h's counts, plus every adapter
+   resolve at admission and the engine's build and warmup seconds). The
+   driver publishes 4d's three adapters (seeds 1-3; seed 2's factors as
+   tensors on the card) through AdapterRegistry: payloads into the
+   head's store, versions into the head's directory. Counts set to 0,
+   each tenant's greedy request of 4d goes as "<model>:tenant-<s>" with
+   phase 4's first greedy request as base, at once over HTTP: each
+   tenant's tokens must equal 4d's bit for bit, the base request's phase
+   4's, and every tenant's first resolve must have loaded its v0. Then
+   the driver publishes seed 3's adapter as v1 of tenant-1 and, after
+   the refresh window (cfg.llm_lora_refresh_s + 0.1 s), sends tenant 3's
+   prompt under tenant-1's id: its tokens must be 4d's tenant-3 tokens,
+   served by the same replica process, its resolve loading v1. A
+   request naming an adapter never published must get a 400 with
+   {"error": "invalid_request"} naming it. The counts, read then, must
+   show the ragged kernel launched in both families inside the replica.
+   After serve.delete the replica and router are gone and the GPU is
+   back; after 4h's serve.shutdown() (until then the front door's
+   handles keep the failed long polls of deleted apps in the store) the
+   head's store holds its count before 4h's deploy plus exactly the 4
+   registry payloads inside the keep window (listed, then deleted
+   before 4h's own count). Prints one serve_lora: line: deploy and
+   ready seconds, the replica's build and warmup seconds and programs,
+   publish ms in the driver, resolve-to-slot-loaded ms in the replica
+   (first use and the swap), payload MiB per adapter, tokens/s and TTFT
+   of the tenant pass, the refresh lag seen, with the card and its
+   power limit.
 4i. serve_pd: prefill/decode disaggregation under Serve, in a runtime
    session of its own: ray_tpu_torch.init(num_cpus=4, num_gpus=1) and a
    second node of one GPU sharing the head's store
    (cluster_utils.Cluster().add_node(num_gpus=1)); each node's lease is
    index 0 of the one card, so the two replicas share it. The app is
    build_pd_openai_app's (the OpenAI router over PDServer over one
-   prefill and one decode replica of Llama-3-8B at full width, phase 4's
-   engine settings, seed-0 weights made in each replica,
+   prefill and one decode replica of Llama-3-8B's widths with the depth
+   cut to 8 of 32 layers, as 4g's, phase 4's engine settings, seed-0
+   weights made in each replica,
    use_channels=True, gpus_per_replica=1), its replica classes recording
    subclasses (reset() and counts(): the ragged kernel's launches by
    family in each replica's process, the prefill side's exports with
@@ -303,8 +338,9 @@ dag (in 4f and again in 4g, on their 8B actor after its mix and before
    unary POST /llm/v1/completions (the KV payloads over the sealed ring,
    the results through wait_cid), then its first greedy request once
    with "stream": true (prefill_ref, then decode_stream): every greedy
-   request's tokens, read in the decode replica, equal phase 4's
-   captured run bit for bit, the stream's text joins to the pass's, and
+   request's tokens, read in the decode replica, equal 4g's reference
+   tokens (one captured engine of the same 8-layer model) bit for bit,
+   the stream's text joins to the pass's, and
    in each of the three steps (counts set to 0 just before, read just
    after) the ragged kernel launched in prefill only in the prefill
    replica and in decode only in the decode replica. The ring's counters
@@ -322,8 +358,9 @@ dag (in 4f and again in 4g, on their 8B actor after its mix and before
    the card and on the CPU gives identical greedy tokens; the f32
    forward kernel's launches are counted as in phase 7.
 
-Phases run in the order 1, 2, 3, 3c, 3b, 4, 4b, 4c, 4d, 4e, 4f, 4g, 4h, 4i,
-5, 5b, 6, 7, and the total seconds are printed before the kernels' record.
+Phases run in the order 1, 2, 3, 3c, 3b, 4, 4b, 4c, 4d, 4e, 4f, 4g, 4h,
+4j, 4i, 5, 5b, 6, 7, and the total seconds are printed before the
+kernels' record.
 The
 second-to-last line is the card from nvidia-smi, the one before it the
 kernels' JSON record, and the last line {"ok": true, "device": ...}.
@@ -929,6 +966,10 @@ SERVE_BUCKETS = (32, 64, 128, 256, 512, 1024)
 CLUSTER_LAYERS = 8
 CLUSTER_DEPTH_CUT = ("8 of 32 layers: 4g holds transport, not depth; its "
                      "greedy tokens come from one engine at that depth")
+# phase 4i at 4g's depth, against 4g's reference tokens, to keep the
+# smoke's time with 4j beside it
+PD_DEPTH_CUT = ("8 of 32 layers: 4i holds the KV handoff between two "
+                "replicas, not depth; its greedy tokens are 4g's reference")
 
 
 def _flash_inputs(b, sq, sk, h, kvh, d, dtype, seed):
@@ -1721,6 +1762,28 @@ def _dag_run(rt, cdag, host, bodies: list, parts: list, greedy: dict,
             "programs_after": counts["programs"]}
 
 
+def _alive(pid: int) -> bool:
+    """The process lives and is not a zombie."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def _await_gone(rt, pids: list, gpus: float, label: str) -> None:
+    """Wait (60 s at most) until no process of ``pids`` lives and the
+    runtime has ``gpus`` GPUs available again."""
+    deadline = time.monotonic() + 60
+    while (any(_alive(p) for p in pids) or
+           rt.available_resources().get("GPU") != gpus):
+        if time.monotonic() > deadline:
+            raise AssertionError(
+                f"{label}: workers {[p for p in pids if _alive(p)]}"
+                f" alive, {rt.available_resources()}")
+        time.sleep(0.1)
+
+
 def _settled(read, want: int, timeout_s: float = 15.0) -> int:
     """Poll `read()` until it is at most `want`; return the last value
     (the caller compares it)."""
@@ -2355,17 +2418,18 @@ def _http_post(port: int, path: str, body: dict, timeout: float = 900):
         return r.status, r.headers.get("Content-Type", ""), r.read()
 
 
-def _http_mix(port: int, bodies: list, label: str = "4h") -> tuple:
-    """Every body at once, one thread each, to /llm/v1/completions; every
-    response must be a 200 and a well-formed text_completion. Returns
-    (responses in order, wall seconds)."""
+def _http_mix(port: int, bodies: list, label: str = "4h",
+              app: str = "llm") -> tuple:
+    """Every body at once, one thread each, to /<app>/v1/completions;
+    every response must be a 200 and a well-formed text_completion.
+    Returns (responses in order, wall seconds)."""
     import threading
     out = [None] * len(bodies)
     errors = []
 
     def send(i):
         try:
-            code, _ct, raw = _http_post(port, "llm/v1/completions",
+            code, _ct, raw = _http_post(port, f"{app}/v1/completions",
                                         bodies[i])
             out[i] = (code, json.loads(raw))
         except Exception as e:  # noqa: BLE001 — re-raised below
@@ -2413,7 +2477,7 @@ def _greedy_checked(served: list, bodies: list, greedy: dict,
     return got
 
 
-def serve_cluster(model_cfg, greedy: dict, device="cuda",
+def serve_cluster(model_cfg, greedy: dict, device="cuda", tenants=None,
                   **engine_kw) -> dict:
     """Phase 4h (also rehearsed on the CPU at tiny size, on a fake GPU):
     Serve over the port's runtime. ``build_openai_app``'s app (the
@@ -2423,7 +2487,10 @@ def serve_cluster(model_cfg, greedy: dict, device="cuda",
     name="llm", http_port=<free>, num_proxies=1)``; phase 4's seed-0 mix
     twice over HTTP to the proxy, then one SSE stream and one gRPC call.
     ``greedy`` maps phase 4's greedy prompts to the captured run's
-    tokens. Returns the figures; raises on any failure."""
+    tokens. With ``tenants`` (phase 4d's ``tenant_greedy``), phase 4j
+    (``serve_lora``) runs behind the same proxy once 4h's app is
+    deleted; its figures are the result's ``"lora"``. Returns the
+    figures; raises on any failure."""
     import socket
 
     import ray_tpu_torch as rt
@@ -2643,29 +2710,38 @@ def serve_cluster(model_cfg, greedy: dict, device="cuda",
         if len(set(pids)) != 5:
             raise AssertionError(f"4h Serve workers {pids}")
         del actors, proxies, _gp, replica, ctrl
+        lora_oids = []
+        if tenants is not None:
+            # phase 4j in this runtime and behind this proxy, once 4h's
+            # app is deleted: its replica and router gone, the lease back
+            serve.delete("llm")
+            _await_gone(rt, pids[1:3], 1.0, "4h app deleted")
+            fig["lora"], lora_oids = serve_lora(
+                model_cfg, port, tenants, first,
+                greedy[tuple(first["prompt"])], head_store, device,
+                **engine_kw)
         t2 = time.perf_counter()
         serve.shutdown()
         fig["shutdown_s"] = time.perf_counter() - t2
-
-        def alive(pid):
-            try:
-                with open(f"/proc/{pid}/stat") as f:
-                    return f.read().rsplit(")", 1)[1].split()[0] != "Z"
-            except OSError:
-                return False
-
-        deadline = time.monotonic() + 60
-        while (any(alive(p) for p in pids) or
-               rt.available_resources().get("GPU") != 1.0):
-            if time.monotonic() > deadline:
-                raise AssertionError(
-                    f"4h after shutdown: workers {[p for p in pids if alive(p)]}"
-                    f" alive, {rt.available_resources()}")
-            time.sleep(0.1)
+        _await_gone(rt, pids, 1.0, "4h after shutdown")
         fig["gpu_available_after_shutdown"] = \
             rt.available_resources().get("GPU")
         gc.collect()
-        after = _settled(head_store.num_objects, objects_before, 30.0)
+        want = objects_before + len(lora_oids)
+        after = _settled(head_store.num_objects, want, 30.0)
+        if lora_oids:
+            # 4j: exactly its registry payloads inside the keep window
+            # are left; the registry has no unpublish, so drop them here
+            if after != want or \
+                    not all(head_store.contains(o) for o in lora_oids):
+                raise AssertionError(
+                    f"4j: {after} objects in the store after the shutdown, "
+                    f"{objects_before} before the deploy and "
+                    f"{len(lora_oids)} registry payloads")
+            fig["lora"]["store_objects"] = [objects_before, after]
+            for o in lora_oids:
+                head_store.delete(o)
+            after = _settled(head_store.num_objects, objects_before, 30.0)
         if after > objects_before:
             raise AssertionError(f"4h: {after} objects in the store after "
                                  f"shutdown, {objects_before} before")
@@ -2678,6 +2754,249 @@ def serve_cluster(model_cfg, greedy: dict, device="cuda",
     if _port_procs():
         raise AssertionError(f"4h port workers left: {_port_procs()}")
     return fig
+
+
+def _recording_lora_server():
+    """The deployment class of phase 4j: 4h's recording LLMServer plus
+    the engine's build and warmup seconds and a record of every adapter
+    resolve at admission (adapter id, version, slot, whether it loaded
+    the slot, its ms and wall time)."""
+    Base = _recording_server()
+
+    class RecordingLoraServer(Base):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            mgr = self._multilora
+            resolve = mgr.resolve
+            self._resolves = []
+
+            def timed(adapter_id, *a, **kw):
+                loads = mgr.stats["loads"]
+                t0 = time.perf_counter()
+                slot, version, salt = resolve(adapter_id, *a, **kw)
+                self._resolves.append({
+                    "adapter": adapter_id, "version": version, "slot": slot,
+                    "loaded": mgr.stats["loads"] > loads,
+                    "ms": 1e3 * (time.perf_counter() - t0),
+                    "at": time.time()})
+                return slot, version, salt
+            mgr.resolve = timed
+
+        def _build_engine(self, params):
+            t0 = time.perf_counter()
+            eng = super()._build_engine(params)
+            self.build_s = time.perf_counter() - t0
+            return eng
+
+        def lora_info(self):
+            return {"resolves": list(self._resolves),
+                    "stats": dict(self._multilora.stats),
+                    "build_s": self.build_s,
+                    "refresh_s": self._multilora.refresh_s}
+
+    return RecordingLoraServer
+
+
+def serve_lora(model_cfg, port: int, tenants: list, base_body: dict,
+               base_tokens: list, head_store, device="cuda",
+               **engine_kw) -> dict:
+    """Phase 4j (also rehearsed on the CPU at tiny size, on a fake GPU),
+    inside 4h's runtime and behind its proxy on ``port``: multi-LoRA
+    across processes. ``build_openai_app``'s app over one LLM deployment
+    with phase 4d's slot table (3 adapter slots of rank 8 on
+    wq/wk/wv/wo/lm_head, ``lora_namespace`` set), phase 4's engine
+    settings, seed-0 weights made in the replica, ``gpus_per_replica=1``,
+    its class the recording subclass. The driver publishes 4d's three
+    adapters (seeds 1-3; seed 2's factors as tensors on the card) through
+    ``AdapterRegistry`` and sends each tenant's greedy request of 4d
+    (``tenants``: prompt, sampling, tokens) as ``"<model>:tenant-<s>"``
+    beside phase 4's first greedy request as base, at once over HTTP;
+    then publishes seed 3's adapter as v1 of tenant-1 and, after the
+    refresh window, sends tenant 3's prompt under tenant-1's id; then an
+    adapter never published. Returns the figures and the ids of the
+    registry payloads left in the head's store (the caller counts the
+    store once Serve is shut down: until then the front door's handles
+    keep the failed long polls of deleted apps there); raises on any
+    failure."""
+    import urllib.error
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.dag.channel import slot_oid
+    from ray_tpu_torch.llm import (LLMConfig, PagedEngineConfig,
+                                   build_openai_app, lora)
+    from ray_tpu_torch.llm.multilora import AdapterRegistry
+    from ray_tpu_torch.llm.multilora.registry import _adapter_base
+    from ray_tpu_torch.serve.api import CONTROLLER_NAME
+    t_phase = time.perf_counter()
+    cuda = torch.device(device).type == "cuda"
+    model_id, ns, app_name = "llama3-8b", "llama3-8b-tenants", "lora"
+    fig = {"card": _card() if cuda else "cpu"}
+    by_seed = {t["seed"]: t for t in tenants}
+    if sorted(by_seed) != [1, 2, 3]:
+        raise AssertionError(f"4j: 4d gave tenants {sorted(by_seed)}")
+    adapters = {s: lora.random_adapter(s, model_cfg, rank=TENANT_RANK,
+                                       alpha=2.0 * TENANT_RANK,
+                                       targets=TENANT_TARGETS)
+                for s in (1, 2, 3)}
+    # seed 2 published from the card: the store keeps its host copy
+    adapters[2] = {k: (torch.from_numpy(v).to(device)
+                       if k.endswith((".A", ".B")) else v)
+                   for k, v in adapters[2].items()}
+    fig["payload_mib"] = {
+        f"seed-{s}": sum(v.nbytes if isinstance(v, np.ndarray) else
+                         v.numel() * v.element_size()
+                         for k, v in ad.items()
+                         if k.endswith((".A", ".B"))) / 2 ** 20
+        for s, ad in adapters.items()}
+    def body(seed, name=None):
+        t = by_seed[seed]
+        return {"model": f"{model_id}:{name or f'tenant-{seed}'}",
+                "prompt": t["prompt"], "max_tokens": t["max_tokens"],
+                "temperature": 0.0, "logprobs": t["logprobs"]}
+
+    app = build_openai_app([LLMConfig(
+        model_id=model_id, gpus_per_replica=1, warmup=True,
+        lora_namespace=ns,
+        engine=PagedEngineConfig(model=model_cfg, max_adapters=4,
+                                 lora_rank=TENANT_RANK,
+                                 lora_targets=TENANT_TARGETS, **engine_kw))],
+        device=device)
+    (child,) = app.ingress.children()
+    child.spec = dataclasses.replace(child.spec,
+                                     func_or_class=_recording_lora_server())
+    t1 = time.perf_counter()
+    serve.run(app, name=app_name)
+    fig["deploy_s"] = time.perf_counter() - t1
+    ctrl = rt.get_actor(CONTROLLER_NAME)
+    _v, (replica,) = rt.get(ctrl.get_replicas.remote(
+        app_name, f"llm:{model_id}"), timeout=60)
+    _v, routers = rt.get(ctrl.get_replicas.remote(app_name, "openai-router"),
+                         timeout=60)
+
+    def call(method, *args):
+        return rt.get(replica.handle_request.remote(
+            method, args, {}, None), timeout=900)
+
+    if not rt.get(replica.health_check.remote(), timeout=900):
+        raise AssertionError("4j replica health check failed")
+    fig["ready_s"] = time.perf_counter() - t1
+    info, lora_info = call("counts"), call("lora_info")
+    fig.update({"replica_server_s": info["server_s"],
+                "replica_build_and_warmup_s": lora_info["build_s"],
+                "programs_after_warmup": info["programs"]})
+    if info["visible"] != "0" or info["banned"] or \
+            (cuda and info["device"] != "cuda:0"):
+        raise AssertionError(f"4j replica: {info}")
+    time.sleep(0.5)
+    if rt.available_resources().get("GPU") != 0.0:
+        raise AssertionError(f"4j: GPU available while the replica holds "
+                             f"it: {rt.available_resources()}")
+
+    # the driver publishes: v0 of each tenant
+    reg = AdapterRegistry(ns)
+    publish_ms = {}
+    for s in (1, 2, 3):
+        tp = time.perf_counter()
+        if reg.publish(f"tenant-{s}", adapters[s]) != 0:
+            raise AssertionError(f"4j: tenant-{s} published past v0")
+        publish_ms[f"tenant-{s}"] = 1e3 * (time.perf_counter() - tp)
+
+    call("reset")                                   # main path starts here
+    bodies = [body(s) for s in (1, 2, 3)] + [dict(base_body, model=model_id)]
+    want = [by_seed[s]["tokens"] for s in (1, 2, 3)] + [base_tokens]
+    _resps, wall = _http_mix(port, bodies, "4j tenants", app=app_name)
+    counts = call("counts")
+    got = {tuple(p): (ids, ttft) for p, ids, ttft in counts["served"]}
+    if len(counts["served"]) != len(bodies):
+        raise AssertionError(f"4j: {len(counts['served'])} results for "
+                             f"{len(bodies)} requests")
+    for name, b, w in zip(("tenant-1", "tenant-2", "tenant-3", "base"),
+                          bodies, want):
+        if got[tuple(b["prompt"])][0] != w:
+            raise AssertionError(f"4j {name}: replica "
+                                 f"{got[tuple(b['prompt'])][0]} != 4d / "
+                                 f"phase 4 {w}")
+    fig["tenant_pass"] = {
+        "requests": len(bodies), "wall_s": wall,
+        "tokens_per_s": sum(len(ids) for ids, _ in got.values()) / wall,
+        "ttft_s": {name: got[tuple(b["prompt"])][1] for name, b in
+                   zip(("tenant-1", "tenant-2", "tenant-3", "base"),
+                       bodies)},
+        "equal_4d_and_phase4": len(bodies)}
+    first_use = {r["adapter"]: r for r in call("lora_info")["resolves"]}
+    if sorted(first_use) != ["tenant-1", "tenant-2", "tenant-3"] or \
+            not all(r["loaded"] and r["version"] == 0
+                    for r in first_use.values()):
+        raise AssertionError(f"4j first use: {first_use}")
+    prev = counts
+
+    # hot swap: seed 3's adapter as v1 of tenant-1, no redeploy
+    t_pub = time.time()
+    tp = time.perf_counter()
+    if reg.publish("tenant-1", adapters[3]) != 1:
+        raise AssertionError("4j: the swap did not publish v1")
+    publish_ms["tenant-1 v1"] = 1e3 * (time.perf_counter() - tp)
+    time.sleep(lora_info["refresh_s"] + 0.1)
+    swap = body(3, name="tenant-1")
+    _resps, swap_wall = _http_mix(port, [swap], "4j swap", app=app_name)
+    counts = call("counts")
+    served = counts["served"][len(prev["served"]):]
+    if [ids for _p, ids, _t in served] != [by_seed[3]["tokens"]]:
+        raise AssertionError(f"4j swap: {served} != 4d's tenant-3 tokens "
+                             f"{by_seed[3]['tokens']}")
+    if counts["pid"] != info["pid"]:
+        raise AssertionError("4j: the replica changed across the swap")
+    lora_info = call("lora_info")
+    swapped = [r for r in lora_info["resolves"]
+               if r["adapter"] == "tenant-1" and r["version"] == 1]
+    if not swapped or not swapped[0]["loaded"]:
+        raise AssertionError(f"4j swap resolves: {lora_info['resolves']}")
+    fig["swap"] = {"wall_s": swap_wall, "ttft_s": served[0][2],
+                   "refresh_lag_s": swapped[0]["at"] - t_pub,
+                   "refresh_s": lora_info["refresh_s"]}
+    fig["publish_ms"] = publish_ms
+    fig["resolve_to_slot_loaded_ms"] = {
+        **{aid: r["ms"] for aid, r in first_use.items()},
+        "tenant-1 v1": swapped[0]["ms"]}
+    fig["manager_stats"] = lora_info["stats"]
+
+    # an adapter never published: a typed error, neither a hang nor a 500
+    try:
+        _http_post(port, f"{app_name}/v1/completions",
+                   body(1, name="never-published"), timeout=120)
+        raise AssertionError("4j: an unknown adapter was served")
+    except urllib.error.HTTPError as e:
+        detail = json.loads(e.read())
+        if e.code != 400 or detail.get("error") != "invalid_request" or \
+                "never-published" not in detail.get("detail", ""):
+            raise AssertionError(f"4j unknown adapter: {e.code} {detail}")
+        fig["unknown_adapter"] = {"status": e.code, **detail}
+    counts = call("counts")                         # main path ends here
+    fig["launches"] = counts["launches"]
+    fig["launches_by_family"] = counts["launches_by_family"]
+    if cuda and (min(counts["launches_by_family"].values()) <= 0 or
+                 counts["launches"] != sum(
+                     counts["launches_by_family"].values())):
+        raise AssertionError(f"4j: B1 launches {counts['launches']} by "
+                             f"family {counts['launches_by_family']}")
+
+    # teardown: the app deleted, its workers gone and the lease back, the
+    # registry payloads inside the keep window still in the head's store
+    pids = [rt.get(a._exec(lambda _i: os.getpid()), timeout=60)
+            for a in [replica, *routers]]
+    del replica, routers, ctrl
+    serve.delete(app_name)
+    _await_gone(rt, pids, 1.0, "4j app deleted")
+    fig["gpu_available_after_delete"] = rt.available_resources().get("GPU")
+    kept = [(f"tenant-{s}", 0) for s in (1, 2, 3)] + [("tenant-1", 1)]
+    oids = [slot_oid(_adapter_base(ns, aid), v) for aid, v in kept]
+    if not all(head_store.contains(o) for o in oids):
+        raise AssertionError("4j: a registry payload inside the keep "
+                             "window is gone")
+    fig["registry_payloads"] = [f"{aid} v{v}" for aid, v in kept]
+    fig["phase_s"] = time.perf_counter() - t_phase
+    return fig, oids
 
 
 # -- phase 4i: prefill/decode disaggregation under Serve ----------------------
@@ -3057,22 +3376,7 @@ def serve_pd(model_cfg, greedy: dict, device="cuda", **engine_kw) -> dict:
         t2 = time.perf_counter()
         serve.shutdown()
         fig["shutdown_s"] = time.perf_counter() - t2
-
-        def alive(pid):
-            try:
-                with open(f"/proc/{pid}/stat") as f:
-                    return f.read().rsplit(")", 1)[1].split()[0] != "Z"
-            except OSError:
-                return False
-
-        deadline = time.monotonic() + 60
-        while (any(alive(p) for p in pids) or
-               rt.available_resources().get("GPU") != 2.0):
-            if time.monotonic() > deadline:
-                raise AssertionError(
-                    f"4i after shutdown: workers {[p for p in pids if alive(p)]}"
-                    f" alive, {rt.available_resources()}")
-            time.sleep(0.1)
+        _await_gone(rt, pids, 2.0, "4i after shutdown")
         fig["gpu_available_after_shutdown"] = \
             rt.available_resources().get("GPU")
         gc.collect()
@@ -3805,7 +4109,14 @@ def tenants_and_kv(model_cfg, device, seed: int = 0, num_pages: int = 256,
     if [(c["k"].data_ptr(), c["v"].data_ptr()) for c in B.caches] != pools:
         raise AssertionError("an import rebound B's pools")
     graphs = A._graphs
+    # 4j's reference: each tenant's greedy request of wave 1 and its tokens
+    tenant_greedy = [{"seed": slot, "prompt": p, "max_tokens": sp.max_tokens,
+                      "logprobs": sp.logprobs, "tokens": toks}
+                     for (p, sp, slot, _salt), (toks, _lp)
+                     in zip(wave1, cap["outs"][0])
+                     if slot and sp.temperature <= 0]
     return {"launches": cap["launches"], "launches_by_family": cap["fam"],
+            "tenant_greedy": tenant_greedy,
             "tokens_per_s_by_wave": tps, "waves_s": cap["secs"],
             "warmup_s": cap["warm_s"],
             "programs": len(graphs) if graphs is not None else 0,
@@ -4524,6 +4835,7 @@ def main():
                              max_pages_per_seq=64, chunk_size=128,
                              prefill_rows=4, decode_window=8,
                              max_batch_size=8)
+    tenant_greedy = tenants.pop("tenant_greedy")   # phase 4j's reference
     print("tenants and kv: " + json.dumps(tenants), flush=True)
     if tenants["launches"] <= 0:
         raise AssertionError("the ragged kernel never launched in 4d")
@@ -4559,13 +4871,17 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     t4h = time.perf_counter()
-    fronted = serve_cluster(llama.llama3_8b(), greedy, **engine_8b)
+    fronted = serve_cluster(llama.llama3_8b(), greedy, tenants=tenant_greedy,
+                            **engine_8b)
     fronted["phase_s"] = time.perf_counter() - t4h
+    lora_served = fronted.pop("lora")
     print("serve_cluster: " + json.dumps(fronted), flush=True)
+    print("serve_lora: " + json.dumps(lora_served), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     t4i = time.perf_counter()
-    disagg = serve_pd(llama.llama3_8b(), greedy, **engine_8b)
+    disagg = serve_pd(mc_4g, greedy_4g, **engine_8b)
+    disagg["depth"] = PD_DEPTH_CUT
     disagg["phase_s"] = time.perf_counter() - t4i
     print("serve_pd: " + json.dumps(disagg), flush=True)
     gc.collect()
@@ -4606,6 +4922,9 @@ def main():
         # stream and the gRPC call
         "launches_serve_cluster": fronted["launches"],
         "launches_serve_cluster_by_family": fronted["launches_by_family"],
+        # inside phase 4j's LoRA replica: the tenant pass, the swap and
+        # the unknown adapter
+        "launches_serve_lora_by_family": lora_served["launches_by_family"],
         # inside phase 4i's prefill and decode replicas (both HTTP passes
         # over the KV ring and the SSE stream over the ref path)
         "launches_pd_prefill_by_family": disagg["launches_prefill_by_family"],

@@ -2,21 +2,38 @@
 (counterpart of ``ray_tpu/llm/multilora/registry.py``).
 
 Each (namespace, adapter_id) owns a DETERMINISTIC 12-byte id base;
-version v's payload seals under ``slot_oid(base, v)`` — one store put per
-publish, versions older than the keep window deleted (lazily safe: ids
-are never reused). Metadata per adapter — {"version", "rank", "alpha",
-"targets", "ts"} — answers "latest", so a serving replica resolves a
-version with one lookup and fetches the payload with one store get.
+version v's payload seals under ``slot_oid(base, v)`` — ONE objstore put
+per publish, versions older than the keep window deleted (lazily safe:
+ids are never reused, the channel invariant). Version discovery rides
+the head's shared directory service (``core/directory.py``
+``update``/``query`` — the existing dir_update/dir_query frames, no new
+wire frames): directory ``llm:lora:<namespace>`` maps adapter_id ->
+{"version", "rank", "alpha", "targets", "ts"}, so a serving replica
+resolves "latest" with one dir_query and fetches the payload with one
+store get.
 
-A fetch of a version the keep window already reclaimed raises KeyError
-and the caller re-resolves — by then the metadata names a newer version.
+Consistency: directory entries are HINTS (last-write-wins). A fetch of
+a version the keep window already reclaimed raises KeyError and the
+caller re-resolves — by then the directory names a newer version.
+Concurrent publishers of the SAME adapter_id race last-write-wins,
+exactly like any directory key; version numbers stay monotonic because
+each publisher bases v on the directory's current value. A publisher's
+dir_update is fire-and-forget but rides its connection in order ahead
+of its next dir_query, so back-to-back publishes from one process give
+consecutive versions.
 
-This is the reference's clusterless mode: payloads go to an in-process
-store shared by the module (or to the ``store`` a caller passes, with
-the objstore client's put/get/delete surface), and metadata to an
-in-process dict, so train -> publish -> serve loops run in one process.
-The clustered branch — the runtime's object store and the head's shared
-directory service — is not ported yet.
+The payload lives in the store of the publishing process's node and
+``fetch`` reads the LOCAL store: a consumer on a node with its own
+store (a node agent started with ``--own-store``) does not see a
+payload sealed in the head's store.
+
+A CUDA tensor in a published adapter is stored as its host copy
+(``core/object_store.py`` ``_reduce_tensor``), so consumers get CPU
+tensors; the slot table copies them onto the engine's device.
+
+Clusterless fallback: with no runtime (bare-engine tests, notebooks)
+the registry degrades to an in-process dict store with identical
+semantics, so train -> publish -> serve loops run anywhere.
 """
 from __future__ import annotations
 
@@ -32,16 +49,16 @@ _DIR_PREFIX = "llm:lora:"
 
 def _adapter_base(namespace: str, adapter_id: str) -> bytes:
     """Deterministic id base: publisher and consumers derive the same
-    slot ids with no coordination beyond the metadata entry."""
+    slot ids with no coordination beyond the directory entry."""
     return hashlib.blake2b(
         f"llm:lora:{namespace}:{adapter_id}".encode(),
         digest_size=12).digest()
 
 
 class _MemStore:
-    """In-process store: the put/get/delete surface of the objstore
-    client, module-shared so a trainer and an engine in one process see
-    each other's publishes."""
+    """In-process store shim (clusterless mode): the put/get/delete
+    surface of the objstore client, module-shared so a trainer and an
+    engine in one process see each other's publishes."""
 
     def __init__(self):
         self._d: dict = {}
@@ -64,7 +81,7 @@ class _MemStore:
 
 
 _mem_store = _MemStore()
-# version metadata, shared in-process
+# clusterless version metadata: directory analog, shared in-process
 _mem_meta: dict = {}
 _mem_lock = threading.Lock()
 
@@ -86,12 +103,25 @@ class AdapterRegistry:
     # -- plumbing --------------------------------------------------------
 
     def _resolve_store(self):
-        if self._store is None:
-            self._store = _mem_store
+        if self._store is not None:
+            return self._store
+        from ...core import runtime as rt_mod
+        rt = rt_mod.get_runtime_if_exists()
+        store = getattr(rt, "store", None) if rt is not None else None
+        self._store = store if store is not None else _mem_store
         return self._store
 
+    def _clustered(self) -> bool:
+        return self._resolve_store() is not _mem_store
+
     def _meta_lookup(self, adapter_id: Optional[str] = None) -> dict:
-        """{adapter_id: meta} from the in-process metadata dict."""
+        """{adapter_id: meta} from the directory (or the local dict)."""
+        if self._clustered():
+            from ...core import directory as cdir
+            got = cdir.query(self.dir_name,
+                             keys=None if adapter_id is None
+                             else [adapter_id])
+            return (got or {}).get("entries") or {}
         with _mem_lock:
             d = _mem_meta.get(self.dir_name, {})
             if adapter_id is None:
@@ -100,14 +130,18 @@ class AdapterRegistry:
                     if adapter_id in d else {})
 
     def _meta_publish(self, adapter_id: str, meta: dict) -> None:
-        with _mem_lock:
-            _mem_meta.setdefault(self.dir_name, {})[adapter_id] = meta
+        if self._clustered():
+            from ...core import directory as cdir
+            cdir.update(self.dir_name, put={adapter_id: meta})
+        else:
+            with _mem_lock:
+                _mem_meta.setdefault(self.dir_name, {})[adapter_id] = meta
 
     # -- the registry surface --------------------------------------------
 
     def publish(self, adapter_id: str, adapter: dict,
                 meta: Optional[dict] = None) -> int:
-        """One store put + one metadata update; returns the new version.
+        """One store put + one directory merge; returns the new version.
         The payload is the adapter dict itself (small: two rank-r
         factors per target)."""
         store = self._resolve_store()
@@ -148,7 +182,7 @@ class AdapterRegistry:
               version: Optional[int] = None) -> tuple:
         """-> (version, adapter dict). Raises KeyError for an unknown
         adapter or a version the keep window already reclaimed (callers
-        re-resolve latest and retry — the metadata names a newer one
+        re-resolve latest and retry — the directory names a newer one
         by then)."""
         if version is None:
             version = self.latest_version(adapter_id)

@@ -7,7 +7,12 @@ host copy of its KV into a ``SpillTier`` (heat-gated by ``SpillPolicy``
 from the per-chain stats of ``llm/chainstats.py``) instead of freeing
 it, and a later request whose prompt chains into spilled pages
 *promotes* them back onto the card at admission time, before any cold
-prefill.
+prefill. The serving layer then makes the tier cluster-visible: staged
+pages are packed into ``export_prefix``-format payloads, put into the
+runtime's object store, and registered in the cluster prefix directory
+as ``spill:<hash hex>`` entries beside the heat summaries
+(``serve/frontdoor/prefix.py``) — so ANY replica can re-import a prefix
+that NO replica still holds in device memory.
 
 Tier mechanics:
 
@@ -17,11 +22,13 @@ Tier mechanics:
   once per content hash; re-evictions of content already in the tier
   only refresh recency (a "clean" eviction, vLLM-style).
 - **staged → stored**: captured pages start *staged* (host arrays in
-  this process). ``materialize`` packs staged pages per chain into one
-  export-format payload and hands it to a ``put`` callable (the
-  reference's serving loop passes its object store's put; *stored*
-  entries keep only the ref + row index). The port has no object store
-  yet, so its tier stays staged — same budget, same promote path.
+  this process). The replica's engine loop batches staged pages per
+  chain into one export-format payload and ``ray_tpu_torch.put``s it
+  (``materialize``) — *stored* entries keep only the ObjectRef + row
+  index. Refs are held by the tier, so the store payload is refcounted
+  and owner-swept on replica death: spill can never leak the store.
+  Without a cluster runtime the tier simply stays staged — same budget,
+  same promote path.
 - **promote**: ``payload_for(hashes)`` rebuilds an export-format
   payload for a consecutive hash run from staged arrays and/or fetched
   store segments; the engine copies it into its cache pools in place
@@ -33,10 +40,11 @@ Tier mechanics:
   expires them. Expiry/teardown drop segment refs as their last member
   leaves.
 
-Every tier entry is a HINT. Validate-on-promote — a payload whose
-hashes or page geometry don't match the request's chain is dropped
-(counted ``spill_drops``) and the request prefills cold. A stale or lost
-spill entry can cost latency, never correctness.
+Every tier entry and every ``spill:`` directory row is a HINT.
+Validate-on-promote — a payload whose hashes or page geometry don't
+match the request's chain is dropped (counted ``spill_drops``) and the
+request prefills cold. A stale or lost spill entry can cost latency,
+never correctness.
 
 The tier stores whatever arrays the engine hands it: the port's engine
 hands it float32 pages, or bfloat16 pages as their raw 16-bit patterns

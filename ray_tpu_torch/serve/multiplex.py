@@ -2,10 +2,15 @@
 
 Counterpart of ``ray_tpu/serve/multiplex.py`` (reference parity:
 serve/multiplex.py — _ModelMultiplexWrapper, used via @serve.multiplexed
-+ handle.options(multiplexed_model_id=...)). The loader cache is the
-reference's; the model-aware routing across replicas lives in the
-cluster handle, which is not ported yet, so in process the id reaches
-the loader explicitly or through the request context.
++ handle.options(multiplexed_model_id=...)) and the router's model-aware
+replica ranking.
+
+Routing under cluster Serve is RENDEZVOUS HASHING in the handle (see
+``serve/handle.py`` DeploymentHandle._pick): requests for the same model
+id deterministically prefer the same replica of the current replica
+set, so each model's weights load once and stay cache-hot. In local
+testing mode the id reaches the loader explicitly or through the
+request context.
 """
 from __future__ import annotations
 

@@ -377,6 +377,16 @@ class ProxyActor:
             return web.json_response(
                 {"error": "upstream_timeout"}, status=504,
                 headers={"Retry-After": "1"})
+        except ValueError as e:
+            # the request named something the app does not serve (an
+            # unknown model or LoRA adapter): the caller's fault, a typed
+            # 400 and not a bare 500. The failed call's refs sit in
+            # exception cycles: collect shortly after, as for a 5xx
+            import gc
+            loop.call_later(0.5, gc.collect)
+            return web.json_response(
+                {"error": "invalid_request", "detail": str(e)[:200]},
+                status=400)
         except RuntimeError as e:
             if "no replicas" in str(e):
                 return web.json_response(

@@ -8,9 +8,12 @@ PagedInferenceEngine on the CPU, f32, on the reference's weights
 equal those with it off, a promoted page is bitwise the page exported
 before its eviction, and every spill counter and the prefix accounting
 equal the reference engine's on the same traffic. The reference's
-store-backed cases (cross-engine promote through the object store and
-its drain) need the port of the runtime and are not here.
+three store-backed cases (a promote across engines through the object
+store, a stale ``spill:`` entry, the store's drain at teardown) run
+under both packages' runtimes, side by side in this process, with
+tokens, directory keys and spill counters held to the reference's.
 """
+import threading
 import time
 
 import jax
@@ -385,3 +388,182 @@ def test_spill_tier_materialize_unit():
     payload, dropped = tier.payload_for(
         hs[2:], 2, fetch=lambda ref: store[ref.binary()])
     assert payload is None and dropped == [(hs[2], 2)]
+
+
+# ------------------------------------------------------------------ #
+# cluster: spill: directory entries + store promote + teardown drain
+# ------------------------------------------------------------------ #
+
+class _Handle:
+    def __init__(self, actor_id=b"self"):
+        self._actor_id = actor_id
+
+
+@pytest.fixture
+def runtimes():
+    """Both packages' runtimes side by side: the engines and prefix
+    clients of these cases live in this process and need only each
+    head's directory and object store."""
+    import ray_tpu
+    import ray_tpu_torch
+    for pkg in (ray_tpu, ray_tpu_torch):
+        if pkg.is_initialized():
+            pkg.shutdown()
+    ray_tpu.init(num_cpus=1, object_store_memory=256 * 1024 * 1024)
+    ray_tpu_torch.init(num_cpus=1, object_store_memory=256 * 1024 * 1024)
+    yield
+    ray_tpu_torch.shutdown()
+    ray_tpu.shutdown()
+
+
+def _sides(weights) -> dict:
+    """Per package: its engine on the shared weights, its prefix client,
+    its head runtime, its directory module and its put."""
+    import ray_tpu
+    import ray_tpu_torch
+    from ray_tpu.core import directory as jdir
+    from ray_tpu.core import runtime as jrt
+    from ray_tpu.serve.frontdoor.prefix import PrefixDirectoryClient as JCl
+    from ray_tpu_torch.core import directory as tdir
+    from ray_tpu_torch.core import runtime as trt
+    from ray_tpu_torch.serve.frontdoor.prefix import (
+        PrefixDirectoryClient as TCl)
+    jp, tp = weights
+    return {
+        "ref": dict(engine=lambda **kw: _ref(jp, **kw), client=JCl,
+                    rt=jrt.get_runtime_if_exists(), dir=jdir,
+                    put=ray_tpu.put),
+        "port": dict(engine=lambda **kw: _port(tp, **kw), client=TCl,
+                     rt=trt.get_runtime_if_exists(), dir=tdir,
+                     put=ray_tpu_torch.put),
+    }
+
+
+def _spill_counts(eng) -> dict:
+    return {k: eng.stats[k] for k in SPILL_KEYS}
+
+
+def _cross_replica_promote(s) -> dict:
+    src = s["engine"](kv_spill=True)
+    src.track_page_publish = True
+    dst = s["engine"](num_pages=64)
+    shared = _prompt(96, seed=13)
+    _run_one(src, shared, 2)
+    hashes = src.hash_prompt(shared)
+    assert hashes
+    _flush(src, seed0=9700)
+    assert src.cached_prefix_len(hashes) == 0   # NO replica holds it hot
+    assert src.spill.covered_run(hashes) == len(hashes)
+
+    ca = s["client"]("tiny-tier")
+    ca.set_replica_handle(_Handle(b"replica-a"))
+    ca._last_publish = -1e9
+    ca.maybe_publish(src)
+    spills = s["rt"].dirs.lookup_prefix("serve:prefix:tiny-tier", "spill:")
+    assert set("spill:" + h.hex() for h in hashes) <= set(spills)
+    val = next(iter(spills.values()))
+    assert val["m"] == "tiny-tier" and isinstance(val["oid"], bytes)
+    # staged -> stored flip happened: host copies freed, segments pinned
+    tier = src.spill.stats()
+    assert tier["staged_pages"] == 0 and tier["stored_segments"] > 0
+
+    cb = s["client"]("tiny-tier")
+    cb.set_replica_handle(_Handle(b"replica-b"))
+    n = cb.maybe_import(dst, threading.Lock(), shared)
+    assert n == len(hashes)
+    assert dst.stats["spill_promotions"] == n
+    assert dst.cached_prefix_len(hashes) == len(hashes)
+    tail = shared + _prompt(16, seed=500)
+    out_b = _run_one(dst, tail, 8)
+    cold = s["engine"](num_pages=64)
+    assert _run_one(cold, tail, 8) == out_b
+    # the warm arm actually used the promoted pages
+    assert dst.stats["prefix_hits"] >= n
+    return {"hashes": [h.hex() for h in hashes], "spill_keys": sorted(spills),
+            "tier": tier, "imported": n, "tokens": out_b,
+            "src": _spill_counts(src), "dst": _spill_counts(dst),
+            "src_acct": src.prefix_accounting()}
+
+
+def test_cross_replica_promote_from_store(weights, runtimes):
+    """Replica A demotes a prefix out of its pool entirely and publishes
+    store-backed ``spill:`` entries; replica B, which never saw the
+    prompt, imports it straight from the store and decodes as a cold
+    prefill does. Tokens, spill keys, segments and every spill counter
+    equal the reference's on the same weights."""
+    sides = _sides(weights)
+    ref = _cross_replica_promote(sides["ref"])
+    port = _cross_replica_promote(sides["port"])
+    assert port == ref
+
+
+def _stale_spill_entry(s) -> dict:
+    eng = s["engine"]()
+    shared = _prompt(96, seed=17)
+    hashes = eng.hash_prompt(shared)
+    bad_ref = s["put"]({"page_size": 8, "page_hashes": [], "pages": []})
+    s["dir"].update("serve:prefix:tiny-stale", put={
+        "spill:" + h.hex(): {"m": "tiny-stale", "oid": bad_ref.binary()}
+        for h in hashes})
+    cb = s["client"]("tiny-stale")
+    cb.set_replica_handle(_Handle(b"replica-b"))
+    n = cb.maybe_import(eng, threading.Lock(), shared)
+    assert n == 0
+    assert eng.stats["spill_drops"] == len(hashes)
+    assert s["rt"].dirs.lookup_prefix(
+        "serve:prefix:tiny-stale", "spill:") == {}
+    # the request itself: plain cold prefill, correct tokens
+    out = _run_one(eng, shared, 8)
+    assert _run_one(s["engine"](), shared, 8) == out
+    return {"imported": n, "tokens": out, "counts": _spill_counts(eng)}
+
+
+def test_stale_spill_entry_counted_drop_and_cold_prefill(weights,
+                                                         runtimes):
+    """``spill:`` entries pointing at a garbage store payload cost a
+    counted drop and a cold prefill, never a wrong answer, and the stale
+    keys leave the directory; as in the reference."""
+    sides = _sides(weights)
+    ref = _stale_spill_entry(sides["ref"])
+    port = _stale_spill_entry(sides["port"])
+    assert port == ref
+
+
+def _spill_teardown_drain(s) -> dict:
+    rt = s["rt"]
+    eng = s["engine"](kv_spill=True)
+    eng.track_page_publish = True
+    base = rt.store.bytes_in_use()
+    _run_one(eng, _prompt(96, seed=41), 2)
+    _flush(eng, count=4, seed0=9800)
+    ca = s["client"]("tiny-drain")
+    ca.set_replica_handle(_Handle(b"replica-a"))
+    ca._last_publish = -1e9
+    ca.maybe_publish(eng)
+    assert rt.store.bytes_in_use() > base
+    published = rt.dirs.lookup_prefix("serve:prefix:tiny-drain", "spill:")
+    assert published
+    dropped = eng.spill_teardown()
+    assert dropped > 0
+    deadline = time.monotonic() + 5.0
+    while rt.store.bytes_in_use() > base and \
+            time.monotonic() < deadline:
+        time.sleep(0.05)            # ref drops land asynchronously
+    assert rt.store.bytes_in_use() == base
+    # the retraction rides the normal publish cadence
+    ca._last_publish = -1e9
+    ca.maybe_publish(eng)
+    assert rt.dirs.lookup_prefix("serve:prefix:tiny-drain", "spill:") == {}
+    return {"published": sorted(published), "dropped": dropped,
+            "counts": _spill_counts(eng)}
+
+
+def test_spill_teardown_drains_store(weights, runtimes):
+    """Materialized segments are store objects pinned only by the tier:
+    teardown drops the refs, the store settles back to its pre-spill
+    bytes, and the next publish cadence retracts the ``spill:`` entries;
+    as in the reference, with the same keys and counters."""
+    sides = _sides(weights)
+    ref = _spill_teardown_drain(sides["ref"])
+    port = _spill_teardown_drain(sides["port"])
+    assert port == ref
