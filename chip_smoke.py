@@ -69,6 +69,29 @@ and prints no result line):
    are reset just before and read just after: every step launches the
    forward, dq and dkv kernels exactly once per layer, the serve kernel
    never. Losses finite, the last below the first.
+6b. trainer: phase 6's train step as the train loop of a TorchTrainer
+   (ray_tpu_torch.train) on the port's runtime (init(num_cpus=2,
+   num_gpus=1), phase 6's tensors freed first): one worker leasing the
+   GPU (ScalingConfig(num_workers=1, gpus_per_worker=1)), phase 6's
+   seed-0 weights, batch and AdamW, 6 steps, each loss sent up with
+   train.report. After step 2 the worker reports a checkpoint made by
+   Checkpoint.from_state (params, AdamW's state_dict() and the step;
+   ~15.6 GiB) into a temporary storage path on local disk (df printed
+   first; removed at the end), CheckpointConfig(num_to_keep=1), then
+   raises once (a marker file); FailureConfig(max_failures=1) starts a
+   new worker, which restores from train.get_checkpoint() and runs steps
+   3-5. Held: the 6 losses equal phase 6's bit for bit; in the worker,
+   each step (counts set to 0 just before, read just after) launches the
+   forward, dq and dkv kernels once per layer and the serve kernels
+   never; the restored params' and moments' checksums equal the saved
+   ones; no error, the last step 5, 6 reports over two worker processes
+   (each seeing CUDA_VISIBLE_DEVICES "0", neither loading jax or
+   ray_tpu), the checkpoint's step 2; the GPU reads 0 while the gang
+   holds it and 1 after fit returns, and no worker is left. Prints one
+   trainer: line: worker start s per attempt (fit start, or the crash,
+   to the loop's first line), first-step s, the worker's step ms median
+   beside phase 6's, checkpoint GiB, save and restore s, crash to the
+   first resumed step's end, phase s, with the card and its power limit.
 7. train agreement: phase 5's small f32 models (head_dim 128, GQA 2),
    dense and MoE, each trained for 2 steps on the card (kernels) and on
    the CPU (plain versions): losses, MoE aux losses, logits and every
@@ -158,13 +181,15 @@ and prints no result line):
    ray_tpu_torch.init(num_cpus=4, num_gpus=torch.cuda.device_count()).
    A CPU task must see CUDA_VISIBLE_DEVICES "", no CUDA, and neither jax
    nor ray_tpu in sys.modules. A @remote(num_gpus=1) actor wraps
-   LLMServer at full Llama-3-8B width (32 layers, bf16, seed-0 weights
-   made in the actor: params_ref None; phase 4's engine settings, warmup
-   on) and must report CUDA_VISIBLE_DEVICES "0" and the driver's card;
+   LLMServer at Llama-3-8B widths with the depth cut to 8 of 32 layers,
+   as 4g's (bf16, seed-0 weights made in the actor: params_ref None;
+   phase 4's engine settings, warmup on) and must report
+   CUDA_VISIBLE_DEVICES "0" and the driver's card;
    available_resources()["GPU"] must read 0 while it lives. Phase 4's
    request mix (seed 0) goes to it as 11 concurrent completions calls;
-   every greedy request's tokens must equal phase 4's captured run bit
-   for bit (phase 4 must have returned one result per greedy request). The ragged kernel's launches are counted inside the actor's
+   every greedy request's tokens must equal 4g's reference tokens (one
+   captured engine of the same 8-layer model, run in the driver before
+   4f) bit for bit. The ragged kernel's launches are counted inside the actor's
    process, by family around the engine's prefill and decode steps (set
    to 0 just before the mix, read just after): both must be above 0.
    After kill the GPU count must come back; a new one-GPU actor then
@@ -220,8 +245,8 @@ dag (in 4f and again in 4g, on their 8B actor after its mix and before
    greedy flag of each result), compiled with max_inflight=2. Phase 4's
    seed-0 mix runs as one execute, then split in three parts, all three
    executed before the first get (the third drains the first from the
-   ring); in each run every greedy request's tokens must equal phase 4's
-   (in 4g: 4g's reference) bit for bit and the ragged kernel must
+   ring); in each run every greedy request's tokens must equal 4g's
+   reference bit for bit and the ragged kernel must
    launch in both families inside
    the actor (its counts set to 0 just before the run, read just after).
    While the DAG lives, from the head's driver: state.list_actors() has
@@ -359,7 +384,7 @@ dag (in 4f and again in 4g, on their 8B actor after its mix and before
    forward kernel's launches are counted as in phase 7.
 
 Phases run in the order 1, 2, 3, 3c, 3b, 4, 4b, 4c, 4d, 4e, 4f, 4g, 4h,
-4j, 4i, 5, 5b, 6, 7, and the total seconds are printed before the
+4j, 4i, 5, 5b, 6, 6b, 7, and the total seconds are printed before the
 kernels' record.
 The
 second-to-last line is the card from nvidia-smi, the one before it the
@@ -966,6 +991,11 @@ SERVE_BUCKETS = (32, 64, 128, 256, 512, 1024)
 CLUSTER_LAYERS = 8
 CLUSTER_DEPTH_CUT = ("8 of 32 layers: 4g holds transport, not depth; its "
                      "greedy tokens come from one engine at that depth")
+# phase 4f at 4g's depth, against 4g's reference tokens, to keep the
+# smoke's time with 6b beside it
+RUNTIME_DEPTH_CUT = ("8 of 32 layers: 4f holds the runtime's lease and "
+                     "actor path, not depth; its greedy tokens are 4g's "
+                     "reference")
 # phase 4i at 4g's depth, against 4g's reference tokens, to keep the
 # smoke's time with 4j beside it
 PD_DEPTH_CUT = ("8 of 32 layers: 4i holds the KV handoff between two "
@@ -1725,7 +1755,7 @@ def _dag_run(rt, cdag, host, bodies: list, parts: list, greedy: dict,
     """One run of phase 4's mix through the 8B DAG, executed as `parts`
     (slices of `bodies`), every execute before the first get: between
     the actor's reset and its counts, every greedy request's tokens must
-    equal phase 4's and the ragged kernel must launch in both families
+    equal ``greedy`` and the ragged kernel must launch in both families
     inside the actor."""
     rt.get(host.reset.remote(), timeout=60)
     t0 = time.perf_counter()
@@ -1941,8 +1971,8 @@ def dag_step(rt, host, collect, bodies: list, greedy: dict, store: str,
 def runtime(model_cfg, greedy: dict, **engine_kw) -> dict:
     """Phase 4f, on the card: the port's runtime, its GPU lease and
     LLMServer as an actor. ``greedy`` maps phase 4's greedy prompts
-    (tuples of ids) to the captured run's tokens. Returns the figures;
-    raises on any failure."""
+    (tuples of ids) to the tokens of a captured engine of ``model_cfg``.
+    Returns the figures; raises on any failure."""
     import ray_tpu_torch as rt
     from ray_tpu_torch.llm import LLMConfig, PagedEngineConfig
     n_gpus = torch.cuda.device_count()
@@ -4217,7 +4247,8 @@ def _train_step_fn(params, cfg, tokens):
     """The counterpart of bench.py's train step: loss = cross-entropy +
     moe_aux_weight * aux (aux 0 for dense configs), backward, AdamW (lr
     3e-4, no weight decay; its moments keep the params' dtype). A step
-    returns (loss, logits, aux), detached."""
+    returns (loss, logits, aux), detached; ``step.opt`` is the
+    optimizer (phase 6b checkpoints and restores its state)."""
     from ray_tpu_torch.models import llama
     leaves = _leaves(params)
     for t in leaves:
@@ -4233,6 +4264,7 @@ def _train_step_fn(params, cfg, tokens):
         loss.backward()
         opt.step()
         return loss.detach(), logits.detach(), aux.detach()
+    step.opt = opt
     return step
 
 
@@ -4290,6 +4322,222 @@ def train(model_cfg, device, batch: int, seq: int, steps: int = 5,
             model_cfg.flops_per_token(seq) * tokens_per_step / med
             / PEAK_FLOPS[torch.bfloat16])
     return out
+
+
+# -- phase 6b: phase 6's train step in a one-GPU TorchTrainer worker -------
+
+#: phase 6b: the first attempt reports a checkpoint after this step, then
+#: raises; the second attempt resumes from it
+TRAINER_CRASH_STEP = 2
+
+
+def _state_sums(params, opt) -> dict:
+    """``_checksum`` sums of the params and of AdamW's two moments."""
+    leaves = _leaves(params)
+    return {"params": sum(_checksum(t.detach()) for t in leaves),
+            **{m: sum(_checksum(opt.state[t][m]) for t in leaves)
+               for m in ("exp_avg", "exp_avg_sq")}}
+
+
+def _trainer_loop(config):
+    """Phase 6b's train loop, run by the TorchTrainer's worker: phase 6's
+    weights (seed), batch and step for ``config["steps"]`` steps, each
+    step's loss and kernel launches (counts set to 0 just before the
+    step, read just after) reported through train.report. On the first
+    attempt (no marker file in the storage dir) rank 0 reports a
+    checkpoint of the params, AdamW's state_dict() and the step after
+    step TRAINER_CRASH_STEP, then raises; the restarted worker restores
+    from train.get_checkpoint() and runs the steps left."""
+    from ray_tpu_torch import train as rtrain
+    from ray_tpu_torch.models import llama
+    t_enter = time.time()
+    cfg, device = config["cfg"], config["device"]
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    params = llama.init(cfg, seed=config["seed"], device=device)
+    rng = np.random.RandomState(config["seed"])
+    tokens = torch.as_tensor(rng.randint(0, cfg.vocab_size,
+                                         (config["batch"], config["seq"] + 1)),
+                             dtype=torch.int64, device=device)
+    step = _train_step_fn(params, cfg, tokens)
+    info = {"t_enter": t_enter, "pid": os.getpid(),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "banned": _banned_modules()}
+    start = 0
+    ckpt = rtrain.get_checkpoint()
+    if ckpt is not None:
+        t0 = time.perf_counter()
+        state = ckpt.load_state()
+        with torch.no_grad():
+            for t, s in zip(_leaves(params), _leaves(state["params"])):
+                t.copy_(s)
+        step.opt.load_state_dict(state["opt"])
+        sync()
+        info["restore_s"] = time.perf_counter() - t0
+        info["restored_sums"] = _state_sums(params, step.opt)
+        start = state["step"] + 1
+    for i in range(start, config["steps"]):
+        _reset_launch_counts()             # the step starts here
+        t0 = time.perf_counter()
+        loss = float(step()[0])
+        sync()
+        m = {"step": i, "loss": loss,
+             "step_ms": (time.perf_counter() - t0) * 1e3,
+             "launches": _launch_counts(), "t": time.time()}
+        if i == start:
+            m.update(info)
+        ck = None
+        if (i == TRAINER_CRASH_STEP and not os.path.exists(config["marker"])
+                and rtrain.get_context().get_world_rank() == 0):
+            m["saved_sums"] = _state_sums(params, step.opt)
+            t0 = time.perf_counter()
+            ck = rtrain.Checkpoint.from_state(
+                {"params": params, "opt": step.opt.state_dict(), "step": i},
+                path=os.path.join(config["staging"], f"step_{i}"))
+            m["save_s"] = time.perf_counter() - t0
+            m["t_crash"] = time.time()
+        rtrain.report(m, checkpoint=ck)
+        if ck is not None:
+            open(config["marker"], "w").close()
+            raise RuntimeError(f"6b: the planned crash after step {i}'s "
+                               f"checkpoint")
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def trainer(model_cfg, phase6: dict, device="cuda", batch: int = 2,
+            seq: int = 4096, seed: int = 0) -> dict:
+    """Phase 6b: phase 6's train step (its weights, batch and AdamW) as
+    the train loop of a TorchTrainer on the port's runtime
+    (``ray_tpu_torch.init(num_cpus=2, num_gpus=1)``; on the CPU the GPU
+    is a fake lease), one worker leasing one GPU, as many steps as phase
+    6 took, a checkpoint after step TRAINER_CRASH_STEP, a crash and a
+    resume (FailureConfig(max_failures=1), CheckpointConfig(num_to_keep=
+    1)); the storage path is a temporary directory, removed at the end.
+    Held: the losses equal ``phase6["losses"]`` bit for bit; on the card
+    each step launches B3, B4 and B5 once per layer and the paged kernels
+    never; the restored state's checksums equal the saved ones; the
+    result (no error, the last step, every report of both attempts, the
+    checkpoint's step); the GPU 0 while the gang holds it and back once
+    fit returns, no worker left. Returns the figures."""
+    import importlib.util
+    import shutil
+    import tempfile
+    import threading
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train as rtrain
+    cuda = device == "cuda"
+    steps = len(phase6["losses"])
+    t_phase = time.perf_counter()
+    storage = tempfile.mkdtemp(prefix="rtpu_trainer_")
+    du = shutil.disk_usage(storage)
+    fig = {"layers": model_cfg.n_layers, "steps": steps,
+           "crash_after_step": TRAINER_CRASH_STEP,
+           "disk": {"path": storage, "total_gib": du.total / 2 ** 30,
+                    "free_gib": du.free / 2 ** 30},
+           "pyarrow": importlib.util.find_spec("pyarrow") is not None}
+    print(f"trainer: df {storage}: {fig['disk']}", flush=True)
+    try:
+        rt.init(num_cpus=2, num_gpus=1)
+        try:
+            held, stop = [], threading.Event()
+
+            def watch():
+                while not stop.is_set():
+                    held.append(rt.available_resources().get("GPU"))
+                    stop.wait(0.2)
+
+            watcher = threading.Thread(target=watch, daemon=True)
+            watcher.start()
+            t_fit = time.time()
+            try:
+                result = rtrain.TorchTrainer(
+                    _trainer_loop,
+                    train_loop_config={
+                        "cfg": model_cfg, "device": device, "seed": seed,
+                        "batch": batch, "seq": seq, "steps": steps,
+                        "marker": os.path.join(storage, "crashed_once"),
+                        "staging": os.path.join(storage, "staging")},
+                    scaling_config=rtrain.ScalingConfig(
+                        num_workers=1, gpus_per_worker=1),
+                    run_config=rtrain.RunConfig(
+                        name="trainer", storage_path=storage,
+                        failure_config=rtrain.FailureConfig(max_failures=1),
+                        checkpoint_config=rtrain.CheckpointConfig(
+                            num_to_keep=1))).fit()
+            finally:
+                stop.set()
+                watcher.join()
+            fig["fit_s"] = time.time() - t_fit
+            hist = result.metrics_history
+            starts = [m for m in hist if "pid" in m]
+            _await_gone(rt, [m["pid"] for m in starts], 1, "6b")
+            if result.error is not None or result.metrics["step"] != steps - 1:
+                raise AssertionError(f"6b: result {result}")
+            if [m["step"] for m in hist] != list(range(steps)):
+                raise AssertionError(f"6b: reports of steps "
+                                     f"{[m['step'] for m in hist]}")
+            losses = [m["loss"] for m in hist]
+            if losses != phase6["losses"]:
+                raise AssertionError(f"6b: losses {losses} != phase 6 "
+                                     f"{phase6['losses']}")
+            want = {"flash_fwd": model_cfg.n_layers,
+                    "flash_dq": model_cfg.n_layers,
+                    "flash_dkv": model_cfg.n_layers,
+                    "ragged_paged_attention": 0, "paged_decode_attention": 0}
+            for m in hist if cuda else ():
+                if m["launches"] != want:
+                    raise AssertionError(f"6b: step {m['step']} launches "
+                                         f"{m['launches']}, want {want}")
+            if len(starts) != 2 or len({m["pid"] for m in starts}) != 2:
+                raise AssertionError(f"6b: attempts {starts}")
+            for m in starts:
+                if m["visible"] != "0" or m["banned"]:
+                    raise AssertionError(f"6b: worker saw CUDA_VISIBLE_"
+                                         f"DEVICES {m['visible']!r}, loaded "
+                                         f"{m['banned']}")
+            saved = next(m for m in hist if "saved_sums" in m)
+            if starts[1]["restored_sums"] != saved["saved_sums"]:
+                raise AssertionError(f"6b: restored {starts[1]['restored_sums']}"
+                                     f" != saved {saved['saved_sums']}")
+            if result.checkpoint.load_state()["step"] != TRAINER_CRASH_STEP:
+                raise AssertionError("6b: the checkpoint's step")
+            if 0 not in held:
+                raise AssertionError(f"6b: GPUs available while the gang "
+                                     f"ran: {sorted(set(held))}")
+            first = {m["step"] for m in starts}
+            fig.update({
+                "worker_start_s": [starts[0]["t_enter"] - t_fit,
+                                   starts[1]["t_enter"] - saved["t_crash"]],
+                "first_step_s": [m["step_ms"] / 1e3 for m in starts],
+                "step_ms": [m["step_ms"] for m in hist],
+                "step_ms_median": statistics.median(
+                    m["step_ms"] for m in hist if m["step"] not in first),
+                "phase6_step_ms_median": phase6["step_ms_median"],
+                "checkpoint_gib": _dir_bytes(result.checkpoint.path) / 2 ** 30,
+                "save_s": saved["save_s"],
+                "restore_s": starts[1]["restore_s"],
+                "crash_to_resumed_step_s": (
+                    next(m for m in hist if m["step"] == TRAINER_CRASH_STEP
+                         + 1)["t"] - saved["t_crash"]),
+                "launches": {n: sum(m["launches"][n] for m in hist)
+                             for n in want},
+                "losses_equal_phase6": True})
+        finally:
+            rt.shutdown()
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+    deadline = time.monotonic() + 30
+    while _port_procs() and time.monotonic() < deadline:
+        time.sleep(0.2)
+    if _port_procs():
+        raise AssertionError(f"6b: port workers left alive: {_port_procs()}")
+    fig["phase_s"] = time.perf_counter() - t_phase
+    if cuda:
+        fig["card"] = _card()
+    return fig
 
 
 # -- phase 7: training agreement --------------------------------------------
@@ -4806,7 +5054,7 @@ def main():
                      chunk_size=128, prefill_rows=4, decode_window=8,
                      max_batch_size=8)
     res = serve(llama.llama3_8b(), "cuda", **engine_8b)
-    greedy = res.pop("greedy")          # phase 4f's reference tokens
+    greedy = res.pop("greedy")          # phase 4h's reference tokens
     print("serve: " + json.dumps(res), flush=True)
     for name, n in res["launches_by_family"].items():
         if n <= 0:
@@ -4853,17 +5101,23 @@ def main():
             raise AssertionError(f"kernel never launched in 4e {name}")
     gc.collect()
     torch.cuda.empty_cache()
+    # the reference tokens of 4f, 4g and 4i: one captured engine at their
+    # depth
+    t_ref = time.perf_counter()
+    mc_4g = llama.llama3_8b(n_layers=CLUSTER_LAYERS)
+    greedy_4g = _greedy_tokens(mc_4g, "cuda", **engine_8b)
+    reference_s = time.perf_counter() - t_ref
+    gc.collect()
+    torch.cuda.empty_cache()
     t4f = time.perf_counter()
-    actor = runtime(llama.llama3_8b(), greedy, **engine_8b)
+    actor = runtime(mc_4g, greedy_4g, **engine_8b)
+    actor["depth"] = RUNTIME_DEPTH_CUT
     actor["phase_s"] = time.perf_counter() - t4f
+    actor["reference_s"] = reference_s
     print("runtime: " + json.dumps(actor), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     t4g = time.perf_counter()
-    mc_4g = llama.llama3_8b(n_layers=CLUSTER_LAYERS)
-    greedy_4g = _greedy_tokens(mc_4g, "cuda", **engine_8b)
-    gc.collect()
-    torch.cuda.empty_cache()
     nodes = cluster(mc_4g, greedy_4g, **engine_8b)
     nodes["depth"] = CLUSTER_DEPTH_CUT
     nodes["phase_s"] = time.perf_counter() - t4g
@@ -4889,9 +5143,13 @@ def main():
     agreement(_small_model())
     agreement(_small_model(**MOE_SMALL))
     dense_f32 = dense_agreement()
-    tr = train(llama.llama3_8b(n_layers=TRAIN_LAYERS), "cuda",
-               batch=2, seq=4096)
+    mc_train = llama.llama3_8b(n_layers=TRAIN_LAYERS)
+    tr = train(mc_train, "cuda", batch=2, seq=4096)
     print("train: " + json.dumps(tr), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained = trainer(mc_train, tr, batch=2, seq=4096)
+    print("trainer: " + json.dumps(trained), flush=True)
     remat = dict(remat=True, remat_policy="save_attn")
     train_f32 = train_agreement(_small_model(**remat))
     train_f32_moe = train_agreement(_small_model(**remat, **MOE_SMALL))
@@ -4980,6 +5238,8 @@ def main():
             "source": "ray_tpu_torch/ops/csrc/flash_attention.cu",
             "replaces": replaces, "launches": tr["launches"][name],
             "launches_dense_serve": dense["launches"][name],
+            # inside phase 6b's TorchTrainer worker, both attempts
+            "launches_trainer": trained["launches"][name],
             "max_abs_err": flash["max_abs_err"][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

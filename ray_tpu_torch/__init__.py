@@ -1,5 +1,5 @@
 """ray_tpu_torch — the PyTorch/CUDA port of ray_tpu's serving engines,
-batch inference and Llama training step.
+batch inference, Llama training step and Train library.
 
 A second package beside ``ray_tpu``: the same Llama paged-KV serving
 engine, dense-slot engine (behind ``LLMPredictor``), OpenAI app under
@@ -41,6 +41,12 @@ another process attaches as a driver with
 lists the cluster's tasks, actors, objects, workers and nodes, and
 ``ray_tpu_torch.dag`` compiles actor methods into a graph that sealed
 ring channels in the object store drive.
+
+``ray_tpu_torch.train`` is the Train library over this runtime:
+``TorchTrainer`` gang-schedules a train loop on workers that each lease
+``ScalingConfig(gpus_per_worker=n)`` GPUs (nccl across them, gloo on
+CPUs), collects ``train.report`` metrics and checkpoints, and restarts
+a failed gang from the latest checkpoint.
 
 The core API below is loaded at first attribute access (PEP 562), so
 ``import ray_tpu_torch`` stays light.

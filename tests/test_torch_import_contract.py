@@ -107,7 +107,12 @@ def test_port_modules_load_no_jax_and_no_ray_tpu():
                  "ray_tpu_torch.core.client",
                  "ray_tpu_torch.core.node_agent",
                  "ray_tpu_torch.core.object_transfer",
-                 "ray_tpu_torch.cluster_utils", "ray_tpu_torch.util.gpu"):
+                 "ray_tpu_torch.cluster_utils", "ray_tpu_torch.util.gpu",
+                 # Train over the runtime
+                 "ray_tpu_torch.train", "ray_tpu_torch.train.config",
+                 "ray_tpu_torch.train.session",
+                 "ray_tpu_torch.train.checkpoint",
+                 "ray_tpu_torch.train.trainer", "ray_tpu_torch.util.fs"):
         assert want in modules, (want, sorted(modules))
     assert lines["BANNED"] == "", lines["BANNED"]
 
@@ -141,6 +146,58 @@ def test_port_worker_processes_load_no_jax_and_no_ray_tpu():
         assert ray_tpu_torch.get(task.remote(), timeout=60) == ("", [])
         assert ray_tpu_torch.get(Holder.remote().report.remote(),
                                  timeout=60) == ("0", [])
+    finally:
+        ray_tpu_torch.shutdown()
+
+
+def test_train_and_fs_import_no_pyarrow():
+    """``ray_tpu_torch.train`` and ``ray_tpu_torch.util.fs`` load neither
+    JAX nor the reference package, and leave pyarrow unloaded until a
+    URI or an explicit filesystem needs it."""
+    probe = ("import sys, ray_tpu_torch.train, ray_tpu_torch.util.fs\n"
+             "print(sorted(n for n in sys.modules if n.split('.')[0] in "
+             "('jax', 'jaxlib', 'ml_dtypes', 'ray_tpu', 'pyarrow')))")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_trainer_workers_load_no_jax_and_no_ray_tpu(tmp_path):
+    """A TorchTrainer's worker (a gloo gang of two, and a worker holding
+    a fake GPU lease) and its result bus run with neither JAX nor the
+    reference package in sys.modules, though the driver here has both."""
+    import jax  # noqa: F401 — loaded in the driver on purpose
+    import ray_tpu  # noqa: F401
+    import ray_tpu_torch
+    from ray_tpu_torch import train
+    if ray_tpu_torch.is_initialized():
+        ray_tpu_torch.shutdown()
+    ray_tpu_torch.init(num_cpus=2, num_gpus=1,
+                       object_store_memory=64 * 1024 * 1024)
+    try:
+        def loop(config=None):
+            import sys as _sys
+            import torch.distributed as dist
+            train.report({
+                "visible": os.environ["CUDA_VISIBLE_DEVICES"],
+                "group": dist.is_initialized(),
+                "banned": sorted(
+                    n for n in _sys.modules
+                    if any(n == p or n.startswith(p + ".")
+                           for p in ("jax", "jaxlib", "ml_dtypes",
+                                     "ray_tpu")))})
+
+        for workers, gpus, want in ((2, 0, ""), (1, 1, "0")):
+            r = train.TorchTrainer(
+                loop, scaling_config=train.ScalingConfig(
+                    num_workers=workers, gpus_per_worker=gpus),
+                run_config=train.RunConfig(
+                    name=f"contract{workers}",
+                    storage_path=str(tmp_path))).fit()
+            assert r.metrics == {"visible": want, "group": workers > 1,
+                                 "banned": []}
     finally:
         ray_tpu_torch.shutdown()
 
