@@ -127,7 +127,8 @@ and prints no result line):
 4c. server: the dense engine freed, the OpenAI app
    (build_openai_app: the router over one LLMServer) under
    serve.run(..., local_testing_mode=True), over phase 4's paged engine
-   settings at full Llama-3-8B width (32 layers, bf16, seeded weights).
+   settings at full Llama-3-8B width (8 of 32 layers since the chaos
+   step of 4h came, SERVER_DEPTH_CUT; bf16, seeded weights).
    After one v1_models call and a first burst of the mix from seed 1
    (its engine thread captures the keys warmup left out), the ingress
    handle answers phase 4's 11 requests (seed 2) sent by 11 threads at
@@ -148,7 +149,8 @@ and prints no result line):
    estimate must match the analytic matmul count within 1%). Stops the
    engine thread of the replica, reached through the app.
 4d. tenants and KV mobility: the server freed, PagedInferenceEngine at
-   full Llama-3-8B width (32 layers, bf16, seed-0 weights) with a slot
+   full Llama-3-8B width (8 of 32 layers since the chaos step of 4h
+   came, TENANTS_DEPTH_CUT; bf16, seed-0 weights) with a slot
    table (3 adapters of rank 8 on wq/wk/wv/wo/lm_head from seeds 1-3,
    slot 0 base), the host spill tier (512 MiB) and a 256-page pool, on
    captured programs, serves three waves: base and tenant requests
@@ -304,12 +306,38 @@ dag (in 4f and again in 4g, on their 8B actor after its mix and before
    store holds as many objects as before the deploy; after the
    runtime's shutdown no worker of the port is left. Prints one
    serve_cluster: line with the card and its power limit.
+   Its chaos step (serve_chaos), after the front door's counters and
+   before the teardown: 4 threads post phase 4's greedy bodies to the
+   proxy in a loop; after a first 200 the replica's process and then the
+   proxy's are SIGKILLed, and the load goes on 4 s more. Every
+   response must be 200, 429, 503 or 504 (no bare 500, no untyped error; a
+   connection the dead proxy refused or dropped is counted apart), one
+   at least a 200. The head must see the replica's death and give its
+   lease back; within CHAOS_BUDGET_S of the kill phase 4's first greedy
+   request answers 200 again, the controller lists one running replica
+   with a new actor id and pid, on CUDA_VISIBLE_DEVICES "0" and cuda:0,
+   GPU reads 0, and the proxy answers on its port from a new pid. The
+   replacement serves phase 4's greedy prompts once over HTTP with phase
+   4's tokens bit for bit and the ragged kernel launched in both families
+   inside it (counts at 0 just before, read just after); no
+   serve:prefix:llama3-8b entry names the dead replica and
+   state.hang_report() is clean. The teardown then names the
+   replacements. Its figures are the serve_cluster: line's "chaos":
+   statuses, seconds from the kill to the lease back, to the dead
+   process's end, to the controller's listing of the replacement, to the
+   card's free memory rising by 8 GiB (within the 4 s of load; absent if
+   later), to the proxy's answer and to the first 200, the replacement's
+   ready seconds and
+   programs after warmup, the card's free memory (device-wide, from the
+   driver) before the kill, with the lease back, with the dead process
+   gone and with the replacement ready, and the step's seconds.
 4j. serve_lora: multi-LoRA across processes, inside 4h's runtime and
    behind its proxy, after 4h's app is deleted (its replica and router
    gone, the GPU back) and before 4h's serve.shutdown(). The app is
    build_openai_app's over one LLM deployment of Llama-3-8B at full
-   width (seed-0 weights made in the replica, phase 4's engine settings,
-   the default warmup, gpus_per_replica=1) with phase 4d's slot table:
+   width and 4d's depth (8 of 32 layers, TENANTS_DEPTH_CUT; seed-0
+   weights made in the replica, phase 4's engine settings, the default
+   warmup, gpus_per_replica=1) with phase 4d's slot table:
    3 adapter slots of rank 8 on wq/wk/wv/wo/lm_head, lora_namespace set;
    its class a recording subclass (4h's counts, plus every adapter
    resolve at admission and the engine's build and warmup seconds). The
@@ -318,8 +346,9 @@ dag (in 4f and again in 4g, on their 8B actor after its mix and before
    head's store, versions into the head's directory. Counts set to 0,
    each tenant's greedy request of 4d goes as "<model>:tenant-<s>" with
    phase 4's first greedy request as base, at once over HTTP: each
-   tenant's tokens must equal 4d's bit for bit, the base request's phase
-   4's, and every tenant's first resolve must have loaded its v0. Then
+   tenant's tokens must equal 4d's bit for bit, the base request's those
+   of one engine at that depth in the driver (4g's reference), and every
+   tenant's first resolve must have loaded its v0. Then
    the driver publishes seed 3's adapter as v1 of tenant-1 and, after
    the refresh window (cfg.llm_lora_refresh_s + 0.1 s), sends tenant 3's
    prompt under tenant-1's id: its tokens must be 4d's tenant-3 tokens,
@@ -384,8 +413,9 @@ dag (in 4f and again in 4g, on their 8B actor after its mix and before
    forward kernel's launches are counted as in phase 7.
 
 Phases run in the order 1, 2, 3, 3c, 3b, 4, 4b, 4c, 4d, 4e, 4f, 4g, 4h,
-4j, 4i, 5, 5b, 6, 6b, 7, and the total seconds are printed before the
-kernels' record.
+4j, 4i, 5, 5b, 6, 6b, 7; each phase's seconds on the host clock (a
+phases: line) and the total seconds are printed before the kernels'
+record.
 The
 second-to-last line is the card from nvidia-smi, the one before it the
 kernels' JSON record, and the last line {"ok": true, "device": ...}.
@@ -1000,6 +1030,16 @@ RUNTIME_DEPTH_CUT = ("8 of 32 layers: 4f holds the runtime's lease and "
 # smoke's time with 4j beside it
 PD_DEPTH_CUT = ("8 of 32 layers: 4i holds the KV handoff between two "
                 "replicas, not depth; its greedy tokens are 4g's reference")
+# phase 4c at 4g's depth, to keep the smoke's time with 4h's chaos step
+# beside it: its checks compare the app's answers with each other and
+# with the engine's own counters, at any depth
+SERVER_DEPTH_CUT = ("8 of 32 layers: 4c holds the OpenAI app in process "
+                    "(burst, threads, chat, stream, telemetry), not depth")
+# phases 4d and 4j (whose tenants' reference tokens are 4d's) at 4g's
+# depth, for the same reason; 4j's base request is held to 4g's reference
+TENANTS_DEPTH_CUT = ("8 of 32 layers: 4d and 4j hold adapters, the spill "
+                     "tier, KV payloads and the registry, not depth; 4j's "
+                     "base request is held to 4g's reference")
 
 
 def _flash_inputs(b, sq, sk, h, kvh, d, dtype, seed):
@@ -2418,6 +2458,11 @@ def _recording_server():
                                      out["ttft_s"]))
                 return out
             eng._result = recording
+            self._programs_at_ready = self._programs()
+
+        def _programs(self):
+            graphs = self.engine._graphs
+            return len(graphs) if graphs is not None else 0
 
         def reset(self):                  # main path starts here
             self._rpa.launches = 0
@@ -2425,11 +2470,11 @@ def _recording_server():
             self._served = []
 
         def counts(self):                 # main path ends here
-            graphs = self.engine._graphs
             return {"launches": self._rpa.launches,
                     "launches_by_family": dict(self._fam),
                     "served": list(self._served),
-                    "programs": len(graphs) if graphs is not None else 0,
+                    "programs": self._programs(),
+                    "programs_at_ready": self._programs_at_ready,
                     "server_s": self.server_s,
                     "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
                     "device": str(self.device), "pid": os.getpid(),
@@ -2507,7 +2552,273 @@ def _greedy_checked(served: list, bodies: list, greedy: dict,
     return got
 
 
+# the chaos step of 4h: how long the replica's replacement may take to
+# answer after the kill (its ready time was 37.5-46.3 s on the H100)
+CHAOS_BUDGET_S = 240.0
+# load threads and how long they post after the kills
+CHAOS_THREADS = 4
+CHAOS_LOAD_S = 4.0
+# statuses a client may see while a replica or a proxy dies: a typed
+# shed, a typed replica loss or timeout, or the answer itself
+CHAOS_TYPED = (200, 429, 503, 504)
+
+
+def _chaos_post(port: int, body: dict, timeout: float = 300):
+    """(status, None) of one completions POST, or (None, the transport
+    error's class name) when the proxy's socket refused or dropped the
+    connection (its process was killed). Anything else raises."""
+    import urllib.error
+    try:
+        return _http_post(port, "llm/v1/completions", body,
+                          timeout=timeout)[0], None
+    except urllib.error.HTTPError as e:
+        e.read()
+        return e.code, None
+    except urllib.error.URLError as e:
+        if isinstance(e.reason, ConnectionError):
+            return None, type(e.reason).__name__
+        raise
+    except ConnectionError as e:      # http.client.RemoteDisconnected too
+        return None, type(e).__name__
+
+
+def serve_chaos(rt, ctrl, replica, port: int, bodies: list, greedy: dict,
+                model_id: str, cuda: bool):
+    """The chaos step of phase 4h, in its runtime and behind its proxy:
+    CHAOS_THREADS threads post phase 4's greedy bodies to the proxy in a
+    loop; once one has answered 200, the 8B replica's process and then
+    the proxy's are SIGKILLed, and the load goes on CHAOS_LOAD_S more.
+    Every response must be a typed status (CHAOS_TYPED) and one at least
+    a 200; a refused or dropped connection (the proxy's socket gone) is
+    counted apart. The head must then see the replica's death and give
+    its GPU lease back; within CHAOS_BUDGET_S of the kill phase 4's
+    first greedy request answers 200 again, the controller lists one
+    running replica with a new actor id and pid on index "0" (cuda:0),
+    GPU reads 0.0, and the proxy answers on its port from a new pid. The
+    replacement then serves phase 4's greedy prompts once over HTTP, with
+    phase 4's tokens bit for bit and B1 launched in both families inside
+    it; no serve:prefix entry names the dead replica, and the hang
+    report is clean. Returns (figures, the replacement's handle); raises
+    on any failure."""
+    import collections
+    import signal
+    import threading
+
+    from ray_tpu_torch import serve, state
+    from ray_tpu_torch.core import directory as cdir
+    from ray_tpu_torch.core import runtime as rt_mod
+    t_step = time.perf_counter()
+    head = rt_mod.get_runtime_if_exists()
+    dep = f"llm:{model_id}"
+    greedy_bodies = [b for b in bodies if not b["temperature"]]
+    first = greedy_bodies[0]
+
+    def call(actor, method):
+        return rt.get(actor.handle_request.remote(method, (), {}, None),
+                      timeout=900)
+
+    def free_gib():
+        return torch.cuda.mem_get_info()[0] / 2 ** 30 if cuda else None
+
+    old_id = replica._actor_id
+    old_pid = rt.get(replica._exec(lambda _i: os.getpid()), timeout=60)
+
+    def listed(fig):
+        # when the controller first lists a replica other than the dead one
+        if "kill_to_replacement_listed_s" in fig:
+            return
+        _v, reps = rt.get(ctrl.get_replicas.remote("llm", dep), timeout=60)
+        if any(r._actor_id != old_id for r in reps):
+            fig["kill_to_replacement_listed_s"] = \
+                time.perf_counter() - t_kill
+    (proxy,) = rt.get(ctrl.get_proxies.remote(), timeout=60)
+    proxy_pid = rt.get(proxy["actor"].ping.remote(), timeout=60)["pid"]
+    del proxy
+
+    codes = collections.Counter()
+    transport = collections.Counter()
+    errors = []
+    lock = threading.Lock()
+    stop = threading.Event()
+    answered = threading.Event()
+
+    def load(i):
+        body = greedy_bodies[i % len(greedy_bodies)]
+        while not stop.is_set():
+            try:
+                code, lost = _chaos_post(port, body)
+            except Exception as e:  # noqa: BLE001 — re-raised below
+                with lock:
+                    errors.append(repr(e))
+                return
+            with lock:
+                if lost:
+                    transport[lost] += 1
+                else:
+                    codes[code] += 1
+            if code == 200:
+                answered.set()
+            else:
+                time.sleep(0.1)
+
+    threads = [threading.Thread(target=load, args=(i,))
+               for i in range(CHAOS_THREADS)]
+    for t in threads:
+        t.start()
+    try:
+        if not answered.wait(300):
+            raise AssertionError(f"4h chaos: no 200 before the kill "
+                                 f"({dict(codes)}, {errors})")
+        fig = {"free_gib_before_kill": free_gib()}
+        t_kill = time.perf_counter()
+        os.kill(old_pid, signal.SIGKILL)
+        os.kill(proxy_pid, signal.SIGKILL)
+        # the head sees the death and gives the dead worker's lease back
+        while True:
+            with head.lock:
+                dead = [w for w in head.workers.values()
+                        if getattr(w.proc, "pid", None) == old_pid]
+                back = len(dead) == 1 and dead[0].state == "dead" and \
+                    not dead[0].gpus
+            if back:
+                fig["kill_to_lease_back_s"] = time.perf_counter() - t_kill
+                break
+            if time.perf_counter() - t_kill > 60:
+                raise AssertionError(f"4h chaos: the replica's lease not "
+                                     f"back 60 s after the kill ({dead})")
+            time.sleep(0.005)
+        fig["free_gib_lease_back"] = free_gib()
+        # the head gives the lease back on the dead worker's lost
+        # connection; its process (and its device memory) may still be
+        # going
+        while _alive(old_pid) and time.perf_counter() - t_kill < 60:
+            time.sleep(0.005)
+        fig["kill_to_process_gone_s"] = time.perf_counter() - t_kill
+        fig["free_gib_process_gone"] = free_gib()
+        while time.perf_counter() - t_kill < CHAOS_LOAD_S:
+            listed(fig)
+            # the card's driver frees the dead process's memory after the
+            # process is gone; a replacement's weights come seconds later
+            if cuda and "kill_to_memory_freed_s" not in fig and \
+                    free_gib() > fig["free_gib_before_kill"] + 8:
+                fig["kill_to_memory_freed_s"] = time.perf_counter() - t_kill
+                fig["free_gib_memory_freed"] = free_gib()
+            time.sleep(0.05)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=600)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"4h chaos: untyped failures {errors}")
+    bad = {c: n for c, n in codes.items() if c not in CHAOS_TYPED}
+    if bad or not codes[200]:
+        raise AssertionError(f"4h chaos: statuses {dict(codes)}")
+    fig["load"] = {"threads": CHAOS_THREADS,
+                   "statuses": {str(c): n for c, n in sorted(codes.items())},
+                   "connections_lost": dict(transport)}
+
+    # recovery: phase 4's first greedy request, in turn, until a 200
+    probe = collections.Counter()
+    lost = collections.Counter()
+    while True:
+        listed(fig)
+        code, why = _chaos_post(port, first)
+        now = time.perf_counter() - t_kill
+        if why:
+            lost[why] += 1
+        else:
+            fig.setdefault("kill_to_proxy_answers_s", now)
+            probe[code] += 1
+        if code == 200:
+            fig["kill_to_first_200_s"] = now
+            break
+        if code not in (None, *CHAOS_TYPED):
+            raise AssertionError(f"4h chaos: recovery answered {code}")
+        if now > CHAOS_BUDGET_S:
+            raise AssertionError(f"4h chaos: no 200 within "
+                                 f"{CHAOS_BUDGET_S} s of the kill "
+                                 f"({dict(probe)}, {dict(lost)})")
+        time.sleep(0.5)
+    fig["recovery"] = {"statuses": {str(c): n
+                                    for c, n in sorted(probe.items())},
+                       "connections_lost": dict(lost),
+                       "budget_s": CHAOS_BUDGET_S}
+
+    # one running replica with a new actor id and pid, on index "0"
+    _v, reps = rt.get(ctrl.get_replicas.remote("llm", dep), timeout=60)
+    status = serve.status()
+    running = status["applications"]["llm"]["deployments"][dep][
+        "running_replicas"]
+    if len(reps) != 1 or running != 1 or reps[0]._actor_id == old_id:
+        raise AssertionError(f"4h chaos: replicas {reps}, running "
+                             f"{running}, the dead one {old_id}")
+    (new,) = reps
+    info = call(new, "counts")
+    if info["pid"] == old_pid or info["visible"] != "0" or \
+            info["banned"] or (cuda and info["device"] != "cuda:0"):
+        raise AssertionError(f"4h chaos replacement: {info}")
+    fig.update({"replacement_ready_s": info["server_s"],
+                "replacement_programs_after_warmup":
+                    info["programs_at_ready"],
+                "replacement_visible": info["visible"],
+                "replacement_device": info["device"],
+                "free_gib_replacement_ready": free_gib()})
+    (proxy,) = rt.get(ctrl.get_proxies.remote(), timeout=60)
+    new_proxy_pid = rt.get(proxy["actor"].ping.remote(), timeout=60)["pid"]
+    del proxy
+    if new_proxy_pid == proxy_pid or len(status["proxies"]) != 1 or \
+            status["proxies"][0]["port"] != port:
+        raise AssertionError(f"4h chaos proxy: pid {new_proxy_pid} (dead "
+                             f"{proxy_pid}), {status['proxies']}")
+    time.sleep(0.5)
+    gpu_held = rt.available_resources().get("GPU")
+    if gpu_held != 0.0:
+        raise AssertionError(f"4h chaos: GPU available {gpu_held} while "
+                             f"the replacement holds the card")
+    fig["gpu_available_while_replacement_holds"] = gpu_held
+
+    # the replacement serves phase 4's greedy prompts once over HTTP;
+    # counts at 0 just before, read just after
+    call(new, "reset")
+    _resps, wall = _http_mix(port, greedy_bodies, label="4h chaos")
+    counts = call(new, "counts")
+    got = _greedy_checked(counts["served"], greedy_bodies, greedy,
+                          "4h chaos")
+    for name, n in counts["launches_by_family"].items():
+        if cuda and n <= 0:
+            raise AssertionError(f"4h chaos: the ragged kernel never "
+                                 f"launched in {name} inside the "
+                                 f"replacement")
+    fig["greedy_pass"] = {**_mix_figures(got, wall),
+                          "greedy_equal_phase4": len(greedy),
+                          "programs_after": counts["programs"]}
+    fig["launches_by_family"] = counts["launches_by_family"]
+
+    # no directory entry names the dead replica; no hang
+    prefix_dir = f"serve:prefix:{model_id}"
+    deadline = time.monotonic() + 15
+    while True:
+        entries = (cdir.query(prefix_dir) or {}).get("entries") or {}
+        stale = sum(1 for v in entries.values()
+                    if getattr(v, "_actor_id", None) == old_id)
+        if not stale or time.monotonic() > deadline:
+            break
+        time.sleep(0.1)
+    if stale:
+        raise AssertionError(f"4h chaos: {stale} {prefix_dir} entries name "
+                             f"the dead replica")
+    fig["directory_entries_owned_by_replacement"] = sum(
+        1 for v in entries.values()
+        if getattr(v, "_actor_id", None) == new._actor_id)
+    hangs = state.hang_report()
+    if hangs["stuck_tasks"] or hangs["deadlocks"]:
+        raise AssertionError(f"4h chaos hang report: {hangs}")
+    fig["step_s"] = time.perf_counter() - t_step
+    return fig, new
+
+
 def serve_cluster(model_cfg, greedy: dict, device="cuda", tenants=None,
+                  lora_model_cfg=None, lora_greedy=None,
                   **engine_kw) -> dict:
     """Phase 4h (also rehearsed on the CPU at tiny size, on a fake GPU):
     Serve over the port's runtime. ``build_openai_app``'s app (the
@@ -2519,7 +2830,10 @@ def serve_cluster(model_cfg, greedy: dict, device="cuda", tenants=None,
     ``greedy`` maps phase 4's greedy prompts to the captured run's
     tokens. With ``tenants`` (phase 4d's ``tenant_greedy``), phase 4j
     (``serve_lora``) runs behind the same proxy once 4h's app is
-    deleted; its figures are the result's ``"lora"``. Returns the
+    deleted, on ``lora_model_cfg`` (4d's model; ``model_cfg`` when None)
+    with its base request held to ``lora_greedy`` (phase 4's tokens at
+    that depth; ``greedy`` when None); its figures are the result's
+    ``"lora"``. Returns the
     figures; raises on any failure."""
     import socket
 
@@ -2729,6 +3043,11 @@ def serve_cluster(model_cfg, greedy: dict, device="cuda", tenants=None,
                           "e2e_latency": ms["e2e_latency"]}
         fig["http_requests"] = n_http
 
+        # the chaos step: the replica and the proxy SIGKILLed mid-load and
+        # replaced; the teardown below names their replacements
+        fig["chaos"], replica = serve_chaos(rt, ctrl, replica, port, bodies,
+                                            greedy, model_id, cuda)
+
         # teardown: every Serve worker gone, the lease back, the store at
         # its count before the deploy
         proxies = [p["actor"] for p in rt.get(ctrl.get_proxies.remote(),
@@ -2747,9 +3066,9 @@ def serve_cluster(model_cfg, greedy: dict, device="cuda", tenants=None,
             serve.delete("llm")
             _await_gone(rt, pids[1:3], 1.0, "4h app deleted")
             fig["lora"], lora_oids = serve_lora(
-                model_cfg, port, tenants, first,
-                greedy[tuple(first["prompt"])], head_store, device,
-                **engine_kw)
+                lora_model_cfg or model_cfg, port, tenants, first,
+                (lora_greedy or greedy)[tuple(first["prompt"])], head_store,
+                device, **engine_kw)
         t2 = time.perf_counter()
         serve.shutdown()
         fig["shutdown_s"] = time.perf_counter() - t2
@@ -5043,12 +5362,23 @@ def main():
     if "--profile-serve" in sys.argv[1:]:
         profile_serve()
         return 0
+    phases = {"probe_and_build": time.perf_counter() - t_smoke}
+    t_mark = time.perf_counter()
+
+    def mark(name):
+        # seconds of each phase since the last mark, on the host clock
+        nonlocal t_mark
+        now = time.perf_counter()
+        phases[name] = now - t_mark
+        t_mark = now
+
     kernel_build = check_kernel_build(build_info)
     records = check_kernels()
     decode = check_paged_decode()
     flash = check_flash_kernels()
     if "--kernels" in sys.argv[1:]:
         return 0
+    mark("kernels_2_3_3c_3b")
     from ray_tpu_torch.models import llama
     engine_8b = dict(page_size=16, num_pages=1024, max_pages_per_seq=64,
                      chunk_size=128, prefill_rows=4, decode_window=8,
@@ -5056,6 +5386,7 @@ def main():
     res = serve(llama.llama3_8b(), "cuda", **engine_8b)
     greedy = res.pop("greedy")          # phase 4h's reference tokens
     print("serve: " + json.dumps(res), flush=True)
+    mark("4_serve")
     for name, n in res["launches_by_family"].items():
         if n <= 0:
             raise AssertionError(f"kernel never launched in {name}")
@@ -5066,25 +5397,32 @@ def main():
     dense = dense_serve(llama.llama3_8b(), "cuda", max_batch_size=8,
                         max_seq_len=1024)
     print("dense serve: " + json.dumps(dense), flush=True)
+    mark("4b_dense_serve")
     if not set(dense["prefill_buckets"]) <= set(SERVE_BUCKETS):
         raise AssertionError(f"dense prefill shapes "
                              f"{sorted(dense['prefill_buckets'])} not all "
                              f"checked in phase 3b {SERVE_BUCKETS}")
     gc.collect()
     torch.cuda.empty_cache()
-    served = llm_server(llama.llama3_8b(), "cuda", page_size=16,
-                        num_pages=1024, max_pages_per_seq=64, chunk_size=128,
-                        prefill_rows=4, decode_window=8, max_batch_size=8)
+    served = llm_server(llama.llama3_8b(n_layers=CLUSTER_LAYERS), "cuda",
+                        page_size=16, num_pages=1024, max_pages_per_seq=64,
+                        chunk_size=128, prefill_rows=4, decode_window=8,
+                        max_batch_size=8)
+    served["depth"] = SERVER_DEPTH_CUT
     print("server: " + json.dumps(served), flush=True)
+    mark("4c_server")
     gc.collect()
     torch.cuda.empty_cache()
-    tenants = tenants_and_kv(llama.llama3_8b(), "cuda", num_pages=256,
+    mc_4g = llama.llama3_8b(n_layers=CLUSTER_LAYERS)
+    tenants = tenants_and_kv(mc_4g, "cuda", num_pages=256,
                              spill_pages=256, page_size=16,
                              max_pages_per_seq=64, chunk_size=128,
                              prefill_rows=4, decode_window=8,
                              max_batch_size=8)
+    tenants["depth"] = TENANTS_DEPTH_CUT
     tenant_greedy = tenants.pop("tenant_greedy")   # phase 4j's reference
     print("tenants and kv: " + json.dumps(tenants), flush=True)
+    mark("4d_tenants_and_kv")
     if tenants["launches"] <= 0:
         raise AssertionError("the ragged kernel never launched in 4d")
     gc.collect()
@@ -5096,6 +5434,7 @@ def main():
     moe["depth"] = MOE_DEPTH_CUT
     moe.pop("greedy")
     print("moe serve: " + json.dumps(moe), flush=True)
+    mark("4e_moe_serve")
     for name, n in moe["launches_by_family"].items():
         if n <= 0:
             raise AssertionError(f"kernel never launched in 4e {name}")
@@ -5104,9 +5443,9 @@ def main():
     # the reference tokens of 4f, 4g and 4i: one captured engine at their
     # depth
     t_ref = time.perf_counter()
-    mc_4g = llama.llama3_8b(n_layers=CLUSTER_LAYERS)
     greedy_4g = _greedy_tokens(mc_4g, "cuda", **engine_8b)
     reference_s = time.perf_counter() - t_ref
+    mark("reference_4f_4g_4i")
     gc.collect()
     torch.cuda.empty_cache()
     t4f = time.perf_counter()
@@ -5115,6 +5454,7 @@ def main():
     actor["phase_s"] = time.perf_counter() - t4f
     actor["reference_s"] = reference_s
     print("runtime: " + json.dumps(actor), flush=True)
+    mark("4f_runtime")
     gc.collect()
     torch.cuda.empty_cache()
     t4g = time.perf_counter()
@@ -5122,15 +5462,19 @@ def main():
     nodes["depth"] = CLUSTER_DEPTH_CUT
     nodes["phase_s"] = time.perf_counter() - t4g
     print("cluster: " + json.dumps(nodes), flush=True)
+    mark("4g_cluster")
     gc.collect()
     torch.cuda.empty_cache()
     t4h = time.perf_counter()
     fronted = serve_cluster(llama.llama3_8b(), greedy, tenants=tenant_greedy,
+                            lora_model_cfg=mc_4g, lora_greedy=greedy_4g,
                             **engine_8b)
     fronted["phase_s"] = time.perf_counter() - t4h
     lora_served = fronted.pop("lora")
+    lora_served["depth"] = TENANTS_DEPTH_CUT
     print("serve_cluster: " + json.dumps(fronted), flush=True)
     print("serve_lora: " + json.dumps(lora_served), flush=True)
+    mark("4h_serve_cluster_chaos_4j")
     gc.collect()
     torch.cuda.empty_cache()
     t4i = time.perf_counter()
@@ -5138,21 +5482,26 @@ def main():
     disagg["depth"] = PD_DEPTH_CUT
     disagg["phase_s"] = time.perf_counter() - t4i
     print("serve_pd: " + json.dumps(disagg), flush=True)
+    mark("4i_serve_pd")
     gc.collect()
     torch.cuda.empty_cache()
     agreement(_small_model())
     agreement(_small_model(**MOE_SMALL))
     dense_f32 = dense_agreement()
+    mark("5_5b_agreement")
     mc_train = llama.llama3_8b(n_layers=TRAIN_LAYERS)
     tr = train(mc_train, "cuda", batch=2, seq=4096)
     print("train: " + json.dumps(tr), flush=True)
+    mark("6_train")
     gc.collect()
     torch.cuda.empty_cache()
     trained = trainer(mc_train, tr, batch=2, seq=4096)
     print("trainer: " + json.dumps(trained), flush=True)
+    mark("6b_trainer")
     remat = dict(remat=True, remat_policy="save_attn")
     train_f32 = train_agreement(_small_model(**remat))
     train_f32_moe = train_agreement(_small_model(**remat, **MOE_SMALL))
+    mark("7_train_agreement")
     head = next(r for r in records
                 if r["family"] == "decode" and r["dtype"] == "bfloat16")
     kernels = [{
@@ -5180,6 +5529,10 @@ def main():
         # stream and the gRPC call
         "launches_serve_cluster": fronted["launches"],
         "launches_serve_cluster_by_family": fronted["launches_by_family"],
+        # inside 4h's replacement replica after the chaos step's kill:
+        # phase 4's greedy prompts once over HTTP
+        "launches_serve_chaos_by_family":
+            fronted["chaos"]["launches_by_family"],
         # inside phase 4j's LoRA replica: the tenant pass, the swap and
         # the unknown adapter
         "launches_serve_lora_by_family": lora_served["launches_by_family"],
@@ -5268,6 +5621,7 @@ def main():
                 {k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
                                    "library_ms", "bound_ms", "bound_by")}
                 for r in flash["serve"]]
+    print("phases: " + json.dumps(phases), flush=True)
     print(f"smoke: {time.perf_counter() - t_smoke:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

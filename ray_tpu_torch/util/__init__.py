@@ -1,23 +1,31 @@
-"""ray_tpu_torch.util — placement groups, scheduling strategies, metrics,
-trace-context propagation and step profiling: the port's copies of the
-matching ``ray_tpu.util`` modules.
+"""ray_tpu_torch.util — placement groups, scheduling strategies, actor
+pools, distributed queues, metrics, trace-context propagation and step
+profiling: the port's copies of the matching ``ray_tpu.util`` modules.
+
+``multiprocessing`` (``Pool``) and ``chaos`` (``WorkerKiller``,
+``NodeKiller``) are modules of this package, imported by name. The
+reference's ``collective`` and ``tpu`` are not ported yet: collectives
+come with the port's collective layer, and the GPU's counterpart of
+``tpu`` (slice topology) with the port's accelerator helpers.
 
 Reference parity: python/ray/util/ (placement_group.py,
-scheduling_strategies.py).
+scheduling_strategies.py, actor_pool.py, queue.py).
 """
 import importlib
 
+from .actor_pool import ActorPool
 from .placement_group import (
     PlacementGroup,
     placement_group,
     placement_group_table,
     remove_placement_group,
 )
-from . import scheduling_strategies
+from . import queue, scheduling_strategies
 
 __all__ = [
-    "PlacementGroup", "placement_group", "placement_group_table",
-    "remove_placement_group", "scheduling_strategies", "tracing",
+    "ActorPool", "PlacementGroup", "placement_group",
+    "placement_group_table", "remove_placement_group", "queue",
+    "scheduling_strategies", "tracing",
 ]
 
 

@@ -112,7 +112,12 @@ def test_port_modules_load_no_jax_and_no_ray_tpu():
                  "ray_tpu_torch.train", "ray_tpu_torch.train.config",
                  "ray_tpu_torch.train.session",
                  "ray_tpu_torch.train.checkpoint",
-                 "ray_tpu_torch.train.trainer", "ray_tpu_torch.util.fs"):
+                 "ray_tpu_torch.train.trainer", "ray_tpu_torch.util.fs",
+                 # the runtime's utilities
+                 "ray_tpu_torch.util.actor_pool",
+                 "ray_tpu_torch.util.queue",
+                 "ray_tpu_torch.util.multiprocessing",
+                 "ray_tpu_torch.util.chaos"):
         assert want in modules, (want, sorted(modules))
     assert lines["BANNED"] == "", lines["BANNED"]
 
@@ -162,6 +167,24 @@ def test_train_and_fs_import_no_pyarrow():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_runtime_utilities_import_no_jax_no_ray_tpu_no_torch():
+    """``ray_tpu_torch.util``'s actor pool, queue, multiprocessing pool
+    and chaos killers, each imported alone in a fresh process, load
+    neither JAX nor the reference package nor torch (so not
+    ``torch.cuda``): they reach the runtime only inside their
+    functions."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    for name in ("actor_pool", "queue", "multiprocessing", "chaos"):
+        probe = (f"import sys, ray_tpu_torch.util.{name}\n"
+                 "print(sorted(n for n in sys.modules if n.split('.')[0] "
+                 "in ('jax', 'jaxlib', 'ml_dtypes', 'ray_tpu', 'torch')))")
+        out = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
+                             env=env, capture_output=True, text=True,
+                             timeout=120)
+        assert out.returncode == 0, out.stderr
+        assert out.stdout.strip() == "[]", (name, out.stdout)
 
 
 def test_trainer_workers_load_no_jax_and_no_ray_tpu(tmp_path):

@@ -358,7 +358,7 @@ def test_local_mode():
         ray.shutdown()
 
 
-def test_state_rpcs_are_not_ported(rt):
+def test_state_rpcs_answer_and_only_autoscaler_status_raises(rt):
     """The state rpcs answer through ``ray_tpu_torch.state``; of them,
     only ``autoscaler_status`` is still not ported (it names the
     autoscaler's module)."""
