@@ -23,7 +23,9 @@ and prints no result line):
    card at the shapes the serving path gives it (Llama-3-8B attention:
    H=32, KVH=8, D=128, page 16) for decode, prefill and verify, and at
    two long rows (4,000 and 8,000 keys) at decode and verify widths,
-   which the bf16 kernel splits several ways; in bf16 and f32, with
+   which the bf16 kernel splits several ways, and at a tp=2 rank's
+   shape (H=16, KVH=4: decode, prefill and verify, the *_tp2 families;
+   phase 4k runs it there); in bf16 and f32, with
    block-table tails naming a NaN-filled page. Prints the split count
    (both dtypes at decode and verify widths: runs of 8 pages, whatever
    the batch), the max error, the kernel's, the plain version's and one
@@ -44,10 +46,33 @@ and prints no result line):
    captured programs and the seconds per capture, and profile_summary()
    after estimate_flops() (each estimate must match the analytic matmul
    count within 1%; its MFU leaves attention out).
+4k. tensor-parallel serve: right after phase 4, in this process (no
+   runtime), phase 4's engine settings at full Llama-3-8B width (all 32
+   layers) with mesh=build_mesh(MeshSpec(tp=2), devices=[cuda:0,
+   cuda:0]): both tp ranks on the one card, phase 4's seed-0 weight
+   tensors cut into their shards (heads, kv_heads and mlp over tp, the
+   vocab over tp), captured programs. Phase 4's mix, the mix from
+   another seed and its two verify dispatches, as phase 4; counts set
+   to 0 before and read after. Held: the ragged kernel launched in
+   every family at H 16 and KVH 4 (each rank's shapes), exactly twice
+   phase 4's launches per family where the dispatch counters equal
+   phase 4's (verify always); mesh_reshard_bytes 0 and the declared
+   input and output bytes above 0; every greedy request's tokens equal
+   to phase 4's up to a divergence (the first token included), where the
+   two tokens must be phase 4's top 2 at that step, teacher-forced on
+   phase 4's weights through verify_paged_rows, with a gap below
+   TP_GAP_BOUND's bound (the matched tokens' logprobs within it too);
+   then the engine put back to its state after warmup runs the first mix
+   again: every request (sampled and top-k too) equal bit for bit.
+   Prints one mesh: line (tokens/s, TTFT, warmup s and programs, the
+   mesh counters, launches, divergences) with the card.
 5. agreement: a small f32 model (2 layers, dim 256, head_dim 128), dense
    and as a 4-expert top-2 MoE, served on the card (kernel) and on the
    CPU (plain version) gives identical greedy tokens, logprobs within
-   1e-4.
+   1e-4. 5k: that model with 2 KV heads (phase 5's one KV head cannot
+   split over tp=2), dense and MoE, served at tp=2 on the card (both
+   ranks on cuda:0, H 1 and KVH 1 each) gives the CPU's one-device
+   greedy tokens, logprobs within 1e-4.
 3b. flash: the training path's three kernels (flash forward, dq, dkv)
    against their plain versions on the card at Llama-3-8B attention
    shapes (B 2, S 4096, H 32, KVH 8, D 128, causal) in bf16 and f32,
@@ -449,6 +474,7 @@ mix against itself alone (no result line).
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import statistics
@@ -477,6 +503,30 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,   # dense tensor-core bf16
 # row, to ROW_ATOL_REL of the row's largest value, as phase 3c does.
 TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (1e-2, 2 ** -7)}
 ROW_ATOL_REL = 2 ** -7
+# Phase 4k: tp=2 in bf16 against phase 4's one-device engine on the same
+# weights. Each layer adds two row-parallel products (wo, w_down) to the
+# residual. Phase 4 rounds each to bf16 out of one cuBLAS GEMM's f32
+# accumulation; 4k adds two half-length f32 partial sums and rounds
+# once: the same products summed in another order, so each increment
+# lands within one bf16 ulp, 2^-8 of its value either way (TP_ULP).
+# Taken as independent over the 2L increments, they move the final
+# hidden state by about sqrt(2L) * 2^-8 of its scale; a logit is a dot
+# product of it with a weight column in no particular direction to that
+# error, so it moves by about that share of a typical logit, which the
+# step's largest |logit| bounds: delta = sqrt(2L) * 2^-8 * max|logit|.
+# An argmax can flip only where the top-2 gap is below 2 * delta (both
+# logits moved toward each other), and a logprob (logit - logsumexp)
+# moves by at most 2 * delta: TP_GAP_BOUND.
+TP_ULP = 2 ** -8
+
+
+def tp_gap_bound(n_layers: int, max_abs_logit: float) -> float:
+    """Phase 4k's near-tie bound on a top-2 logit gap (and on a logprob
+    difference) at one step: 2 * sqrt(2L) * TP_ULP * max|logit|."""
+    return 2 * math.sqrt(2 * n_layers) * TP_ULP * max_abs_logit
+
+
+TP_GAP_BOUND = "2 * sqrt(2 * n_layers) * 2**-8 * max|logit| (tp_gap_bound)"
 
 
 def _card() -> str:
@@ -625,6 +675,9 @@ def _attention_case(family: str, dtype, device, seed: int):
     long rows at decode and verify widths); table tails (and the page
     they name) are NaN-poisoned."""
     H, KVH, D, PAGE, MAXP, P = 32, 8, 128, 16, 64, 1024
+    if family.endswith("_tp2"):
+        # one rank of a tp=2 mesh (phase 4k): half the heads
+        family, H, KVH = family[:-len("_tp2")], H // 2, KVH // 2
     g = torch.Generator(device=device).manual_seed(seed)
     rng = np.random.RandomState(seed)
     if family.startswith("long"):
@@ -736,7 +789,7 @@ def _real_rows(x, q_lens):
 
 
 RAGGED_FAMILIES = ("decode", "prefill", "verify", "long_decode",
-                   "long_verify")
+                   "long_verify", "decode_tp2", "prefill_tp2", "verify_tp2")
 
 
 def check_kernels() -> list:
@@ -1478,6 +1531,174 @@ def serve(model_cfg, device, seed: int = 0, **engine_kw) -> dict:
                               "the routed tokens" if model_cfg.moe_experts
                               else "")),
             "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                             if cuda else None),
+            # what phase 4k holds its tp engine to (popped before printing)
+            "_keep": {"params": params, "out": cap["out"],
+                      "prompts": cap["prompts"], "sps": cap["sps"],
+                      "verify": cap["verify"], "stats": dict(ce.stats),
+                      "launches_by_family": cf["launches_by_family"]}}
+
+
+# -- phase 4k: tensor-parallel serving on one card ------------------------
+
+def _teacher_forced(params, mc, ids: list, page_size: int, device):
+    """f32 logits [len(ids), V] of ``ids`` fed as one verify row through
+    ``llama.verify_paged_rows`` on one device's ``params`` over a fresh
+    pool: row i scores the token after ids[i]."""
+    from ray_tpu_torch.models import llama
+    pages = -(-len(ids) // page_size)
+    caches = llama.init_paged_cache(mc, pages + 1, page_size, device=device)
+    bt = torch.arange(1, pages + 1, dtype=torch.int32, device=device)[None]
+    toks = torch.as_tensor([ids], dtype=torch.int32, device=device)
+    start = torch.zeros((1,), dtype=torch.int32, device=device)
+    with torch.inference_mode():
+        logits, _ = llama.verify_paged_rows(params, toks, caches, bt, start,
+                                            mc, page_size=page_size)
+    return logits[0]
+
+
+def _back_to_warm(eng) -> None:
+    """An idle paged engine put back to its state right after warmup:
+    an empty prefix cache, the first free lists and the sampling counter
+    at 0 (the captured programs stay), so a mix replays its draws."""
+    import collections
+    if eng.has_work():
+        raise AssertionError("engine still has work")
+    for d in (eng._hash_to_page, eng._page_to_hash, eng._cached_lru,
+              eng._chain_of, eng._chain_runs):
+        d.clear()
+    eng._page_refs[:] = 0
+    eng._free_pages = list(range(1, eng.cfg.num_pages))
+    eng._free_slots = collections.deque(range(eng.cfg.max_batch_size))
+    eng._block_tables[:] = 0
+    eng._lengths[:] = 0
+    eng._rng_ctr = 0
+
+
+def serve_tp(model_cfg, phase4: dict, device="cuda", seed: int = 0,
+             **engine_kw) -> dict:
+    """Phase 4k (also rehearsed on the CPU at tiny size): phase 4's engine
+    settings with a tp=2 mesh whose ranks share one device, on phase 4's
+    weight tensors (``phase4``: serve()'s "_keep"), captured programs:
+    phase 4's mix, the mix from another seed and two verify dispatches
+    (``_serve_run``). Held to phase 4 as the module docstring says;
+    returns the figures of the mesh: line. Raises on any failure."""
+    from ray_tpu_torch.llm import PagedEngineConfig
+    from ray_tpu_torch.parallel import MeshSpec, build_mesh
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", 0)
+    mesh = build_mesh(MeshSpec(tp=2), devices=[dev, dev])
+    cfg = PagedEngineConfig(model=model_cfg, mesh=mesh, **engine_kw)
+    mc, L = model_cfg, model_cfg.n_layers
+    run = _serve_run(phase4["params"], cfg, device, seed, eager=False)
+    eng, fig = run["engine"], run["figures"]
+    heads = eng.params[0]["layers"]["wq"].shape[-1] // mc.head_dim
+    kv_heads = eng.caches[0][0]["k"].shape[2]
+    if (len(eng.params), heads, kv_heads) != (2, mc.n_heads // 2,
+                                              mc.n_kv_heads // 2):
+        raise AssertionError(f"4k ranks: {len(eng.params)} of H {heads} "
+                             f"KVH {kv_heads}")
+    # snapshots: the counting wrappers go on counting in the second pass
+    st, st4 = dict(eng.stats), phase4["stats"]
+    fam = dict(fig["launches_by_family"])
+    fam4 = phase4["launches_by_family"]
+    cuda = dev.type == "cuda"
+    same_dispatches = all(st[k] == st4[k] for k in (
+        "prefill_dispatches", "decode_dispatches", "spec_dispatches"))
+    for name, n in fam.items():
+        if cuda and n <= 0:
+            raise AssertionError(f"4k: the ragged kernel never launched "
+                                 f"in {name}")
+        if cuda and (same_dispatches or name == "verify") and \
+                n != 2 * fam4[name]:
+            raise AssertionError(f"4k: {name} launches {n}, phase 4 "
+                                 f"{fam4[name]} (want twice)")
+    if st["mesh_reshard_bytes"] != 0 or st["mesh_input_bytes"] <= 0 or \
+            st["mesh_output_bytes"] <= 0:
+        raise AssertionError(f"4k mesh counters: {st}")
+    if run["prompts"] != phase4["prompts"]:
+        raise AssertionError("4k: not phase 4's mix")
+
+    # greedy requests against phase 4's tokens; at a divergence, phase
+    # 4's teacher-forced top-2 gap must be a near-tie (tp_gap_bound)
+    divergences, matched, lp_diff = [], 0, []
+    for i, (p, sp) in enumerate(zip(run["prompts"], run["sps"])):
+        if sp.temperature:
+            continue
+        a, b = phase4["out"][i], run["out"][i]
+        ta, tb = a["token_ids"], b["token_ids"]
+        j = next((t for t in range(min(len(ta), len(tb))) if ta[t] != tb[t]),
+                 None)
+        if j is None and len(ta) != len(tb):
+            j = min(len(ta), len(tb))
+        upto = len(ta) if j is None else j
+        matched += upto
+        if j is None and not sp.logprobs:
+            continue
+        logits = _teacher_forced(phase4["params"], mc, list(p) + ta[:-1],
+                                 cfg.page_size, dev)
+        row = len(p) - 1
+        if sp.logprobs:
+            for t in range(upto):
+                bound = tp_gap_bound(L, float(logits[row + t].abs().max()))
+                d = abs(a["logprobs"][t] - b["logprobs"][t])
+                if d > bound:
+                    raise AssertionError(
+                        f"4k request {i} step {t}: logprob {b['logprobs'][t]}"
+                        f" vs phase 4's {a['logprobs'][t]} (bound {bound})")
+                lp_diff.append(d)
+        if j is not None:
+            top = logits[row + j].topk(2)
+            gap = float(top.values[0] - top.values[1])
+            bound = tp_gap_bound(L, float(logits[row + j].abs().max()))
+            rec = {"request": i, "step": j, "gap": gap, "bound": bound,
+                   "phase4": ta[j] if j < len(ta) else None,
+                   "tp2": tb[j] if j < len(tb) else None,
+                   "top2_tokens": [int(t) for t in top.indices]}
+            # a near-tie: both tokens are phase 4's teacher-forced top 2
+            # (at step 0 too: the first token's tie is no wider), and the
+            # gap between them is below the bound
+            if gap >= bound or {rec["phase4"], rec["tp2"]} != set(
+                    rec["top2_tokens"]):
+                raise AssertionError(f"4k divergence beyond a near-tie: "
+                                     f"{rec}")
+            divergences.append(rec)
+        del logits
+
+    # determinism: the engine back at its warm state runs the first mix
+    # again, every request equal bit for bit (sampled and top-k too)
+    n_first = len(_requests(mc.vocab_size, seed)[0])
+    _back_to_warm(eng)
+    again = eng.generate(run["prompts"][:n_first], run["sps"][:n_first])
+    for i, (x, y) in enumerate(zip(run["out"][:n_first], again)):
+        if x["token_ids"] != y["token_ids"] or x["logprobs"] != y["logprobs"]:
+            raise AssertionError(f"4k request {i}: second pass "
+                                 f"{y['token_ids']} != {x['token_ids']}")
+    sampled = sum(1 for sp in run["sps"][:n_first] if sp.temperature)
+    return {"mesh": dict(eng.mesh.shape), "devices": [
+                str(d) for d in eng.mesh.axis_devices("tp")],
+            "rank_heads": heads, "rank_kv_heads": kv_heads,
+            "launches": fig["launches"], "launches_by_family": fam,
+            "phase4_launches_by_family": fam4,
+            "dispatches": {k: st[k] for k in (
+                "prefill_dispatches", "decode_dispatches",
+                "spec_dispatches")},
+            "dispatches_equal_phase4": same_dispatches,
+            "counters": {k: st[k] for k in (
+                "mesh_dispatches", "mesh_input_bytes", "mesh_output_bytes",
+                "mesh_reshard_bytes")},
+            "setup_s": fig["setup_s"], "warmup_s": fig["warmup_s"],
+            "programs_after_warmup": fig["programs_after_warmup"],
+            "programs": fig["programs"],
+            "first_pass": fig["first_pass"],
+            "second_pass": fig["second_pass"],
+            "greedy_tokens_matched": matched,
+            "divergences": divergences,
+            "logprob_max_diff": max(lp_diff) if lp_diff else None,
+            "bound": TP_GAP_BOUND,
+            "second_pass_equal": n_first, "sampled_in_it": sampled,
+            "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
                              if cuda else None)}
 
 
@@ -1487,18 +1708,20 @@ def _small_model(**kw):
     """Phases 5, 5b and 7's small f32 model: 2 layers, dim 256, head_dim
     128, GQA 2 (``MOE_SMALL`` makes it the 4-expert top-2 MoE form)."""
     from ray_tpu_torch.models import llama
-    return llama.llama_tiny(vocab_size=512, dim=256, n_heads=2, n_kv_heads=1,
-                            mlp_dim=512, n_layers=2, max_seq_len=1024, **kw)
+    return llama.llama_tiny(**{
+        **dict(vocab_size=512, dim=256, n_heads=2, n_kv_heads=1, mlp_dim=512,
+               n_layers=2, max_seq_len=1024), **kw})
 
 
 #: phases 5 and 7's MoE form of the small model
 MOE_SMALL = dict(moe_experts=4, moe_top_k=2)
 
 
-def agreement(mc):
+def agreement(mc, tp: int = 1):
     """The same small f32 model (``_small_model``, dense or MoE) served
     through the kernel on the card and the plain version on the CPU:
-    greedy tokens identical, logprobs within 1e-4."""
+    greedy tokens identical, logprobs within 1e-4. ``tp`` > 1 (phase 5k)
+    serves the card's side on a tp mesh whose ranks all sit on cuda:0."""
     from ray_tpu_torch.llm import (PagedEngineConfig, PagedInferenceEngine,
                                    SamplingParams)
     from ray_tpu_torch.models import llama
@@ -1509,12 +1732,17 @@ def agreement(mc):
     cfg = PagedEngineConfig(model=mc, max_batch_size=4, page_size=16,
                             num_pages=128, max_pages_per_seq=32,
                             chunk_size=32, decode_window=4)
+    card_cfg = cfg
+    if tp > 1:
+        from ray_tpu_torch.parallel import MeshSpec, build_mesh
+        card_cfg = dataclasses.replace(cfg, mesh=build_mesh(
+            MeshSpec(tp=tp), devices=[torch.device("cuda", 0)] * tp))
     rng = np.random.RandomState(9)
     prompts = [[int(t) for t in rng.randint(0, 512, n)]
                for n in (7, 40, 95, 150)]
     sp = SamplingParams(max_tokens=12, logprobs=1)
-    a = PagedInferenceEngine(cfg, gpu_params, device="cuda").generate(
-        prompts, sp)
+    card = PagedInferenceEngine(card_cfg, gpu_params, device="cuda")
+    a = card.generate(prompts, sp)
     b = PagedInferenceEngine(cfg, cpu_params, device="cpu").generate(
         prompts, sp)
     for x, y in zip(a, b):
@@ -1522,9 +1750,12 @@ def agreement(mc):
             raise AssertionError(f"card {x['token_ids']} != "
                                  f"cpu {y['token_ids']}")
         np.testing.assert_allclose(x["logprobs"], y["logprobs"], atol=1e-4)
+    if tp > 1 and card.stats["mesh_reshard_bytes"]:
+        raise AssertionError(f"5k: {card.stats}")
     print(f"agreement ({'MoE ' if mc.moe_experts else ''}"
-          f"{mc.n_layers} layers): {len(prompts)} prompts, greedy tokens "
-          f"identical card vs CPU", flush=True)
+          f"{mc.n_layers} layers{f', tp={tp} on the card' if tp > 1 else ''}"
+          f"): {len(prompts)} prompts, greedy tokens identical card vs CPU",
+          flush=True)
 
 
 # -- phase 4f: LLMServer as a one-GPU actor of the port's runtime ---------
@@ -2563,14 +2794,15 @@ CHAOS_LOAD_S = 4.0
 CHAOS_TYPED = (200, 429, 503, 504)
 
 
-def _chaos_post(port: int, body: dict, timeout: float = 300):
-    """(status, None) of one completions POST, or (None, the transport
-    error's class name) when the proxy's socket refused or dropped the
-    connection (its process was killed). Anything else raises."""
+def _chaos_post(port: int, body: dict, timeout: float = 300,
+                path: str = "llm/v1/completions"):
+    """(status, None) of one POST (a completions one by default), or
+    (None, the transport error's class name) when the proxy's socket
+    refused or dropped the connection (its process was killed). Anything
+    else raises."""
     import urllib.error
     try:
-        return _http_post(port, "llm/v1/completions", body,
-                          timeout=timeout)[0], None
+        return _http_post(port, path, body, timeout=timeout)[0], None
     except urllib.error.HTTPError as e:
         e.read()
         return e.code, None
@@ -2673,6 +2905,21 @@ def serve_chaos(rt, ctrl, replica, port: int, bodies: list, greedy: dict,
         t_kill = time.perf_counter()
         os.kill(old_pid, signal.SIGKILL)
         os.kill(proxy_pid, signal.SIGKILL)
+        # the proxy's own return, apart from the replica's: a private
+        # route the proxy refuses itself (404), with no replica behind it
+        proxy_back = {}
+
+        def watch_proxy():
+            while time.perf_counter() - t_kill < CHAOS_BUDGET_S:
+                code, why = _chaos_post(port, {}, timeout=10,
+                                        path="llm/_probe")
+                if not why:
+                    proxy_back.update(s=time.perf_counter() - t_kill,
+                                      status=code)
+                    return
+                time.sleep(0.05)
+        watcher = threading.Thread(target=watch_proxy, daemon=True)
+        watcher.start()
         # the head sees the death and gives the dead worker's lease back
         while True:
             with head.lock:
@@ -2743,6 +2990,10 @@ def serve_chaos(rt, ctrl, replica, port: int, bodies: list, greedy: dict,
                                     for c, n in sorted(probe.items())},
                        "connections_lost": dict(lost),
                        "budget_s": CHAOS_BUDGET_S}
+    watcher.join(timeout=CHAOS_BUDGET_S)
+    if proxy_back.get("status") != 404:
+        raise AssertionError(f"4h chaos: the proxy's own answer {proxy_back}")
+    fig["kill_to_proxy_back_s"] = proxy_back["s"]
 
     # one running replica with a new actor id and pid, on index "0"
     _v, reps = rt.get(ctrl.get_replicas.remote("llm", dep), timeout=60)
@@ -2757,6 +3008,14 @@ def serve_chaos(rt, ctrl, replica, port: int, bodies: list, greedy: dict,
     if info["pid"] == old_pid or info["visible"] != "0" or \
             info["banned"] or (cuda and info["device"] != "cuda:0"):
         raise AssertionError(f"4h chaos replacement: {info}")
+    if cuda and fig["kill_to_proxy_back_s"] >= info["server_s"]:
+        # C 8: the proxy must not wait for the replacement's constructor
+        # (the tiny CPU rehearsal's constructor is shorter than a proxy's
+        # spawn: nothing to hold there)
+        raise AssertionError(f"4h chaos: proxy back "
+                             f"{fig['kill_to_proxy_back_s']} s after the "
+                             f"kill, the replacement's constructor took "
+                             f"{info['server_s']} s")
     fig.update({"replacement_ready_s": info["server_s"],
                 "replacement_programs_after_warmup":
                     info["programs_at_ready"],
@@ -5385,6 +5644,7 @@ def main():
                      max_batch_size=8)
     res = serve(llama.llama3_8b(), "cuda", **engine_8b)
     greedy = res.pop("greedy")          # phase 4h's reference tokens
+    phase4 = res.pop("_keep")           # phase 4k's weights and outputs
     print("serve: " + json.dumps(res), flush=True)
     mark("4_serve")
     for name, n in res["launches_by_family"].items():
@@ -5392,6 +5652,12 @@ def main():
             raise AssertionError(f"kernel never launched in {name}")
     # serve() and dense_serve() wrap an engine's own methods in closures
     # stored on it: a reference cycle, so only the collector frees it
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp2 = serve_tp(llama.llama3_8b(), phase4, **engine_8b)
+    print("mesh: " + json.dumps({**tp2, "card": card}), flush=True)
+    mark("4k_serve_tp")
+    del phase4
     gc.collect()
     torch.cuda.empty_cache()
     dense = dense_serve(llama.llama3_8b(), "cuda", max_batch_size=8,
@@ -5433,6 +5699,7 @@ def main():
                 max_batch_size=8)
     moe["depth"] = MOE_DEPTH_CUT
     moe.pop("greedy")
+    moe.pop("_keep")
     print("moe serve: " + json.dumps(moe), flush=True)
     mark("4e_moe_serve")
     for name, n in moe["launches_by_family"].items():
@@ -5489,6 +5756,10 @@ def main():
     agreement(_small_model(**MOE_SMALL))
     dense_f32 = dense_agreement()
     mark("5_5b_agreement")
+    # phase 5's model has one KV head, which tp=2 cannot split
+    agreement(_small_model(n_kv_heads=2), tp=2)
+    agreement(_small_model(n_kv_heads=2, **MOE_SMALL), tp=2)
+    mark("5k_agreement_tp")
     mc_train = llama.llama3_8b(n_layers=TRAIN_LAYERS)
     tr = train(mc_train, "cuda", batch=2, seq=4096)
     print("train: " + json.dumps(tr), flush=True)
@@ -5540,6 +5811,9 @@ def main():
         # over the KV ring and the SSE stream over the ref path)
         "launches_pd_prefill_by_family": disagg["launches_prefill_by_family"],
         "launches_pd_decode_by_family": disagg["launches_decode_by_family"],
+        # phase 4k: tp=2 (two ranks on the card), phase 4's mix
+        "launches_serve_tp": tp2["launches"],
+        "launches_serve_tp_by_family": tp2["launches_by_family"],
         "max_abs_err": max(r["max_abs_err"] for r in records),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

@@ -42,6 +42,10 @@ lists the cluster's tasks, actors, objects, workers and nodes, and
 ``ray_tpu_torch.dag`` compiles actor methods into a graph that sealed
 ring channels in the object store drive.
 
+``ray_tpu_torch.parallel`` names device meshes and cuts tensors into
+tensor-parallel shards; the paged engine serves over a tp mesh
+(``PagedEngineConfig(mesh={"tp": 2})``) from one process.
+
 ``ray_tpu_torch.train`` is the Train library over this runtime:
 ``TorchTrainer`` gang-schedules a train loop on workers that each lease
 ``ScalingConfig(gpus_per_worker=n)`` GPUs (nccl across them, gloo on
@@ -64,7 +68,7 @@ _CORE_API = (
 
 __all__ = [
     "__version__", "exceptions", *_CORE_API, "ObjectRef", "ActorHandle",
-    "util", "state",
+    "util", "state", "parallel",
 ]
 
 
@@ -75,6 +79,6 @@ def __getattr__(name):
         return importlib.import_module(".core.ref", __name__).ObjectRef
     if name == "ActorHandle":
         return importlib.import_module(".core.actor", __name__).ActorHandle
-    if name in ("exceptions", "util", "state"):
+    if name in ("exceptions", "util", "state", "parallel"):
         return importlib.import_module(f".{name}", __name__)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -32,9 +32,10 @@ to a host tier (``tiering.py``) and exports and imports KV payloads
 (``serve.run(app, http_port=...)`` over the port's runtime), and
 ``pd_disagg.py`` serves prefill and decode from separate replica
 groups (``build_pd_openai_app``, ``build_pd_proxy``; imported from the
-module, as the reference exports no PD names here). The Dataset stages
-of batch inference, mesh serving and the adapter registry's clustered
-store are not ported yet.
+module, as the reference exports no PD names here). The paged engine
+serves tensor-parallel over a tp mesh (``PagedEngineConfig.mesh``,
+``ray_tpu_torch.parallel``). The Dataset stages of batch inference are
+not ported yet.
 """
 from .batch import LLMPredictor
 from .engine import EngineConfig, InferenceEngine, SamplingParams

@@ -21,6 +21,10 @@ tensors) and never rebinds a table tensor: on the card the engine's
 captured programs (``llm/graphs.py``) read the addresses they were
 captured with. Callers serialize loads against the engine's stepping
 (the serving layer's step lock), as for page imports.
+
+On a tp mesh (``shard``) the table becomes one tree per tp rank, each
+tensor cut like the weight its rows add onto (``logical_axes``); a load
+then writes every rank's slice of the slot's rows in place.
 """
 from __future__ import annotations
 
@@ -59,6 +63,60 @@ class AdapterSlotTable:
             tree[f"{t}.A"] = torch.zeros((S,) + lead + (din, R), **f32)
             tree[f"{t}.B"] = torch.zeros((S,) + lead + (R, dout), **f32)
         self.tree = tree
+
+    # -- tensor-parallel placement (parallel/sharding.py) -----------------
+
+    def logical_axes(self) -> dict:
+        """Logical axis names per table key, the reference's: each B
+        shards its OUTPUT dim as the target weight does (wq->heads,
+        wk/wv->kv_heads, wo->embed, lm_head->vocab), each A its input
+        dim, and the slot, layer and rank dims stay replicated, so a
+        rank's low-rank delta composes with its shard of the base
+        product (wo's delta is a partial sum, reduced with wo's)."""
+        out_axis = {"wq": "heads", "wk": "kv_heads", "wv": "kv_heads",
+                    "wo": "embed", "lm_head": "vocab"}
+        in_axis = {"wq": "embed", "wk": "embed", "wv": "embed",
+                   "wo": "heads", "lm_head": "embed"}
+        axes = {"scale": (None,)}
+        for t in self.targets:
+            lead = (None,) if t == "lm_head" else (None, None)
+            axes[f"{t}.A"] = lead + (in_axis[t], None)
+            axes[f"{t}.B"] = lead + (None, out_axis[t])
+        return axes
+
+    def shard(self, mesh) -> None:
+        """Cut the table into one tree per tp rank of ``mesh``
+        (``self.tree`` becomes that list) by ``logical_axes``. The caller
+        holds the same serialization contract as ``load``."""
+        from ...parallel.sharding import shard_tensor, split_dim
+        axes = self.logical_axes()
+        trees = [dict() for _ in mesh.axis_devices("tp")]
+        self._split = {}
+        for key, t in self.tree.items():
+            self._split[key] = split_dim(axes[key], mesh)
+            for tree, part in zip(trees, shard_tensor(t, axes[key], mesh)):
+                tree[key] = part
+        self.tree = trees
+
+    def _rows(self, key: str, slot: int) -> list:
+        """[(row tensor, slice of a full row)] of ``slot`` for ``key``:
+        one per distinct tensor (tp ranks on one device may share a
+        replicated one)."""
+        if isinstance(self.tree, dict):
+            return [(self.tree[key][slot], ...)]
+        dim, out, seen = self._split[key], [], set()
+        for rank, tree in enumerate(self.tree):
+            row = tree[key][slot]
+            if dim is None:
+                if row.data_ptr() not in seen:
+                    seen.add(row.data_ptr())
+                    out.append((row, ...))
+                continue
+            n = row.shape[dim - 1]                    # the slot dim is gone
+            idx = [slice(None)] * row.dim()
+            idx[dim - 1] = slice(rank * n, (rank + 1) * n)
+            out.append((row, tuple(idx)))
+        return out
 
     def _padded(self, adapter: dict, target: str):
         """(A, B) padded to [.., in, R]/[.., R, out] f32, or None when
@@ -104,14 +162,14 @@ class AdapterSlotTable:
                 raise ValueError(
                     f"adapter targets {unknown} are not in this table's "
                     f"targets {self.targets}")
-        t = self.tree
         for tgt, ab in per_target.items():
             for key, val in zip((f"{tgt}.A", f"{tgt}.B"),
                                 (None, None) if ab is None else ab):
-                row = t[key][slot]
-                if val is None:
-                    row.zero_()
-                else:
-                    row.copy_(torch.from_numpy(
-                        np.require(val, np.float32, ["C", "W"])))
-        t["scale"][slot] = scale
+                for row, part in self._rows(key, slot):
+                    if val is None:
+                        row.zero_()
+                    else:
+                        row.copy_(torch.from_numpy(np.require(
+                            val[part], np.float32, ["C", "W"])))
+        for row, _ in self._rows("scale", slot):
+            row.fill_(scale)

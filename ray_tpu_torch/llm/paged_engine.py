@@ -65,8 +65,19 @@ Observability as in the reference: the telemetry hooks
 (``util/profiling.py``) around every dispatch, with ``estimate_flops()``
 and ``profile_summary()``.
 
-Not ported yet: mesh-parallel serving (``mesh`` raises
-NotImplementedError when set).
+Tensor-parallel serving (``mesh``, as the reference's): weights, the
+KV pool and the slot table are cut into one shard per tp rank
+(``parallel/sharding.py``: heads, kv_heads and mlp over tp, the vocab
+over tp, the pool over kv_heads) and every dispatch runs the model's
+tp forward over them from this one process (``models/llama.py``), each
+rank on its mesh device; block tables and the other host inputs stay
+as they are. ``stats["mesh_*"]`` counts each dispatch's declared host
+bytes, as the reference's, and ``mesh_reshard_bytes`` the bytes of any
+shard found moved off its pinned placement after a dispatch (it must
+stay 0). KV payloads stay mesh-agnostic: pages gather and scatter
+along kv_heads. Only tp may exceed 1, and every shard sits on one
+device (two shards may share it); a transport between distinct cards
+and the other axes are queue A9.2's.
 """
 from __future__ import annotations
 
@@ -91,12 +102,6 @@ from .engine import (  # noqa: F401 — SamplingParams re-exported
 )
 from .graphs import GraphCache
 from .tokenizer import get_tokenizer
-
-#: config fields of engine features not ported yet: field -> feature
-_NOT_PORTED = {
-    "mesh": "mesh-parallel serving",
-}
-
 
 def _raw_pages(a: np.ndarray, dtype: torch.dtype) -> np.ndarray:
     """A payload's page array in the host form of a ``dtype`` cache:
@@ -167,17 +172,13 @@ class PagedEngineConfig:
     kv_spill_max_bytes: int = 64 << 20
     kv_spill_min_hits: int = 0
     kv_spill_max_idle_s: float = 0.0
-    # not ported yet: must stay None (see _NOT_PORTED)
+    # tensor-parallel serving: a parallel.mesh MeshSpec, its dict form
+    # ({"tp": 2}) or a parallel.mesh.Mesh naming the devices. None = one
+    # device, exactly the pre-mesh programs
     mesh: Any = None
     tokenizer: Any = None
 
     def __post_init__(self):
-        for f in dataclasses.fields(self):
-            if f.name in _NOT_PORTED and \
-                    getattr(self, f.name) != f.default:
-                raise NotImplementedError(
-                    f"PagedEngineConfig.{f.name}: {_NOT_PORTED[f.name]} "
-                    f"is not ported to ray_tpu_torch yet")
         if self.chunk_size % self.page_size:
             raise ValueError("chunk_size must be a multiple of page_size")
         if self.prefill_rows < 1 or self.decode_window < 1:
@@ -212,10 +213,26 @@ class PagedInferenceEngine(_EngineBase):
         self.tokenizer = get_tokenizer(cfg.tokenizer)
         if params is None:
             params = llama.init(mc, seed=rng_seed, device=self.device)
-        self.params = params
-        self.caches = llama.init_paged_cache(mc, cfg.num_pages,
-                                             cfg.page_size,
-                                             device=self.device)
+        # resident-adapter slot table (cfg.max_adapters): every dispatch
+        # gathers its rows by slot id; loads write it in place
+        self.lora = None
+        if cfg.max_adapters > 0:
+            from .multilora.slots import AdapterSlotTable
+            self.lora = AdapterSlotTable(mc, cfg.max_adapters,
+                                         cfg.lora_rank, cfg.lora_targets,
+                                         device=self.device)
+        # tensor-parallel placement (cfg.mesh): per-rank shards of the
+        # weights, the KV pool and the slot table, and the placements
+        # every dispatch's walk checks them against
+        self.mesh = None
+        self._pinned = None
+        if cfg.mesh is not None:
+            self._init_mesh(params)
+        else:
+            self.params = params
+            self.caches = llama.init_paged_cache(mc, cfg.num_pages,
+                                                 cfg.page_size,
+                                                 device=self.device)
         # page 0 is the write sink for idle rows and pad pages (never
         # attended); it is never allocated to a sequence
         self._free_pages = list(range(1, cfg.num_pages))
@@ -250,7 +267,7 @@ class PagedInferenceEngine(_EngineBase):
         self._chain_of: dict[int, int] = {}
         page_nbytes = sum(
             t.numel() * t.element_size()
-            for layer in self.caches for t in (layer["k"], layer["v"])
+            for layer in self._layers() for t in (layer["k"], layer["v"])
         ) // max(cfg.num_pages, 1)
         if self._prefix_on and cfg.chain_stats_slots > 0:
             from .chainstats import ChainStatsTable
@@ -269,14 +286,6 @@ class PagedInferenceEngine(_EngineBase):
                 SpillPolicy(min_hits=cfg.kv_spill_min_hits,
                             max_idle_s=cfg.kv_spill_max_idle_s))
             self.spill.bind_chains(self.chains)
-        # resident-adapter slot table (cfg.max_adapters): every dispatch
-        # gathers its rows by slot id; loads write it in place
-        self.lora = None
-        if cfg.max_adapters > 0:
-            from .multilora.slots import AdapterSlotTable
-            self.lora = AdapterSlotTable(mc, cfg.max_adapters,
-                                         cfg.lora_rank, cfg.lora_targets,
-                                         device=self.device)
         self._next_rid = 0
         self._rng_key = root_key(rng_seed ^ 0x5EED, self.device)
         self._rng_ctr = 0
@@ -304,7 +313,13 @@ class PagedInferenceEngine(_EngineBase):
                       # validate-on-promote drops; all 0 with it off
                       "spill_pages": 0, "spill_bytes": 0,
                       "spill_demotions": 0, "spill_promotions": 0,
-                      "spill_expired": 0, "spill_drops": 0}
+                      "spill_expired": 0, "spill_drops": 0,
+                      # tensor-parallel dispatches (cfg.mesh): declared
+                      # host input / output bytes, and bytes of shards
+                      # found off their pinned placement (must stay 0);
+                      # all 0 with the mesh off
+                      "mesh_dispatches": 0, "mesh_input_bytes": 0,
+                      "mesh_output_bytes": 0, "mesh_reshard_bytes": 0}
         # speculation controller: EMA of tokens per slot per spec
         # dispatch (starts optimistic) and a cooldown of windowed
         # dispatches before re-probing
@@ -320,6 +335,127 @@ class PagedInferenceEngine(_EngineBase):
         self._graphs = (GraphCache(self.device)
                         if self.device.type == "cuda" else None)
         self._eager = False
+
+    # -- tensor-parallel placement (cfg.mesh) -------------------------------
+
+    def _init_mesh(self, params: dict) -> None:
+        """Build the mesh and cut the weights (``llama.logical_axes``),
+        the KV pool (over kv_heads, made per rank) and the slot table
+        into per-rank shards, then pin every shard's placement: device,
+        shape and storage (the reference's committed NamedShardings)."""
+        from ..parallel import sharding as shardlib
+        from ..parallel.mesh import Mesh, MeshSpec, build_mesh, \
+            default_devices
+        cfg, mc = self.cfg, self.cfg.model
+        spec = cfg.mesh
+        if isinstance(spec, Mesh):
+            self.mesh = spec
+        else:
+            if isinstance(spec, dict):
+                spec = MeshSpec(**spec)
+            # the spec names how many devices the engine WANTS: the
+            # leading ones of this engine's kind
+            self.mesh = build_mesh(spec, devices=default_devices(
+                spec.wanted(), self.device.type))
+        sizes = dict(self.mesh.shape)
+        tp = sizes.get("tp", 1)
+        if mc.n_kv_heads % tp or mc.n_heads % tp or mc.mlp_dim % tp:
+            raise ValueError(
+                f"mesh tp={tp} must divide n_heads={mc.n_heads}, "
+                f"n_kv_heads={mc.n_kv_heads} and mlp_dim={mc.mlp_dim}")
+        vocab_ways = tp * sizes.get("fsdp", 1)
+        if mc.vocab_size % vocab_ways:
+            raise ValueError(
+                f"mesh tp*fsdp={vocab_ways} must divide "
+                f"vocab_size={mc.vocab_size}")
+        other = {a: n for a, n in sizes.items() if a != "tp" and n > 1}
+        if other:
+            raise NotImplementedError(
+                f"mesh axes {other}: only tp serves in ray_tpu_torch "
+                f"(dp/fsdp/ep/sp/pp in the engine are queue A9.2)")
+        devices = self.mesh.axis_devices("tp")
+        if len(set(devices)) > 1:
+            raise NotImplementedError(
+                f"tp shards on {len(set(devices))} distinct devices: the "
+                f"transport between cards and captures spanning them are "
+                f"queue A9.2 (put every shard on one device)")
+        if devices[0].type != self.device.type:
+            raise ValueError(f"mesh devices {devices} for an engine on "
+                             f"{self.device}")
+        self.device = devices[0]
+        axes = llama.logical_axes(mc)
+        shards = [{"layers": {}} for _ in devices]
+        for name, t in params.items():
+            if name == "layers":
+                for n, w in t.items():
+                    for sh, part in zip(shards, shardlib.shard_tensor(
+                            w, axes["layers"][n], self.mesh)):
+                        sh["layers"][n] = part
+                continue
+            for sh, part in zip(shards, shardlib.shard_tensor(
+                    t, axes[name], self.mesh)):
+                sh[name] = part
+        self.params = shards
+        shard_mc = dataclasses.replace(mc, n_kv_heads=mc.n_kv_heads // tp)
+        self.caches = [llama.init_paged_cache(shard_mc, cfg.num_pages,
+                                              cfg.page_size, device=d)
+                       for d in devices]
+        if self.lora is not None:
+            self.lora.shard(self.mesh)
+        self._pinned = [(t.device, tuple(t.shape), t.data_ptr())
+                        for t in self._committed()]
+
+    def whole_params(self) -> dict:
+        """The weights as one dict: ``self.params`` on one device, the
+        shards put back together (on the first rank's device) on a
+        mesh."""
+        if self.mesh is None:
+            return self.params
+        from ..parallel.sharding import unshard
+        axes = llama.logical_axes(self.cfg.model)
+        out = {k: unshard([sh[k] for sh in self.params], axes[k], self.mesh)
+               for k in self.params[0] if k != "layers"}
+        out["layers"] = {
+            n: unshard([sh["layers"][n] for sh in self.params],
+                       axes["layers"][n], self.mesh)
+            for n in self.params[0]["layers"]}
+        return out
+
+    def _committed(self) -> list:
+        """Every committed shard: params, KV pools, slot table."""
+        out = [t for sh in self.params for t in (
+            *sh["layers"].values(),
+            *(v for k, v in sh.items() if k != "layers"))]
+        out += [t for layer in self._layers() for t in layer.values()]
+        if self.lora is not None:
+            out += [t for tree in self.lora.tree for t in tree.values()]
+        return out
+
+    def _shards(self) -> list:
+        """The KV pools per tp rank (one rank off-mesh): [[{k, v}] per
+        layer] per rank."""
+        return [self.caches] if self.mesh is None else self.caches
+
+    def _layers(self) -> list:
+        """Every per-layer KV pool dict, of every tp rank."""
+        return [layer for shard in self._shards() for layer in shard]
+
+    def _mesh_account(self, host_in: int, host_out: int) -> None:
+        """Per-dispatch accounting (mesh on only), as the reference's:
+        the declared host->device input and device->host output bytes,
+        and a walk of every committed shard: one whose device, shape or
+        storage moved off its pinned placement counts its bytes as
+        involuntary-reshard traffic."""
+        if self.mesh is None:
+            return
+        st = self.stats
+        st["mesh_dispatches"] += 1
+        st["mesh_input_bytes"] += int(host_in)
+        st["mesh_output_bytes"] += int(host_out)
+        st["mesh_reshard_bytes"] += sum(
+            t.numel() * t.element_size()
+            for t, want in zip(self._committed(), self._pinned)
+            if (t.device, tuple(t.shape), t.data_ptr()) != want)
 
     # -- host <-> device ---------------------------------------------------
 
@@ -962,6 +1098,10 @@ class PagedInferenceEngine(_EngineBase):
                                            temps, topks, lslots)
         self._rng_ctr += 1
         self.stats["prefill_dispatches"] += 1
+        self._mesh_account(
+            chunks.nbytes + bts.nbytes + sps.nbytes + tls.nbytes
+            + temps.nbytes + topks.nbytes + lslots.nbytes,
+            toks.nbytes + (0 if lps is None else lps.nbytes))
         if self._prefix_on:
             page = cfg.page_size
             for req, pos, n in rows:
@@ -1068,6 +1208,9 @@ class PagedInferenceEngine(_EngineBase):
         with self.profiler.step("verify", (rb, s1, W, want_lp)):
             y, ylp = self._verify_rows(toks, bts, starts, want_lp, lslots)
         self.stats["spec_dispatches"] += 1
+        self._mesh_account(
+            toks.nbytes + bts.nbytes + starts.nbytes + lslots.nbytes,
+            y.nbytes + (0 if ylp is None else ylp.nbytes))
         emitted = 0
         for i, slot in enumerate(slots):
             req = self._active[slot]
@@ -1153,6 +1296,10 @@ class PagedInferenceEngine(_EngineBase):
                                            temps, topks, lslots)
         self._rng_ctr += 1
         self.stats["decode_dispatches"] += 1
+        self._mesh_account(
+            tokens.nbytes + bt.nbytes + lengths.nbytes + temps.nbytes
+            + topks.nbytes + lslots.nbytes,
+            out.nbytes + (0 if lps is None else lps.nbytes))
         for slot in list(self._active):
             req = self._active[slot]
             for j in range(w):
@@ -1242,27 +1389,37 @@ class PagedInferenceEngine(_EngineBase):
 
     def _pages_to_host(self, pids) -> list:
         """[{"k", "v": [n, page, KVH, D] host array}] per layer for the
-        pages ``pids``: one gather per layer and one device-to-host copy
-        of them all, between dispatches. bf16 pages come back as their
-        raw 16-bit patterns (``np.uint16``)."""
+        pages ``pids``: one gather per layer (per tp rank, its kv_heads
+        put back in rank order) and one device-to-host copy of them all,
+        between dispatches. bf16 pages come back as their raw 16-bit
+        patterns (``np.uint16``)."""
         idx = torch.as_tensor(np.asarray(pids, np.int64), device=self.device)
-        t = torch.stack([layer[kv].index_select(0, idx)
-                         for layer in self.caches for kv in ("k", "v")])
+        shards = self._shards()
+
+        def gather(li, kv):
+            parts = [s[li][kv].index_select(0, idx.to(s[li][kv].device))
+                     .to(self.device) for s in shards]
+            return parts[0] if len(parts) == 1 else torch.cat(parts, dim=2)
+        n_layers = self.cfg.model.n_layers
+        t = torch.stack([gather(li, kv) for li in range(n_layers)
+                         for kv in ("k", "v")])
         if t.dtype == torch.bfloat16:
             host = t.view(torch.int16).cpu().numpy().view(np.uint16)
         else:
             host = t.cpu().numpy()
         return [{"k": host[2 * i], "v": host[2 * i + 1]}
-                for i in range(len(self.caches))]
+                for i in range(n_layers)]
 
     def _pages_from_host(self, pids, pages: list, sel) -> None:
         """Write rows ``sel`` of a payload's per-layer page arrays into
         the cache pages ``pids``, in place (``index_copy_`` into the
         existing pool tensors: the captured programs keep reading them),
         with one host-to-device copy. Caller holds self._lock and
-        serializes against stepping."""
-        dtype = self.caches[0]["k"].dtype
-        want = tuple(self.caches[0]["k"].shape[1:])
+        serializes against stepping. On a mesh each rank takes its slice
+        of the kv_heads."""
+        mc = self.cfg.model
+        dtype = mc.dtype
+        want = (self.cfg.page_size, mc.n_kv_heads, mc.head_dim)
         host = None
         for i, a in enumerate(np.asarray(layer[kv]) for layer in pages
                               for kv in ("k", "v")):
@@ -1278,9 +1435,14 @@ class PagedInferenceEngine(_EngineBase):
             t = t.view(torch.bfloat16)
         t = t.to(self.device)
         idx = torch.as_tensor(np.asarray(pids, np.int64), device=self.device)
-        for i, layer in enumerate(self.caches):
-            layer["k"].index_copy_(0, idx, t[2 * i])
-            layer["v"].index_copy_(0, idx, t[2 * i + 1])
+        shards = self._shards()
+        kvh = mc.n_kv_heads // len(shards)
+        for r, shard in enumerate(shards):
+            for i, layer in enumerate(shard):
+                for j, kv in enumerate(("k", "v")):
+                    dst = layer[kv]
+                    src = t[2 * i + j][:, :, r * kvh:(r + 1) * kvh]
+                    dst.index_copy_(0, idx.to(dst.device), src.to(dst.device))
 
     # -- prefill/decode disaggregation -------------------------------------
 

@@ -153,7 +153,10 @@ class LLMServer:
             self.load_s = {"get_s": t1 - t0,
                            "to_device_s": time.perf_counter() - t1}
         self.engine = self._build_engine(params)
-        self.base_params = self.engine.params
+        # the whole base weights, for LoRA merges: a tp engine holds
+        # shards, so the caller's dict (None: put back at the first merge)
+        self.base_params = self.engine.params if getattr(
+            self.engine, "mesh", None) is None else params
         self.model_id = cfg.model_id
         # adapter id -> engine over merged weights; the OrderedDict is the
         # LRU. _lora_lock guards every mutation and the loop's snapshot:
@@ -235,6 +238,8 @@ class LLMServer:
         from . import lora
         adapter = lora.load_adapter(os.path.join(self.cfg.lora_dir,
                                                  lora_id))
+        if self.base_params is None:
+            self.base_params = self.engine.whole_params()
         eng = self._build_engine(lora.merge(self.base_params, adapter))
         with self._lora_lock:
             raced = self._lora_engines.get(lora_id)
@@ -449,10 +454,13 @@ class LLMServer:
 
     def engine_stats(self) -> dict:
         """Counter snapshot for ops introspection: the engine's stats
-        dict plus the mesh axis sizes (None: single card, the port has no
-        mesh serving yet)."""
+        dict plus the mesh's axis sizes (None on one device). On a mesh,
+        ``mesh_reshard_bytes`` staying 0 is the no-moved-shard
+        invariant."""
         st = dict(getattr(self.engine, "stats", {}) or {})
-        st["mesh"] = None
+        mesh = getattr(self.engine, "mesh", None)
+        st["mesh"] = None if mesh is None else {
+            k: int(v) for k, v in mesh.shape.items()}
         return st
 
     def loaded_loras(self) -> list:

@@ -16,6 +16,11 @@ tensors, where the reference donated its buffers) and only then runs
 attention, which therefore reads pages only: ``ops.ragged_paged_attention``
 (the Hopper kernel on CUDA tensors, its plain version on CPU tensors).
 
+The paged forwards also serve a tensor-parallel mesh: given lists of
+per-rank shards (params, pools, slot tables) instead of one device's,
+they run the Megatron layout described in the tensor-parallel section
+below; a one-shard list runs exactly the one-device ops.
+
 Indices are not clamped: a block-table column or page id out of range
 raises (on the CPU) or trips a device-side assert (on CUDA) instead of
 being clamped into a live page. The engine's table-width rule keeps every
@@ -84,6 +89,7 @@ from ..ops.flash_attention import (
 from ..ops.ragged_paged_attention import (
     ragged_decode_attention, ragged_paged_attention,
 )
+from ..parallel.sharding import tp_all_reduce
 
 
 @dataclasses.dataclass(frozen=True)
@@ -198,6 +204,41 @@ def param_shapes(cfg: LlamaConfig) -> dict:
     }
 
 
+def logical_axes(cfg: LlamaConfig) -> dict:
+    """Logical sharding axes per parameter (leading None = the stacked
+    layer dim), the reference's: heads, kv_heads and mlp over tp, vocab
+    rows over (tp, fsdp), norms and the MoE router replicated. Resolved
+    against a mesh by ``parallel.sharding``."""
+    if cfg.moe_experts:
+        mlp = {
+            "mlp_norm": (None, "norm"),
+            "w_router": (None, "embed", None),
+            "w_gate": (None, "expert", "embed", "mlp"),
+            "w_up": (None, "expert", "embed", "mlp"),
+            "w_down": (None, "expert", "mlp", "embed"),
+        }
+    else:
+        mlp = {
+            "mlp_norm": (None, "norm"),
+            "w_gate": (None, "embed", "mlp"),
+            "w_up": (None, "embed", "mlp"),
+            "w_down": (None, "mlp", "embed"),
+        }
+    return {
+        "embed": ("vocab", "embed"),
+        "layers": {
+            "attn_norm": (None, "norm"),
+            "wq": (None, "embed", "heads"),
+            "wk": (None, "embed", "heads"),
+            "wv": (None, "embed", "heads"),
+            "wo": (None, "heads", "embed"),
+            **mlp,
+        },
+        "final_norm": ("norm",),
+        "lm_head": ("embed", "vocab"),
+    }
+
+
 def param_dtype(cfg: LlamaConfig, name: str) -> torch.dtype:
     """A parameter's dtype: cfg.dtype, except the MoE router, which is
     f32 in every config (as in the reference)."""
@@ -280,9 +321,10 @@ def _qkv(h, p, cfg: LlamaConfig, cos, sin, lora=None, slots=None):
         q = _lora_add(q, h, lora, "wq", slots)
         k = _lora_add(k, h, lora, "wk", slots)
         v = _lora_add(v, h, lora, "wv", slots)
-    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    # head counts from the weights: a tp shard holds H/tp and KVH/tp
+    q = q.reshape(b, s, -1, cfg.head_dim)
+    k = k.reshape(b, s, -1, cfg.head_dim)
+    v = v.reshape(b, s, -1, cfg.head_dim)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
@@ -354,7 +396,7 @@ def _mlp_block(x, p, cfg: LlamaConfig):
     return x + (gate * (h @ p["w_up"])) @ p["w_down"], None
 
 
-def _moe_ffn(h, p, cfg: LlamaConfig):
+def _moe_ffn(h, p, cfg: LlamaConfig, f32_out: bool = False):
     """Top-k expert SwiGLU over capacity-bounded slots, GShard-style
     (the reference's ``_moe_ffn``). h [B, S, D] -> (out [B, S, D], aux).
 
@@ -367,7 +409,9 @@ def _moe_ffn(h, p, cfg: LlamaConfig):
     dispatch mask (h's dtype) gathers [E, C, D], three batched products
     make the experts' SwiGLU, and the combine weights (f32 gates, cast
     to the experts' dtype, as the reference casts them) scatter back.
-    One-hots compare against an ``arange``: no host sync anywhere."""
+    One-hots compare against an ``arange``: no host sync anywhere.
+    ``f32_out``: the combine's product comes out in f32 (a tp rank's
+    partial sum, ``_paged_layers_tp``)."""
     b, s, d = h.shape
     E, k = cfg.moe_experts, cfg.moe_top_k
     T = b * s
@@ -402,7 +446,8 @@ def _moe_ffn(h, p, cfg: LlamaConfig):
     ge = F.silu(torch.bmm(xe, p["w_gate"]))
     ue = torch.bmm(xe, p["w_up"])
     ye = torch.bmm(ge * ue, p["w_down"])                        # [E, C, D]
-    out = combine.to(ye.dtype).reshape(T, E * C) @ ye.reshape(E * C, d)
+    mm = _logits if f32_out else torch.matmul
+    out = mm(combine.to(ye.dtype).reshape(T, E * C), ye.reshape(E * C, d))
     return out.reshape(b, s, d), aux
 
 
@@ -568,6 +613,11 @@ def _rows_from(values, src):
     return values if src is None else values.index_select(0, src)
 
 
+def _on(dev, *ts):
+    """``ts`` on ``dev`` (a no-op for tensors already there; None stays)."""
+    return tuple(None if t is None else t.to(dev) for t in ts)
+
+
 def decode_paged(params: dict, tokens, caches: list[dict], block_tables,
                  lengths, cfg: LlamaConfig, *, page_size: int, lora=None,
                  slots=None):
@@ -582,33 +632,32 @@ def decode_paged(params: dict, tokens, caches: list[dict], block_tables,
 
     ``lora``/``slots`` [B]: batched multi-LoRA — each row's projections
     (and logits, for lm_head adapters) get its slot's low-rank delta
-    (``_lora_add``)."""
+    (``_lora_add``). ``params``/``caches``/``lora`` may be tp shards
+    (tensor-parallel section)."""
+    params, caches, lora = _as_shards(params, caches, lora)
     b = tokens.shape[0]
     dev = tokens.device
     lengths = _as_i32(lengths, dev)
     rows = torch.arange(b, device=dev)
-    x = params["embed"][tokens].to(cfg.dtype)                 # [B, 1, D]
+    x = _embed(params, tokens, cfg)                           # [B, 1, D]
     cos, sin = rope_freqs(cfg, lengths[:, None])
     page_ids = block_tables[rows, lengths // page_size]       # [B]
     offsets = lengths % page_size
     src = _last_writer(page_ids * page_size + offsets, cfg)
     attend_len = lengths + 1
-    for layer in range(cfg.n_layers):
-        p = _layer_params(params, layer)
-        ll = _lora_at_layer(lora, layer)
-        cache = caches[layer]
-        h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
-        q, k, v = _qkv(h, p, cfg, cos, sin, ll, slots)       # q [B,1,H,D]
-        cache["k"][page_ids, offsets] = _rows_from(k[:, 0], src).to(
-            cache["k"].dtype)
-        cache["v"][page_ids, offsets] = _rows_from(v[:, 0], src).to(
-            cache["v"].dtype)
-        attn = ragged_decode_attention(q[:, 0], cache["k"], cache["v"],
-                                       block_tables, attend_len)
-        x = x + _out_proj(attn.reshape(b, 1, -1), p, ll, slots)
-        x, _ = _mlp_block(x, p, cfg)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _lm_head(x, params, lora, slots)[:, 0], caches
+
+    def attend(cache, q, k, v):
+        pid, off, at, bt, sw = _on(q.device, page_ids, offsets, attend_len,
+                                   block_tables, src)
+        cache["k"][pid, off] = _rows_from(k[:, 0], sw).to(cache["k"].dtype)
+        cache["v"][pid, off] = _rows_from(v[:, 0], sw).to(cache["v"].dtype)
+        attn = ragged_decode_attention(q[:, 0], cache["k"], cache["v"], bt,
+                                       at)
+        return attn.reshape(b, 1, -1)
+
+    x = _paged_layers(params, x, caches, cfg, cos, sin, lora, slots, attend)
+    x = rms_norm(x, _first(params)["final_norm"], cfg.norm_eps)
+    return _vocab_parallel(_lm_head, x, params, lora, slots)[:, 0], caches
 
 
 def _out_proj(proj, p, lora, slots):
@@ -626,6 +675,37 @@ def _lm_head(x, params, lora, slots):
     if lora is not None and "lm_head.A" in lora:
         logits = _lora_add(logits, x, lora, "lm_head", slots)
     return logits
+
+
+def _head_rows(last, params, lora, slots):
+    """f32 logits of prefill rows' last hidden states [R, dim]; each
+    row's lm_head adapter delta on that row alone, so a row's logits do
+    not depend on how many rows its dispatch carries."""
+    logits = _logits(last, params["lm_head"])
+    if lora is not None and "lm_head.A" in lora:
+        logits = torch.stack([
+            _lora_add(logits[i], last[i], lora, "lm_head", slots[i])
+            for i in range(last.shape[0])])
+    return logits
+
+
+def _paged_layers(params, x, caches, cfg: LlamaConfig, cos, sin, lora,
+                  slots, attend):
+    """The transformer blocks of a paged forward. ``attend(cache, q, k,
+    v)`` writes the step's K/V into one layer's pages and returns
+    attention's output [B, S, heads*D] in cfg.dtype. One device's params
+    here; tp shards go to ``_paged_layers_tp``."""
+    if _is_tp(params):
+        return _paged_layers_tp(params, x, caches, cfg, cos, sin, lora,
+                                slots, attend)
+    for layer in range(cfg.n_layers):
+        p = _layer_params(params, layer)
+        ll = _lora_at_layer(lora, layer)
+        h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+        q, k, v = _qkv(h, p, cfg, cos, sin, ll, slots)
+        x = x + _out_proj(attend(caches[layer], q, k, v), p, ll, slots)
+        x, _ = _mlp_block(x, p, cfg)
+    return x
 
 
 def _prefill_chunk_hidden(params, chunk, caches, block_table_row, start_pos,
@@ -656,25 +736,23 @@ def _prefill_chunk_hidden(params, chunk, caches, block_table_row, start_pos,
     qlens1 = tl.reshape(1)
     bt1 = block_table_row[None]
 
-    x = params["embed"][chunk].to(cfg.dtype)                  # [1, C, D]
-    for layer in range(cfg.n_layers):
-        p = _layer_params(params, layer)
-        ll = _lora_at_layer(lora, layer)
-        cache = caches[layer]
-        h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
-        q, k, v = _qkv(h, p, cfg, cos, sin, ll, slot)         # [1,C,H/KVH,D]
-        shape = (n_chunk_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
-        cache["k"][chunk_page_ids] = _rows_from(k[0].reshape(shape), src).to(
+    def attend(cache, q, k, v):
+        pid, sw, bt, st, ql = _on(q.device, chunk_page_ids, src, bt1,
+                                  starts1, qlens1)
+        shape = (n_chunk_pages, page_size) + tuple(k.shape[2:])
+        cache["k"][pid] = _rows_from(k[0].reshape(shape), sw).to(
             cache["k"].dtype)
-        cache["v"][chunk_page_ids] = _rows_from(v[0].reshape(shape), src).to(
+        cache["v"][pid] = _rows_from(v[0].reshape(shape), sw).to(
             cache["v"].dtype)
         # the writes above already placed the window's K/V: attention
         # reads pages only (prefix + causal window in one predicate)
-        attn = ragged_paged_attention(q, cache["k"], cache["v"], bt1,
-                                      starts1, qlens1, scale=scale)
-        x = x + _out_proj(attn.to(cfg.dtype).reshape(1, c, -1), p, ll, slot)
-        x, _ = _mlp_block(x, p, cfg)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)[0]
+        attn = ragged_paged_attention(q, cache["k"], cache["v"], bt, st, ql,
+                                      scale=scale)
+        return attn.to(cfg.dtype).reshape(1, c, -1)
+
+    x = _embed(params, chunk, cfg)                            # [1, C, D]
+    x = _paged_layers(params, x, caches, cfg, cos, sin, lora, slot, attend)
+    return rms_norm(x, _first(params)["final_norm"], cfg.norm_eps)[0]
 
 
 def prefill_paged_chunk(params: dict, chunk, caches: list[dict],
@@ -690,10 +768,11 @@ def prefill_paged_chunk(params: dict, chunk, caches: list[dict],
     sink page 0), attends the paged prefix plus the chunk causally, and
     returns (logits [C, V] f32, caches). ``lora``/``slot`` (a scalar):
     the chunk's adapter, as in ``decode_paged``."""
+    params, caches, lora = _as_shards(params, caches, lora)
     hidden = _prefill_chunk_hidden(params, chunk, caches, block_table_row,
                                    start_pos, cfg, page_size, true_chunk_len,
                                    lora, slot)
-    return _lm_head(hidden, params, lora, slot), caches
+    return _vocab_parallel(_lm_head, hidden, params, lora, slot), caches
 
 
 def prefill_paged_rows(params: dict, chunks, caches: list[dict], bt_rows,
@@ -709,6 +788,7 @@ def prefill_paged_rows(params: dict, chunks, caches: list[dict], bt_rows,
     row's adapter, as in ``decode_paged``; the row's lm_head delta is
     taken on that row alone, so a row's logits do not depend on how many
     rows its dispatch carries."""
+    params, caches, lora = _as_shards(params, caches, lora)
     c = chunks.shape[1]
     dev = chunks.device
     true_lens = _as_i32(true_lens, dev)
@@ -724,12 +804,8 @@ def prefill_paged_rows(params: dict, chunks, caches: list[dict], bt_rows,
         # index_select with a device index: no host round trip per row
         last.append(hidden.index_select(
             0, (true_lens[i] - 1).clamp(0, c - 1).reshape(1))[0])
-    logits = _logits(torch.stack(last), params["lm_head"])
-    if lora is not None and "lm_head.A" in lora:
-        logits = torch.stack([
-            _lora_add(logits[i], last[i], lora, "lm_head", slots[i])
-            for i in range(len(last))])
-    return logits, caches
+    return _vocab_parallel(_head_rows, torch.stack(last), params, lora,
+                           slots), caches
 
 
 def verify_paged_rows(params: dict, tokens, caches: list[dict], bt_rows,
@@ -741,6 +817,7 @@ def verify_paged_rows(params: dict, tokens, caches: list[dict], bt_rows,
     caches). Positions past the block table write to sink page 0 (their
     logits are garbage the engine discards). Rows run in order, like
     prefill_paged_rows; ``lora``/``slots`` [R] as there."""
+    params, caches, lora = _as_shards(params, caches, lora)
     dev = tokens.device
     maxp = bt_rows.shape[1]
     s1 = tokens.shape[1]
@@ -761,26 +838,121 @@ def verify_paged_rows(params: dict, tokens, caches: list[dict], bt_rows,
         page_ids = torch.where(pidx < maxp, bt[pidx.clamp(0, maxp - 1)], 0)
         offsets = positions % page_size
         src = _last_writer(page_ids * page_size + offsets, cfg)
-        x = params["embed"][tokens[i]][None].to(cfg.dtype)         # [1,S1,D]
-        for layer in range(cfg.n_layers):
-            p = _layer_params(params, layer)
-            ll = _lora_at_layer(lora, layer)
-            cache = caches[layer]
-            h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
-            q, k, v = _qkv(h, p, cfg, cos, sin, ll, sl)
-            cache["k"][page_ids, offsets] = _rows_from(k[0], src).to(
-                cache["k"].dtype)
-            cache["v"][page_ids, offsets] = _rows_from(v[0], src).to(
-                cache["v"].dtype)
-            attn = ragged_paged_attention(q, cache["k"], cache["v"],
-                                          bt[None], start.reshape(1),
-                                          qlens1, scale=scale)
-            x = x + _out_proj(attn.to(cfg.dtype).reshape(1, s1, -1), p,
-                              ll, sl)
-            x, _ = _mlp_block(x, p, cfg)
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        out.append(_lm_head(x, params, lora, sl)[0])
+
+        def attend(cache, q, k, v, page_ids=page_ids, offsets=offsets,
+                   src=src, bt=bt, start=start):
+            pid, off, sw, b1, st, ql = _on(q.device, page_ids, offsets, src,
+                                           bt[None], start.reshape(1), qlens1)
+            cache["k"][pid, off] = _rows_from(k[0], sw).to(cache["k"].dtype)
+            cache["v"][pid, off] = _rows_from(v[0], sw).to(cache["v"].dtype)
+            attn = ragged_paged_attention(q, cache["k"], cache["v"], b1, st,
+                                          ql, scale=scale)
+            return attn.to(cfg.dtype).reshape(1, s1, -1)
+
+        x = _embed(params, tokens[i], cfg)[None]                   # [1,S1,D]
+        x = _paged_layers(params, x, caches, cfg, cos, sin, lora, sl, attend)
+        x = rms_norm(x, _first(params)["final_norm"], cfg.norm_eps)
+        out.append(_vocab_parallel(_lm_head, x, params, lora, sl)[0])
     return torch.stack(out), caches
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel paged forwards
+# ---------------------------------------------------------------------------
+# The paged forwards take one device's params, caches and slot table, or
+# lists of the per-tp-rank shards of each (``parallel.sharding``: params
+# cut by ``logical_axes``, the KV pools over kv_heads, the slot table by
+# its own ``logical_axes``). A one-shard list runs exactly the one-device
+# ops. With more, the Megatron layout: every rank runs the layer code at
+# its own head counts (H/tp, KVH/tp) and mlp columns (mlp/tp; an MoE rank
+# keeps every expert at mlp/tp columns) on its shards. The row-parallel
+# products — wo with its adapter delta, w_down (or the MoE combine) —
+# leave f32 partial sums that ``tp_all_reduce`` adds before the
+# residual's cast. The embedding is a masked lookup of each rank's vocab
+# rows, summed (one rank holds each token: the sum is exact); the
+# lm_head gives each rank's f32 logit columns, concatenated, so sampling
+# sees the whole row. Norms, RoPE and the MoE router are replicated; the
+# activations between layers are too (one tensor per rank's device).
+
+def _is_tp(params) -> bool:
+    return isinstance(params, (list, tuple))
+
+
+def _first(params) -> dict:
+    return params[0] if _is_tp(params) else params
+
+
+def _as_shards(params, caches, lora):
+    """One-shard lists unwrapped to one device's (the exact one-device
+    ops); anything else as given."""
+    if _is_tp(params) and len(params) == 1:
+        return params[0], caches[0], None if lora is None else lora[0]
+    return params, caches, lora
+
+
+def _embed(params, tokens, cfg: LlamaConfig):
+    """Embedding rows of ``tokens`` in cfg.dtype, on tokens' device (tp:
+    each rank's masked lookup of its vocab rows, summed)."""
+    if not _is_tp(params):
+        return params["embed"][tokens].to(cfg.dtype)
+    parts, lo = [], 0
+    for p in params:
+        e = p["embed"]
+        n = e.shape[0]
+        t = tokens.to(e.device) - lo
+        hit = (t >= 0) & (t < n)
+        rows = e[t.clamp(0, n - 1)].to(cfg.dtype)
+        parts.append(torch.where(hit[..., None], rows, 0))
+        lo += n
+    return tp_all_reduce(parts)[0].to(tokens.device)
+
+
+def _vocab_parallel(head, x, params, lora, slots):
+    """``head(x, params, lora, slots)`` on one device; tp: each rank's
+    f32 logit columns, concatenated on x's device."""
+    if not _is_tp(params):
+        return head(x, params, lora, slots)
+    cols = []
+    for i, p in enumerate(params):
+        ll = None if lora is None else lora[i]
+        cols.append(head(x.to(p["lm_head"].device), p, ll, slots).to(
+            x.device))
+    return torch.cat(cols, dim=-1)
+
+
+def _mlp_partial(h, p, cfg: LlamaConfig):
+    """One rank's f32 partial sum of the MLP over its mlp columns."""
+    if cfg.moe_experts:
+        return _moe_ffn(h, p, cfg, f32_out=True)[0]
+    gate = F.silu(h @ p["w_gate"])
+    return _logits(gate * (h @ p["w_up"]), p["w_down"])
+
+
+def _paged_layers_tp(shards, x, caches, cfg: LlamaConfig, cos, sin, loras,
+                     slots, attend):
+    """``_paged_layers`` over tp shards (section comment). Returns the
+    first rank's copy of the replicated hidden state."""
+    devs = [s["final_norm"].device for s in shards]
+    xs = [x.to(d) for d in devs]
+    rope = [_on(d, cos, sin) for d in devs]
+    for layer in range(cfg.n_layers):
+        ps = [_layer_params(s, layer) for s in shards]
+        lls = [_lora_at_layer(None if loras is None else loras[i], layer)
+               for i in range(len(ps))]
+        parts = []
+        for i, p in enumerate(ps):
+            h = rms_norm(xs[i], p["attn_norm"], cfg.norm_eps)
+            q, k, v = _qkv(h, p, cfg, *rope[i], lls[i], slots)
+            attn = attend(caches[i][layer], q, k, v)
+            y = _logits(attn, p["wo"])
+            if lls[i] is not None:
+                y = _lora_add(y, attn, lls[i], "wo", slots)
+            parts.append(y)
+        xs = [a + y.to(a.dtype) for a, y in zip(xs, tp_all_reduce(parts))]
+        parts = [_mlp_partial(rms_norm(xs[i], p["mlp_norm"], cfg.norm_eps),
+                              p, cfg) for i, p in enumerate(ps)]
+        xs = [a + y.to(a.dtype) for a, y in zip(xs, tp_all_reduce(parts))]
+    return xs[0]
 
 
 # ---------------------------------------------------------------------------

@@ -366,10 +366,11 @@ class ServeController:
         self._routes: dict[str, str] = {}
         # proxy fleet (serve/frontdoor): [{"actor", "port", "index"}],
         # controller-managed like replicas — dead proxies are replaced
-        # on their port by the reconcile loop
+        # on their port by the proxy loop (_proxy_loop)
         self._proxies: list[dict] = []
         self._http_port = None
         self._reconcile_task = None
+        self._proxy_task = None
         self._shutdown = False
         self._version_counter = itertools.count(1)
         self._ticks = 0
@@ -419,8 +420,9 @@ class ServeController:
             await self._ensure_proxies(http_port, num_proxies)
         self._publish_routes()
         if self._reconcile_task is None:
-            self._reconcile_task = asyncio.get_event_loop().create_task(
-                self._reconcile_loop())
+            loop = asyncio.get_event_loop()
+            self._reconcile_task = loop.create_task(self._reconcile_loop())
+            self._proxy_task = loop.create_task(self._proxy_loop())
 
     def _replica_blob(self, spec: DeploymentSpec) -> bytes:
         import cloudpickle
@@ -724,11 +726,21 @@ class ServeController:
                 # fresh KV ring to a decode peer; no-op once paired
                 for app in list(self._apps):
                     await self._pair_pd_roles(app)
-            if deep and self._proxies:
-                await self._check_proxies()
             # topology drift (replica counts, proxy replacements) reaches
             # the shared route table here; no-op when nothing changed
             self._publish_routes()
+
+    async def _proxy_loop(self):
+        """Replace dead proxies every ~1 s, apart from the replica loop:
+        that loop awaits every replica's stats(), and a replacement
+        replica answers only once its constructor has returned, which
+        must not keep a dead proxy's port closed (a divergence from the
+        reference, whose one loop checks both)."""
+        while not self._shutdown:
+            await asyncio.sleep(1.0)
+            if self._proxies and not self._shutdown:
+                await self._check_proxies()
+                self._publish_routes()
 
     def _autoscale(self, st: _DeploymentState, cfg: AutoscalingConfig,
                    total_ongoing: int):
@@ -883,6 +895,13 @@ class ServeController:
                 except Exception:
                     # port still lingering in TIME_WAIT or node down:
                     # retry next tick rather than losing the slot
+                    continue
+                if rec not in self._proxies:
+                    # the fleet shrank while the new proxy started
+                    try:
+                        ray_tpu_torch.kill(fresh["actor"])
+                    except Exception:
+                        pass  # already dead
                     continue
                 self._proxies[self._proxies.index(rec)] = fresh
                 self._publish_routes()

@@ -20,6 +20,8 @@ rtol * |plain| per tensor, with (atol, rtol) = (1e-5, 1e-4) for f32 and
 for lse, and (2^-8, 2^-7) for bf16 outputs (chip_smoke.FLASH_TOL states
 why).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -86,12 +88,11 @@ def test_kernel_matches_plain_version(cuda, dtype, d, groups, page):
 
 
 def _rpa_case(dtype, d, q_width, groups, page, starts, q_lens, device,
-              seed=0):
+              seed=0, kvh=2):
     """Ragged rows on disjoint live pages; table tails name an all-NaN
     page and the slots past each row's live length in its last live page
     are NaN, so a kernel that reads past a row's keys gives NaN."""
     rng = np.random.RandomState(seed)
-    kvh = 2
     starts = np.asarray(starts, np.int32)
     q_lens = np.asarray(q_lens, np.int32)
     kv_len = starts + q_lens
@@ -162,6 +163,22 @@ def test_ragged_kernel_long_rows_split_kv(cuda, dtype, d, page, q_width):
     q_lens = [q_width, q_width, q_width, q_width, 0]
     args = _rpa_case(dtype, d, q_width, 4, page, starts, q_lens, cuda,
                      seed=1)
+    _assert_rpa_matches(args, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q_width,starts,q_lens", [
+    (1, [0, 16, 129, 255, 510, 639, 876, 999], [1] * 8),        # decode
+    (128, [0, 256, 512, 640], [128, 128, 77, 128]),             # prefill
+    (5, [3, 21, 100, 255, 301, 517, 700, 900], [5] * 8),        # verify
+], ids=["decode", "prefill", "verify"])
+def test_ragged_kernel_at_a_tp2_rank_shape(cuda, dtype, q_width, starts,
+                                           q_lens):
+    """One tp=2 rank of Llama-3-8B (the shape phase 4k serves at): H 16,
+    KVH 4, D 128, page 16, at chip_smoke phase 3's rows."""
+    args = _rpa_case(dtype, 128, q_width, 4, 16, starts, q_lens, cuda,
+                     kvh=4)
+    assert args[0].shape[2] == 16 and args[1].shape[2] == 4
     _assert_rpa_matches(args, dtype)
 
 
@@ -320,6 +337,40 @@ def test_engine_on_card_matches_engine_on_cpu(cuda):
     assert [x["token_ids"] for x in a] == [x["token_ids"] for x in b]
 
 
+def _tp2_on(cuda):
+    """A tp=2 mesh with both ranks on the one card."""
+    from ray_tpu_torch.parallel import MeshSpec, build_mesh
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return build_mesh(MeshSpec(tp=2), devices=[dev, dev])
+
+
+def test_tp2_engine_on_card_matches_engine_on_cpu(cuda):
+    """The f32 model above at tp=2 on the card (both ranks on it, the
+    kernel at H 2 / KVH 1 per rank) gives the CPU's one-device greedy
+    tokens, logprobs within 1e-4, and moves no shard."""
+    from ray_tpu_torch.llm import (PagedEngineConfig, PagedInferenceEngine,
+                                   SamplingParams)
+    from ray_tpu_torch.models import llama
+    mc = llama.llama_tiny(vocab_size=300, dim=256, n_heads=4, n_kv_heads=2,
+                          mlp_dim=512, max_seq_len=512)
+    params = llama.init(mc, seed=1, device="cpu")
+    cfg = PagedEngineConfig(model=mc, max_batch_size=3, page_size=8,
+                            num_pages=96, max_pages_per_seq=32,
+                            chunk_size=16, decode_window=4)
+    prompts = [[3, 4, 5], list(range(40, 90)), list(range(7, 30))]
+    sp = SamplingParams(max_tokens=8, logprobs=1)
+    card = PagedInferenceEngine(dataclasses.replace(cfg, mesh=_tp2_on(cuda)),
+                                params, device=cuda)
+    before = ragged_paged_attention.launches
+    a = card.generate(prompts, sp)
+    assert ragged_paged_attention.launches > before
+    b = PagedInferenceEngine(cfg, params, device="cpu").generate(prompts, sp)
+    assert [x["token_ids"] for x in a] == [x["token_ids"] for x in b]
+    for x, y in zip(a, b):
+        np.testing.assert_allclose(x["logprobs"], y["logprobs"], atol=1e-4)
+    assert card.stats["mesh_reshard_bytes"] == 0
+
+
 def _bf16_engines(cuda, **kw):
     """A captured and an eager paged engine on one bf16 model (head_dim
     64, GQA 2), same weights and seed; the captured one warmed up."""
@@ -364,9 +415,20 @@ def test_captured_dispatch_equals_eager_body(cuda, family):
     on the card gives the same bits: tokens, logprobs, every page from 1
     up, the dispatch counters and the ragged kernel's launches (a replay
     adds the launches its capture made)."""
+    _captured_vs_eager(cuda, family)
+
+
+@pytest.mark.parametrize("family", sorted(FAMILY_RUNS))
+def test_tp2_captured_dispatch_equals_eager_body(cuda, family):
+    """The same, with both engines on a tp=2 mesh on the one card: each
+    program captures both ranks' kernels and the reduce between them."""
+    _captured_vs_eager(cuda, family, mesh=_tp2_on(cuda))
+
+
+def _captured_vs_eager(cuda, family, **extra):
     from ray_tpu_torch.llm import SamplingParams
     kw, make = FAMILY_RUNS[family]
-    captured, eager = _bf16_engines(cuda, **kw)
+    captured, eager = _bf16_engines(cuda, **kw, **extra)
     prompts, params = make(np.random.RandomState(6))
     sps = [SamplingParams(**p) for p in params]
     if family == "verify":
@@ -391,7 +453,7 @@ def test_captured_dispatch_equals_eager_body(cuda, family):
     # key warmup does not build (a logprobs mode) was captured lazily
     assert len(captured._graphs) >= len(captured._warmup_keys(
         ((False, False), (True, True))))
-    for ca, ea in zip(captured.caches, eager.caches):
+    for ca, ea in zip(captured._layers(), eager._layers()):
         assert torch.equal(ca["k"][1:], ea["k"][1:])
         assert torch.equal(ca["v"][1:], ea["v"][1:])
 

@@ -117,7 +117,10 @@ def test_port_modules_load_no_jax_and_no_ray_tpu():
                  "ray_tpu_torch.util.actor_pool",
                  "ray_tpu_torch.util.queue",
                  "ray_tpu_torch.util.multiprocessing",
-                 "ray_tpu_torch.util.chaos"):
+                 "ray_tpu_torch.util.chaos",
+                 # tensor-parallel serving
+                 "ray_tpu_torch.parallel", "ray_tpu_torch.parallel.mesh",
+                 "ray_tpu_torch.parallel.sharding"):
         assert want in modules, (want, sorted(modules))
     assert lines["BANNED"] == "", lines["BANNED"]
 

@@ -181,14 +181,13 @@ def test_sample_logits_batch_honours_top_k_and_softmax():
     ("mesh", {"tp": 2}), ("max_adapters", 4), ("kv_spill", True),
     ("lora_rank", 16), ("kv_spill_max_bytes", 1 << 20)])
 def test_unported_features_raise(field, value):
-    """mesh, the one engine feature not ported, raises; the multi-LoRA
-    and spill-tier fields are ported and accepted."""
+    """Every engine feature is ported now: the tp mesh, the multi-LoRA
+    and the spill-tier fields are accepted and build an engine (the
+    mesh's unported axes raise in tests/test_torch_mesh_engine.py)."""
+    cfg = PagedEngineConfig(model=tllama.llama_tiny(), **{field: value})
+    eng = PagedInferenceEngine(cfg, tllama.init(cfg.model, 0, device="cpu"),
+                               device="cpu")
     if field == "mesh":
-        with pytest.raises(NotImplementedError, match=field):
-            PagedEngineConfig(model=tllama.llama_tiny(), **{field: value})
-    else:
-        cfg = PagedEngineConfig(model=tllama.llama_tiny(), **{field: value})
-        PagedInferenceEngine(cfg, tllama.init(cfg.model, 0, device="cpu"),
-                             device="cpu")
+        assert dict(eng.mesh.shape)["tp"] == 2
     # the defaults themselves are accepted
     PagedEngineConfig(model=tllama.llama_tiny())

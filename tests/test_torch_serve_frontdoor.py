@@ -1012,3 +1012,66 @@ def test_chaos_kill_llm_replica_on_a_fake_gpu(fresh_cluster):
             time.monotonic() < deadline:
         time.sleep(0.2)
     assert rt.available_resources().get("GPU") == 1.0
+
+
+def test_chaos_dead_proxy_answers_before_a_slow_replica(fresh_cluster,
+                                                        tmp_path):
+    """A replica and the proxy SIGKILLed together, the replica's
+    replacement sleeping in its constructor: the proxy is replaced and
+    answers on its port within a few reconcile ticks, long before the
+    replacement's constructor returns (the controller checks proxies in
+    a loop of their own, apart from its awaits on the replicas), and the
+    replacement then serves."""
+    import signal
+    slow_s = 15.0
+    marker = str(tmp_path / "slow-start")
+
+    @serve.deployment(num_replicas=1)
+    class SlowStart:
+        def __init__(self, marker, slow_s):
+            if os.path.exists(marker):
+                time.sleep(slow_s)
+
+        def __call__(self, payload):
+            return {"pid": os.getpid()}
+
+    _h, port = _run_http(SlowStart.bind(marker, slow_s), "default")
+    code, body, _hd = _post(port, {})
+    assert code == 200, (code, body)
+    open(marker, "w").close()       # only the replacement starts slowly
+    ctrl = rt.get_actor("rtpu:serve:controller")
+    (proxy,) = rt.get(ctrl.get_proxies.remote())
+    proxy_pid = rt.get(proxy["actor"].ping.remote())["pid"]
+    del proxy
+    os.kill(body["pid"], signal.SIGKILL)
+    os.kill(proxy_pid, signal.SIGKILL)
+    t_kill = time.monotonic()
+
+    # the proxy's own answer: a private route it refuses itself (404),
+    # without a replica
+    back = None
+    while back is None and time.monotonic() - t_kill < 60:
+        try:
+            code, _b, _hd = _post(port, {}, path="default/_probe",
+                                  timeout=5)
+            back = time.monotonic() - t_kill
+        except (urllib.error.URLError, ConnectionError):
+            time.sleep(0.1)
+    assert code == 404, code
+    assert back is not None and back < slow_s - 3.0, back
+
+    # the replacement answers once its constructor has returned
+    first_200 = None
+    while first_200 is None and time.monotonic() - t_kill < 120:
+        code, resp, _hd = _post(port, {}, timeout=60)
+        if code == 200:
+            first_200 = time.monotonic() - t_kill
+            assert resp["pid"] != body["pid"]
+        else:
+            assert code in (503, 504), (code, resp)
+            time.sleep(0.2)
+    assert first_200 is not None and first_200 >= slow_s > back
+    proxies = rt.get(ctrl.get_proxies.remote())
+    assert len(proxies) == 1 and proxies[0]["port"] == port
+    assert rt.get(proxies[0]["actor"].ping.remote())["pid"] != proxy_pid
+    del proxies, ctrl
