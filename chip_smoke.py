@@ -117,6 +117,48 @@ and prints no result line):
    to the loop's first line), first-step s, the worker's step ms median
    beside phase 6's, checkpoint GiB, save and restore s, crash to the
    first resumed step's end, phase s, with the card and its power limit.
+6c. lora_tune: the LoRA trainer (ray_tpu_torch.llm.multilora) and Tune
+   (ray_tpu_torch.tune) in 6b's runtime before it shuts down, over phase
+   6's seed-0 base at Llama-3-8B widths and 8 of 32 layers, bf16,
+   frozen: targets wq, wv and lm_head, rank 16, alpha 32, lr 1e-3,
+   batch 4 x 512, random inputs from RandomState(1000 + step) and every
+   target one taught token. Launch counts are set to 0 just before each
+   step (in the data function) and read just after (on_step), wherever
+   the step runs. (1) Local mode in the driver: 20 steps checkpointed
+   every 10 into a temporary storage path, then a trainer of 30 steps on
+   the same storage, which resumes at step 20. Held: the 20 losses
+   finite, the last below the first; the resumed adapter equals an
+   uninterrupted 30-step run's bit for bit; every step launches the
+   forward, dq and dkv kernels once per layer and the paged kernels
+   never. (2) Substrate mode: the 20-step config on a one-GPU gang
+   (ScalingConfig(num_workers=1, gpus_per_worker=1)). Held: its losses
+   and adapter equal (1)'s first 20 bit for bit; the kernels as in (1),
+   every step inside the worker, which sees CUDA_VISIBLE_DEVICES "0" and
+   loads neither jax nor ray_tpu; the GPU reads 0 while held and 1
+   after; no worker left. (3) publish() into an AdapterRegistry in the
+   runtime; the fetched payload equals the trainer's adapter bit for
+   bit; an eager paged engine in the driver (phase 4's settings at 8
+   layers, max_adapters=2, lora_rank=16) serves phase 4's greedy
+   prompts, base and tenant in one batch, the tenant's slot from
+   MultiLoraManager.resolve. Held: the base rows equal a plain engine's
+   tokens (no adapters, every tenant request sent there as a base
+   request) bit for bit; a tenant row differs from its base row; the
+   ragged kernel launched in prefill and decode. Printed only: the
+   taught token's share of the tenant's tokens and a merged-weights
+   engine's agreement with them. (4) A Tuner over a trainable that
+   builds phase 6's base in its own process (llama.init, seed 0) and
+   runs the trainer's loop with a checkpoint and a tune.report every
+   step: grid_search over lr 1e-3 and 1e-4, metric loss, mode min, one
+   trial at a time, stop at training_iteration 6, {"CPU": 1, "GPU": 1}
+   per trial. Held: 2 trials, each stopped by the controller after 6
+   reports; the lr-1e-3 trial's 6 losses equal (1)'s first 6 bit for
+   bit; the kernels as in (1), every step inside each trial; each trial
+   sees "0"; the best result is the trial with the lower last loss; the
+   GPU reads 1 after fit; no worker left. Prints one lora_tune: line:
+   step ms medians of local mode, the worker and the trials beside
+   phase 6's, worker and trial start s, the pickled base's GiB and
+   pickle s, checkpoint MiB, resume s, publish ms, the tenant's tokens/s
+   and the phase's s, with the card and its power limit.
 7. train agreement: phase 5's small f32 models (head_dim 128, GQA 2),
    dense and MoE, each trained for 2 steps on the card (kernels) and on
    the CPU (plain versions): losses, MoE aux losses, logits and every
@@ -338,7 +380,13 @@ dag (in 4f and again in 4g, on their 8B actor after its mix and before
    response must be 200, 429, 503 or 504 (no bare 500, no untyped error; a
    connection the dead proxy refused or dropped is counted apart), one
    at least a 200. The head must see the replica's death and give its
-   lease back; within CHAOS_BUDGET_S of the kill phase 4's first greedy
+   lease back, but only once the card has freed the dead replica's
+   memory (C 9): each poll reads the lease, then the card's free memory
+   (torch.cuda.mem_get_info in the driver), and the first poll that
+   sees the lease back must already see the memory freed (8 GiB above
+   its level before the kill), so kill_to_memory_freed_s <=
+   kill_to_lease_back_s, and the free memory read with the lease back is
+   at that level; within CHAOS_BUDGET_S of the kill phase 4's first greedy
    request answers 200 again, the controller lists one running replica
    with a new actor id and pid, on CUDA_VISIBLE_DEVICES "0" and cuda:0,
    GPU reads 0, and the proxy answers on its port from a new pid. The
@@ -348,10 +396,10 @@ dag (in 4f and again in 4g, on their 8B actor after its mix and before
    serve:prefix:llama3-8b entry names the dead replica and
    state.hang_report() is clean. The teardown then names the
    replacements. Its figures are the serve_cluster: line's "chaos":
-   statuses, seconds from the kill to the lease back, to the dead
+   statuses, seconds from the kill to the lease back (with the head's
+   card_wait: how its wait ended and its seconds), to the dead
    process's end, to the controller's listing of the replacement, to the
-   card's free memory rising by 8 GiB (within the 4 s of load; absent if
-   later), to the proxy's answer and to the first 200, the replacement's
+   card's free memory rising by 8 GiB, to the proxy's answer and to the first 200, the replacement's
    ready seconds and
    programs after warmup, the card's free memory (device-wide, from the
    driver) before the kill, with the lease back, with the dead process
@@ -438,7 +486,7 @@ dag (in 4f and again in 4g, on their 8B actor after its mix and before
    forward kernel's launches are counted as in phase 7.
 
 Phases run in the order 1, 2, 3, 3c, 3b, 4, 4b, 4c, 4d, 4e, 4f, 4g, 4h,
-4j, 4i, 5, 5b, 6, 6b, 7; each phase's seconds on the host clock (a
+4j, 4i, 5, 5b, 6, 6b, 6c, 7; each phase's seconds on the host clock (a
 phases: line) and the total seconds are printed before the kernels'
 record.
 The
@@ -2921,23 +2969,32 @@ def serve_chaos(rt, ctrl, replica, port: int, bodies: list, greedy: dict,
         watcher = threading.Thread(target=watch_proxy, daemon=True)
         watcher.start()
         # the head sees the death and gives the dead worker's lease back
+        # once the card has freed its memory (C 9): each poll reads the
+        # lease before the card, so a lease seen back before the memory
+        # would show as kill_to_memory_freed_s > kill_to_lease_back_s
         while True:
+            now = time.perf_counter() - t_kill
             with head.lock:
                 dead = [w for w in head.workers.values()
                         if getattr(w.proc, "pid", None) == old_pid]
                 back = len(dead) == 1 and dead[0].state == "dead" and \
                     not dead[0].gpus
+            if cuda and "kill_to_memory_freed_s" not in fig:
+                free = free_gib()
+                if free > fig["free_gib_before_kill"] + 8:
+                    fig["kill_to_memory_freed_s"] = now
+                    fig["free_gib_memory_freed"] = free
             if back:
-                fig["kill_to_lease_back_s"] = time.perf_counter() - t_kill
+                fig["kill_to_lease_back_s"] = now
+                fig["card_wait"] = dead[0].card_wait
                 break
-            if time.perf_counter() - t_kill > 60:
+            if now > 60:
                 raise AssertionError(f"4h chaos: the replica's lease not "
                                      f"back 60 s after the kill ({dead})")
             time.sleep(0.005)
         fig["free_gib_lease_back"] = free_gib()
-        # the head gives the lease back on the dead worker's lost
-        # connection; its process (and its device memory) may still be
-        # going
+        # the dead worker's process may be gone before the head's
+        # watcher has reaped it and read the card
         while _alive(old_pid) and time.perf_counter() - t_kill < 60:
             time.sleep(0.005)
         fig["kill_to_process_gone_s"] = time.perf_counter() - t_kill
@@ -2957,6 +3014,13 @@ def serve_chaos(rt, ctrl, replica, port: int, bodies: list, greedy: dict,
             t.join(timeout=600)
     if errors or any(t.is_alive() for t in threads):
         raise AssertionError(f"4h chaos: untyped failures {errors}")
+    if cuda and not (fig.get("kill_to_memory_freed_s", math.inf)
+                     <= fig["kill_to_lease_back_s"] and
+                     fig["free_gib_lease_back"]
+                     > fig["free_gib_before_kill"] + 8):
+        raise AssertionError(
+            f"4h chaos: the lease came back before the card freed the "
+            f"dead replica's memory: {fig}")
     bad = {c: n for c, n in codes.items() if c not in CHAOS_TYPED}
     if bad or not codes[200]:
         raise AssertionError(f"4h chaos: statuses {dict(codes)}")
@@ -4986,7 +5050,7 @@ def _dir_bytes(path: str) -> int:
 
 
 def trainer(model_cfg, phase6: dict, device="cuda", batch: int = 2,
-            seq: int = 4096, seed: int = 0) -> dict:
+            seq: int = 4096, seed: int = 0, then=None) -> dict:
     """Phase 6b: phase 6's train step (its weights, batch and AdamW) as
     the train loop of a TorchTrainer on the port's runtime
     (``ray_tpu_torch.init(num_cpus=2, num_gpus=1)``; on the CPU the GPU
@@ -4999,7 +5063,9 @@ def trainer(model_cfg, phase6: dict, device="cuda", batch: int = 2,
     never; the restored state's checksums equal the saved ones; the
     result (no error, the last step, every report of both attempts, the
     checkpoint's step); the GPU 0 while the gang holds it and back once
-    fit returns, no worker left. Returns the figures."""
+    fit returns, no worker left. ``then(rt, storage)``, where given, runs
+    in the runtime before it shuts down (phase 6c), its figures returned
+    under "then". Returns the figures."""
     import importlib.util
     import shutil
     import tempfile
@@ -5103,6 +5169,11 @@ def trainer(model_cfg, phase6: dict, device="cuda", batch: int = 2,
                 "launches": {n: sum(m["launches"][n] for m in hist)
                              for n in want},
                 "losses_equal_phase6": True})
+            if then is not None:
+                gc.collect()
+                if cuda:
+                    torch.cuda.empty_cache()
+                fig["then"] = then(rt, storage)
         finally:
             rt.shutdown()
     finally:
@@ -5112,6 +5183,365 @@ def trainer(model_cfg, phase6: dict, device="cuda", batch: int = 2,
         time.sleep(0.2)
     if _port_procs():
         raise AssertionError(f"6b: port workers left alive: {_port_procs()}")
+    fig["phase_s"] = time.perf_counter() - t_phase
+    if cuda:
+        fig["card"] = _card()
+    return fig
+
+
+# -- phase 6c: the LoRA trainer and Tune in 6b's runtime --------------------
+
+#: phase 6c's fine-tune: the trainer's fields (targets, rank, alpha, lr,
+#: batch, checkpoint cadence, seed)
+LORA_6C = dict(targets=("wq", "wv", "lm_head"), rank=16, alpha=32.0,
+               learning_rate=1e-3, batch_size=4, seq_len=512,
+               checkpoint_every=10, seed=0)
+LORA_STEPS = 20          # local mode's first run and substrate mode
+LORA_RESUMED = 30        # the resumed run and the uninterrupted one
+LORA_TOKEN = 7           # every target
+TUNE_REPORTS = 6         # TuneConfig(stop={"training_iteration": 6})
+TUNE_LRS = (1e-3, 1e-4)
+
+
+class _LoraProbe:
+    """6c's data function and per-step record, in whichever process runs
+    the step (the driver, the gang's worker, a trial). ``data`` is the
+    reference test's ``_teach`` at 6c's batch (inputs from
+    ``RandomState(1000 + step)``, every target LORA_TOKEN) and sets the
+    kernels' launch counts to 0: the step starts there. ``step``
+    (the trainer's on_step) reads them just after the step; with a
+    ``path`` each record is also appended there as a JSON line."""
+
+    def __init__(self, vocab: int, batch: int, seq: int, path=None):
+        self.vocab, self.batch, self.seq, self.path = vocab, batch, seq, path
+        self.records: list = []
+        self.t0 = None
+        self.first_data_t = None
+
+    def data(self, step):
+        _reset_launch_counts()
+        self.t0 = time.perf_counter()
+        if self.first_data_t is None:
+            self.first_data_t = time.time()
+        rng = np.random.RandomState(1000 + step)
+        toks = rng.randint(1, self.vocab,
+                           (self.batch, self.seq + 1)).astype(np.int32)
+        return toks[:, :self.seq], np.full((self.batch, self.seq),
+                                           LORA_TOKEN, np.int32)
+
+    def step(self, step, loss):
+        rec = {"step": step, "loss": loss, "launches": _launch_counts(),
+               "ms": (time.perf_counter() - self.t0) * 1e3,
+               "t": time.time(), "pid": os.getpid(),
+               "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+               "banned": _banned_modules()}
+        self.records.append(rec)
+        if self.path:
+            with open(self.path, "a") as f:
+                f.write(json.dumps(rec) + "\n")
+
+
+def _lora_trial(config):
+    """6c's Tune trainable, in the trial's process: phase 6's base by
+    phase 6's own ``llama.init`` call (seed 0, on the card), then the
+    trainer's loop from 6c's init with a checkpoint and a tune.report
+    every step (the step's record and the process's entry time in the
+    metrics); the controller's STOP ends it after TUNE_REPORTS."""
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.llm.multilora.train import LoRATrainConfig, _run_loop
+    from ray_tpu_torch.models import llama
+    t_enter = time.time()
+    mc, lr = config["model"], config["learning_rate"]
+    base = llama.init(mc, seed=0, device=config["device"])
+    probe = _LoraProbe(mc.vocab_size, LORA_6C["batch_size"],
+                       LORA_6C["seq_len"])
+    tcfg = LoRATrainConfig(model=mc, steps=LORA_STEPS, **{
+        **LORA_6C, "checkpoint_every": 1, "learning_rate": lr})
+
+    def report(step, loss, st):
+        ck = tune.Checkpoint.from_state(st, path=os.path.join(
+            config["storage"], f"trial_lr{lr:g}_step{step}"))
+        tune.report({**probe.records[-1], "t_enter": t_enter}, checkpoint=ck)
+
+    _run_loop(tcfg, base, probe.data, None, report, probe.step)
+
+
+def lora_tune(model_cfg, rt, storage: str, phase6: dict, device="cuda",
+              **engine_kw) -> dict:
+    """Phase 6c (also rehearsed on the CPU at tiny size, where the GPU is
+    a fake lease and launches are not held): the LoRA trainer in the
+    driver (local mode, resumed), on a one-GPU gang (substrate mode),
+    published and served by an eager paged engine, then tuned by a
+    Tuner, in 6b's runtime ``rt``; files under ``storage``. Returns the
+    figures (module docstring, 6c)."""
+    import glob
+    import shutil
+    import tempfile
+    import threading
+    from ray_tpu_torch import train as rtrain
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.core import runtime as rt_mod
+    from ray_tpu_torch.llm import (PagedEngineConfig, PagedInferenceEngine,
+                                   lora)
+    from ray_tpu_torch.llm.multilora import (AdapterRegistry,
+                                             LoRATrainConfig, LoRATrainer,
+                                             MultiLoraManager)
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops.ragged_paged_attention import \
+        ragged_paged_attention as rpa
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    t_phase = time.perf_counter()
+    tmp_before = set(glob.glob(os.path.join(tempfile.gettempdir(),
+                                            "rtpu_ckpt_*")))
+    mc, L = model_cfg, model_cfg.n_layers
+    vocab, batch, seq = (mc.vocab_size, LORA_6C["batch_size"],
+                         LORA_6C["seq_len"])
+    want = {"flash_fwd": L, "flash_dq": L, "flash_dkv": L,
+            "ragged_paged_attention": 0, "paged_decode_attention": 0}
+
+    def tcfg(steps, **kw):
+        return LoRATrainConfig(model=mc, steps=steps, **{**LORA_6C, **kw})
+
+    def held_steps(label, recs, first, n):
+        if [r["step"] for r in recs] != list(range(first, first + n)):
+            raise AssertionError(f"6c {label}: steps "
+                                 f"{[r['step'] for r in recs]}")
+        for r in recs if cuda else ():
+            if r["launches"] != want:
+                raise AssertionError(f"6c {label}: step {r['step']} "
+                                     f"launches {r['launches']}, want "
+                                     f"{want}")
+
+    def same_adapter(label, a, b):
+        if sorted(a) != sorted(b) or not all(
+                np.asarray(a[k]).dtype == np.asarray(b[k]).dtype and
+                np.array_equal(a[k], b[k]) for k in a):
+            raise AssertionError(f"6c: {label}: adapters differ")
+
+    def median_ms(recs, skip_first=True):
+        ms = [r["ms"] for r in recs[1 if skip_first else 0:]]
+        return statistics.median(ms)
+
+    base = llama.init(mc, seed=0, device=device)      # phase 6's base
+    fig = {"layers": L, "config": {k: v for k, v in LORA_6C.items()},
+           "phase6_step_ms_median": phase6["step_ms_median"]}
+
+    # (1) local mode in the driver: 20 steps, then resumed to 30
+    local_dir = os.path.join(storage, "lora_local")
+    p1 = _LoraProbe(vocab, batch, seq)
+    t1 = LoRATrainer(tcfg(LORA_STEPS), "tenant", base_params=base,
+                     data_fn=p1.data, storage_path=local_dir,
+                     on_step=p1.step)
+    ad20 = t1.fit()
+    held_steps("local", p1.records, 1, LORA_STEPS)
+    losses = [r["loss"] for r in p1.records]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"6c local: losses {losses}")
+    p2 = _LoraProbe(vocab, batch, seq)
+    t2 = LoRATrainer(tcfg(LORA_RESUMED), "tenant", base_params=base,
+                     data_fn=p2.data, storage_path=local_dir,
+                     on_step=p2.step)
+    t_resume = time.time()
+    ad30 = t2.fit()
+    held_steps("resumed", p2.records, LORA_STEPS + 1,
+               LORA_RESUMED - LORA_STEPS)
+    p3 = _LoraProbe(vocab, batch, seq)
+    ad30_fresh = LoRATrainer(tcfg(LORA_RESUMED), "fresh", base_params=base,
+                             data_fn=p3.data, on_step=p3.step).fit()
+    held_steps("uninterrupted", p3.records, 1, LORA_RESUMED)
+    same_adapter("resumed 30 vs uninterrupted 30", ad30, ad30_fresh)
+    if [r["loss"] for r in p3.records] != losses + [
+            r["loss"] for r in p2.records]:
+        raise AssertionError("6c: the uninterrupted run's losses")
+    ckpts = sorted(glob.glob(os.path.join(local_dir, "tenant",
+                                          "checkpoints", "checkpoint_*")))
+    fig["local"] = {
+        "losses": losses, "step_ms_median": median_ms(p1.records),
+        "resume_s": p2.first_data_t - t_resume,
+        "checkpoint_mib": _dir_bytes(ckpts[-1]) / 2 ** 20,
+        "resumed_equals_uninterrupted": True,
+        "launches": {n: sum(r["launches"][n] for r in p1.records)
+                     for n in want}}
+    print(f"lora_tune: local {json.dumps(fig['local'])}", flush=True)
+
+    # (2) substrate mode: the 20-step config on a one-GPU gang
+    wpath = os.path.join(storage, "lora_worker_steps.jsonl")
+    pw = _LoraProbe(vocab, batch, seq, path=wpath)
+    held, stop = [], threading.Event()
+
+    def watch():
+        while not stop.is_set():
+            held.append(rt.available_resources().get("GPU"))
+            stop.wait(0.2)
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    t_fit = time.time()
+    try:
+        sub = LoRATrainer(
+            tcfg(LORA_STEPS), "tenant", base_params=base, data_fn=pw.data,
+            on_step=pw.step,
+            scaling_config=rtrain.ScalingConfig(num_workers=1,
+                                                gpus_per_worker=1),
+            run_config=rtrain.RunConfig(name="lora_substrate",
+                                        storage_path=storage))
+        ad_sub = sub.fit()
+    finally:
+        stop.set()
+        watcher.join()
+    with open(wpath) as f:
+        wrecs = [json.loads(ln) for ln in f]
+    held_steps("worker", wrecs, 1, LORA_STEPS)
+    if [r["loss"] for r in wrecs] != losses:
+        raise AssertionError(f"6c worker: losses {[r['loss'] for r in wrecs]}"
+                             f" != local {losses}")
+    same_adapter("substrate vs local", ad_sub, ad20)
+    pids = {r["pid"] for r in wrecs}
+    if len(pids) != 1 or pids & {os.getpid()} or any(
+            r["visible"] != "0" or r["banned"] for r in wrecs):
+        raise AssertionError(f"6c worker: {wrecs[0]}")
+    if 0 not in held:
+        raise AssertionError(f"6c: GPUs available while the gang ran: "
+                             f"{sorted(set(held))}")
+    _await_gone(rt, list(pids), 1, "6c worker")
+    fig["worker"] = {
+        "start_s": wrecs[0]["t"] - wrecs[0]["ms"] / 1e3 - t_fit,
+        "step_ms_median": median_ms(wrecs),
+        "base_blob_gib": sub.base_blob_bytes / 2 ** 30,
+        "base_pickle_s": sub.base_pickle_s,
+        "equals_local": True, "visible": "0",
+        "launches": {n: sum(r["launches"][n] for r in wrecs) for n in want}}
+    print(f"lora_tune: worker {json.dumps(fig['worker'])}", flush=True)
+
+    # (3) publish into the runtime's registry; serve base and tenant
+    reg = AdapterRegistry("lora6c")
+    t1.registry = reg
+    t0 = time.perf_counter()
+    version = t1.publish()
+    publish_ms = (time.perf_counter() - t0) * 1e3
+    got_v, payload = reg.fetch("tenant")
+    if version != 0 or got_v != 0:
+        raise AssertionError(f"6c publish: versions {version}, {got_v}")
+    same_adapter("fetched payload vs trainer", payload, t1.adapter)
+    prompts, sps = _requests(vocab, 0)
+    greedy = [(p, sp) for p, sp in zip(prompts, sps) if not sp.temperature]
+    eng = PagedInferenceEngine(
+        PagedEngineConfig(model=mc, max_adapters=2, lora_rank=16,
+                          **engine_kw), params=base, device=device)
+    eng._eager = True
+    slot, _v, salt = MultiLoraManager(eng, reg, refresh_s=0.0).resolve(
+        "tenant")
+    n = len(greedy)
+    wave = ([(p, sp, 0, b"") for p, sp in greedy]
+            + [(p, sp, slot, salt) for p, sp in greedy])
+    fam = {"prefill": 0, "decode": 0, "verify": 0}
+    _family_counter(eng, fam, rpa)
+    rpa.launches = 0                       # the serving pass starts here
+    t0 = time.perf_counter()
+    outs = _submit_wave(eng, wave)
+    sync()
+    wall = time.perf_counter() - t0
+    served_launches = rpa.launches         # and ends here
+    del eng
+    plain = PagedInferenceEngine(PagedEngineConfig(model=mc, **engine_kw),
+                                 params=base, device=device)
+    plain._eager = True
+    plain_outs = _submit_wave(plain, wave, as_base=True)
+    del plain
+    if outs[:n] != plain_outs[:n]:
+        raise AssertionError("6c serve: base rows differ from the plain "
+                             "engine's")
+    if all(outs[n + i][0] == outs[i][0] for i in range(n)):
+        raise AssertionError("6c serve: every tenant row equals its base "
+                             "row")
+    if cuda and not (fam["prefill"] > 0 and fam["decode"] > 0):
+        raise AssertionError(f"6c serve: ragged launches {fam}")
+    merged = PagedInferenceEngine(
+        PagedEngineConfig(model=mc, **engine_kw),
+        params=lora.merge(base, t1.adapter), device=device)
+    merged._eager = True
+    merged_outs = _submit_wave(merged, [(p, sp, 0, b"") for p, sp in greedy])
+    del merged
+    tenant = [ids for ids, _lp in outs[n:]]
+    pairs = [(a, b) for (ids, _), (mids, _) in zip(outs[n:], merged_outs)
+             for a, b in zip(ids, mids)]
+    fig["serve"] = {
+        "requests": 2 * n, "base_rows_equal_plain": True,
+        "tenant_rows_differing": sum(outs[n + i][0] != outs[i][0]
+                                     for i in range(n)),
+        "tenant_tokens_per_s": sum(map(len, tenant)) / wall,
+        "taught_share": sum(ids.count(LORA_TOKEN) for ids in tenant)
+        / max(1, sum(map(len, tenant))),
+        "merged_agreement": sum(a == b for a, b in pairs) / max(1,
+                                                                len(pairs)),
+        "launches": served_launches, "launches_by_family": dict(fam),
+        "publish_ms": publish_ms}
+    print(f"lora_tune: serve {json.dumps(fig['serve'])}", flush=True)
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (4) Tune: one trial at a time on the GPU, stopped after 6 reports
+    t_fit = time.time()
+    grid = tune.Tuner(
+        _lora_trial,
+        param_space={"learning_rate": tune.grid_search(list(TUNE_LRS)),
+                     "model": mc, "device": device, "storage": storage},
+        tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                    max_concurrent_trials=1,
+                                    stop={"training_iteration":
+                                          TUNE_REPORTS}),
+        run_config=rtrain.RunConfig(name="lora_tune", storage_path=storage),
+        resources_per_trial={"CPU": 1, "GPU": 1}).fit()
+    if len(grid) != len(TUNE_LRS) or grid.errors:
+        raise AssertionError(f"6c tune: {len(grid)} trials, errors "
+                             f"{grid.errors}")
+    trials = sorted(grid, key=lambda r: r.metrics_history[0]["t_enter"])
+    tpids = []
+    for r in trials:
+        hist = r.metrics_history
+        if r.status != "TERMINATED" or len(hist) != TUNE_REPORTS:
+            raise AssertionError(f"6c tune: {r.config['learning_rate']}: "
+                                 f"{r.status}, {len(hist)} reports")
+        held_steps(f"trial lr {r.config['learning_rate']}", hist, 1,
+                   TUNE_REPORTS)
+        if len({m["pid"] for m in hist}) != 1 or any(
+                m["visible"] != "0" or m["banned"] for m in hist):
+            raise AssertionError(f"6c tune: trial {hist[0]}")
+        tpids.append(hist[0]["pid"])
+    by_lr = {r.config["learning_rate"]: r for r in grid}
+    first = [m["loss"] for m in by_lr[TUNE_LRS[0]].metrics_history]
+    if first != losses[:TUNE_REPORTS]:
+        raise AssertionError(f"6c tune: lr {TUNE_LRS[0]} losses {first} != "
+                             f"local {losses[:TUNE_REPORTS]}")
+    best = grid.get_best_result()
+    lower = min(grid, key=lambda r: r.metrics["loss"])
+    if best.trial_id != lower.trial_id:
+        raise AssertionError("6c tune: best result")
+    if len(set(tpids)) != len(tpids):
+        raise AssertionError(f"6c tune: trial pids {tpids}")
+    _await_gone(rt, tpids, 1, "6c tune")
+    head = rt_mod.get_runtime_if_exists()
+    with head.lock:
+        waits = [w.card_wait for w in head.workers.values()
+                 if getattr(w.proc, "pid", None) in tpids]
+    fig["tune"] = {
+        "trials": len(grid), "best_lr": best.config["learning_rate"],
+        "last_loss": {f"{lr:g}": by_lr[lr].metrics["loss"]
+                      for lr in TUNE_LRS},
+        "start_s": [trials[0].metrics_history[0]["t_enter"] - t_fit] + [
+            b.metrics_history[0]["t_enter"] - a.metrics_history[-1]["t"]
+            for a, b in zip(trials, trials[1:])],
+        "step_ms_median": [median_ms(r.metrics_history) for r in trials],
+        "card_wait": waits,
+        "losses_equal_local": True,
+        "launches": {n: sum(m["launches"][n] for r in trials
+                            for m in r.metrics_history) for n in want}}
+    print(f"lora_tune: tune {json.dumps(fig['tune'])}", flush=True)
+    for d in set(glob.glob(os.path.join(tempfile.gettempdir(),
+                                        "rtpu_ckpt_*"))) - tmp_before:
+        shutil.rmtree(d, ignore_errors=True)
     fig["phase_s"] = time.perf_counter() - t_phase
     if cuda:
         fig["card"] = _card()
@@ -5766,9 +6196,14 @@ def main():
     mark("6_train")
     gc.collect()
     torch.cuda.empty_cache()
-    trained = trainer(mc_train, tr, batch=2, seq=4096)
+    trained = trainer(mc_train, tr, batch=2, seq=4096,
+                      then=lambda rt, storage: lora_tune(
+                          mc_train, rt, storage, tr, **engine_8b))
+    tuned = trained.pop("then")
     print("trainer: " + json.dumps(trained), flush=True)
-    mark("6b_trainer")
+    print("lora_tune: " + json.dumps(tuned), flush=True)
+    mark("6b_trainer_6c_lora_tune")
+    phases["6c_lora_tune"] = tuned["phase_s"]
     remat = dict(remat=True, remat_policy="save_attn")
     train_f32 = train_agreement(_small_model(**remat))
     train_f32_moe = train_agreement(_small_model(**remat, **MOE_SMALL))
@@ -5813,6 +6248,9 @@ def main():
         "launches_pd_decode_by_family": disagg["launches_decode_by_family"],
         # phase 4k: tp=2 (two ranks on the card), phase 4's mix
         "launches_serve_tp": tp2["launches"],
+        # phase 6c: the trained tenant and the base in one eager batch
+        "launches_lora_serve": tuned["serve"]["launches"],
+        "launches_lora_serve_by_family": tuned["serve"]["launches_by_family"],
         "launches_serve_tp_by_family": tp2["launches_by_family"],
         "max_abs_err": max(r["max_abs_err"] for r in records),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -5867,6 +6305,11 @@ def main():
             "launches_dense_serve": dense["launches"][name],
             # inside phase 6b's TorchTrainer worker, both attempts
             "launches_trainer": trained["launches"][name],
+            # phase 6c: 20 LoRA steps in the driver, the same 20 inside
+            # the gang's worker, 6 steps inside each of the two trials
+            "launches_lora_local": tuned["local"]["launches"][name],
+            "launches_lora_worker": tuned["worker"]["launches"][name],
+            "launches_lora_trials": tuned["tune"]["launches"][name],
             "max_abs_err": flash["max_abs_err"][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -1,5 +1,5 @@
 """ray_tpu_torch — the PyTorch/CUDA port of ray_tpu's serving engines,
-batch inference, Llama training step and Train library.
+batch inference, Llama training step, Train and Tune libraries.
 
 A second package beside ``ray_tpu``: the same Llama paged-KV serving
 engine, dense-slot engine (behind ``LLMPredictor``), OpenAI app under
@@ -51,6 +51,15 @@ tensor-parallel shards; the paged engine serves over a tp mesh
 ``ScalingConfig(gpus_per_worker=n)`` GPUs (nccl across them, gloo on
 CPUs), collects ``train.report`` metrics and checkpoints, and restarts
 a failed gang from the latest checkpoint.
+``llm.multilora.LoRATrainer`` fine-tunes a LoRA adapter over frozen base
+weights (in process or on that gang) and publishes it to the adapter
+registry that serving replicas hot-swap from.
+
+``ray_tpu_torch.tune`` is the Tune library over the same runtime: a
+``Tuner`` runs one actor per trial (``resources_per_trial={"GPU": 1}``
+leases a whole GPU), streams ``tune.report`` results to its schedulers
+(ASHA, median stopping, PBT, BOHB, PB2) and searchers (grid, random,
+TPE, BOHB, Optuna when installed), and returns a ``ResultGrid``.
 
 The core API below is loaded at first attribute access (PEP 562), so
 ``import ray_tpu_torch`` stays light.
@@ -68,7 +77,7 @@ _CORE_API = (
 
 __all__ = [
     "__version__", "exceptions", *_CORE_API, "ObjectRef", "ActorHandle",
-    "util", "state", "parallel",
+    "util", "state", "parallel", "tune",
 ]
 
 
@@ -79,6 +88,6 @@ def __getattr__(name):
         return importlib.import_module(".core.ref", __name__).ObjectRef
     if name == "ActorHandle":
         return importlib.import_module(".core.actor", __name__).ActorHandle
-    if name in ("exceptions", "util", "state", "parallel"):
+    if name in ("exceptions", "util", "state", "parallel", "tune"):
         return importlib.import_module(f".{name}", __name__)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

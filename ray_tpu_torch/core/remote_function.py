@@ -56,10 +56,14 @@ def _runtime():
 
 
 def prepare_args(rt, args: tuple, kwargs: dict):
-    """Replace large array-like args with store refs; collect top-level refs
-    as scheduling dependencies."""
+    """Replace large array-like and bytes args with store refs; collect
+    top-level refs as scheduling dependencies. (A multi-GiB pickled blob,
+    such as a trainer's closure over model weights, inline in a spec
+    would be written to the worker's socket by the head under its lock.)"""
     def conv(a):
         if isinstance(a, np.ndarray) and a.nbytes > INLINE_ARG_LIMIT:
+            return rt.put(a, pin=False)
+        if isinstance(a, (bytes, bytearray)) and len(a) > INLINE_ARG_LIMIT:
             return rt.put(a, pin=False)
         return a
 

@@ -9,7 +9,11 @@ once), and every other worker gets ``CUDA_VISIBLE_DEVICES=""``. An idle
 GPU worker is reused only by a spec that asks for the same count; when
 a request needs indices that idle GPU workers hold, one of them is
 reaped; a worker's indices go back to its node's free list when it
-exits, is killed or is reaped (``_release_gpus_locked``). The head alone
+exits, is killed or is reaped (``_release_gpus_locked``): for a worker
+of the head's own host, once the process is reaped and its card no longer
+lists it (``_release_gpus_after_card``, up to ``GPU_RELEASE_BOUND_S``),
+so that a replacement never leases a card still holding the dead
+worker's memory. The head alone
 leases indices, for node agents' nodes too: it sends the indices with its
 ``spawn_worker`` request and the agent puts them into the worker's
 environment before the process starts; when an agent's node dies, its
@@ -126,6 +130,11 @@ class NodeInfo:
         return 1.0 - self.resources_avail.get("CPU", 0) / tot
 
 
+# longest wait, after a GPU worker is reaped, for its card to stop
+# listing it before its lease goes back regardless (and is logged)
+GPU_RELEASE_BOUND_S = 10.0
+
+
 def gpu_count(resources: dict[str, float]) -> int:
     """GPUs a resource dict asks for (whole: task_spec.validate_resources
     refuses fractions, since a GPU is leased to one worker process)."""
@@ -161,6 +170,16 @@ class WorkerInfo:
         self.holding: dict[str, float] = {}   # node resources acquired
         self.holding_bundle: tuple | None = None  # (pg_id, idx, res)
         self.blocked = False
+        # a dead worker of the head's host keeps its lease until its
+        # card lets go (_release_gpus_after_card). card_base: the card's
+        # entries per leased index before the process opened it;
+        # gpu_held: "indices" or "all" (the GPU resource count too) while
+        # the release waits; card_wait: how it ended (why, seconds, card
+        # reads)
+        self.watched = False
+        self.card_base: Optional[dict] = None
+        self.gpu_held: Optional[str] = None
+        self.card_wait: Optional[tuple] = None
 
     def send(self, msg) -> bool:
         c = self.conn
@@ -505,6 +524,12 @@ class Runtime:
                          "tasks_failed": 0, "tasks_retried": 0,
                          "actors_created": 0}
         self._shutdown = False
+        # the cards' compute-process reader (util/gpu.py), None without
+        # nvidia-smi: then a dead worker's GPUs go back at once
+        import shutil
+        from ..util import gpu as _gpu
+        self._gpu_apps = (_gpu.compute_apps if shutil.which("nvidia-smi")
+                          else None)
         self._worker_seq = 0
         self._spread_rr = 0
         # open per-worker message batch for the current scheduling pass
@@ -1555,10 +1580,12 @@ class Runtime:
         w = WorkerInfo(wid, node.node_id, proc, gpus)
         w.pending_spec = None
         w.pending_actor = None
+        w.watched = True
         self.workers[wid] = w
         node.workers.add(wid)
         # watchdog: a worker that dies before (or without) connecting would
-        # otherwise never trigger the recv-loop EOF path
+        # otherwise never trigger the recv-loop EOF path; it also holds a
+        # dead GPU worker's lease until the card lets go
         threading.Thread(target=self._watch_proc, args=(w,),
                          daemon=True, name=f"rtpu-watch-{wid}").start()
         return w
@@ -1585,22 +1612,88 @@ class Runtime:
         del node.gpu_free[:n]
         return out
 
-    def _release_gpus_locked(self, w: WorkerInfo) -> None:
-        """Return a dead or reaped worker's GPU indices to its node."""
+    def _release_gpus_locked(self, w: WorkerInfo,
+                             held: str = "indices") -> bool:
+        """Return a dead or reaped worker's GPU indices to its node, or,
+        for a worker of the head's host while a card reader exists, leave
+        them (and, with ``held="all"``, its GPU resource count) to
+        ``_release_gpus_after_card``: True when deferred."""
         if not w.gpus:
-            return
+            return False
+        if w.watched and self._gpu_apps is not None and not self._shutdown:
+            w.gpu_held = held
+            return True
+        self._give_back_gpus_locked(w)
+        return False
+
+    def _give_back_gpus_locked(self, w: WorkerInfo) -> None:
         node = self.nodes.get(w.node_id)
         if node is not None and node.alive:
             node.gpu_free.extend(i for i in w.gpus
                                  if i not in node.gpu_free)
         w.gpus = ()
 
+    def _card_holds(self, w: WorkerInfo, apps: dict) -> Optional[str]:
+        """Why the cards of ``w``'s lease still hold it: "pid" while one
+        lists its pid, "count" while one lists more processes than before
+        it opened them (its pid may not be in this PID namespace); None
+        once they let go."""
+        listed = {i: apps.get(i, []) for i in w.gpus}
+        if any(pid == w.proc.pid for rows in listed.values()
+               for pid, _mib in rows):
+            return "pid"
+        base = w.card_base or {}
+        if any(len(rows) > len(base.get(i, ())) for i, rows in
+               listed.items()):
+            return "count"
+        return None
+
+    def _release_gpus_after_card(self, w: WorkerInfo) -> None:
+        """Off the lock, in ``w``'s watcher after the process is reaped:
+        wait until its cards no longer list it (``_card_holds``), at most
+        ``GPU_RELEASE_BOUND_S`` (then release and log the pid), and give
+        its lease back. A card the reader cannot read releases at once."""
+        t0 = time.monotonic()
+        why, polls = "unread", 0
+        while not self._shutdown:
+            apps = self._gpu_apps()
+            polls += 1
+            if apps is None:
+                break
+            held = self._card_holds(w, apps)
+            if held is None:
+                why = "freed"
+                break
+            if time.monotonic() - t0 > GPU_RELEASE_BOUND_S:
+                why = f"bound ({held})"
+                print(f"[ray_tpu_torch] the card still lists dead worker "
+                      f"{w.wid} (pid {w.proc.pid}, gpus {list(w.gpus)}) "
+                      f"{GPU_RELEASE_BOUND_S:.0f} s after it was reaped; "
+                      f"its lease goes back", file=sys.stderr)
+                break
+            time.sleep(0.02)
+        with self.lock:
+            w.card_wait = (why, time.monotonic() - t0, polls)
+            held, w.gpu_held = w.gpu_held, None
+            self._give_back_gpus_locked(w)
+            if held == "all":
+                self._release_to_node(w, "gpu")
+            if not self._shutdown:
+                self._schedule_locked()
+                self.cv.notify_all()
+
     def _watch_proc(self, w: WorkerInfo):
+        if w.gpus and self._gpu_apps is not None:
+            # the card's entries before the new process opens it (it
+            # imports for seconds before it can touch CUDA)
+            w.card_base = self._gpu_apps()
         try:
             w.proc.wait()
         except Exception:
             pass  # reaped elsewhere; death path runs below
         self._on_worker_death(w.wid)
+        if w.gpu_held is not None:
+            self._release_gpus_after_card(w)
 
     def _returns_complete_locked(self, spec) -> bool:
         """All of a task's returns already produced (sealed in shm OR
@@ -1666,8 +1759,12 @@ class Runtime:
             node = self.nodes.get(w.node_id)
             if node:
                 node.workers.discard(wid)
-            self._release_gpus_locked(w)
-            self._release_to_node(w, "gpu" if w.blocked else "all")
+            if self._release_gpus_locked(w, held="all"):
+                # the GPU count follows the indices (_watch_proc)
+                if not w.blocked:
+                    self._release_to_node(w, "blocked")
+            else:
+                self._release_to_node(w, "gpu" if w.blocked else "all")
             # pipelined-but-not-started tasks just go back to pending
             if w.queued:
                 for s, _n in w.queued:

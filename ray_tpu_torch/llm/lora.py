@@ -90,6 +90,11 @@ def scale_of(adapter: dict) -> float:
 
 
 def _f32(arr, device) -> torch.Tensor:
+    """A factor as an f32 tensor on ``device``: a torch tensor keeps its
+    autograd graph (the LoRA trainer differentiates through ``merge``),
+    a numpy array is copied in."""
+    if isinstance(arr, torch.Tensor):
+        return arr.to(device=device, dtype=torch.float32)
     return torch.from_numpy(np.require(arr, np.float32,
                                        ["C", "W"])).to(device)
 
@@ -97,7 +102,9 @@ def _f32(arr, device) -> torch.Tensor:
 def merge(params: dict, adapter: dict) -> dict:
     """params' = params + scale·A@B per target, computed in f32 and cast
     back to each weight's dtype. Returns a NEW dict; untouched tensors
-    are shared (no copy)."""
+    are shared (no copy). The factors are numpy arrays or torch tensors
+    (ones that require grad too: the result then carries their graph);
+    the scalars ``rank`` and ``alpha`` are numbers either way."""
     scale = scale_of(adapter)
     out = dict(params)
     layers = dict(params["layers"])

@@ -10,20 +10,21 @@ adapter into a full weight copy (one engine per adapter — the
 single-tenant path and the parity oracle).
 
   publish — ``registry.py`` AdapterRegistry: versioned adapter store
-            with a keep window (in process until the runtime is
-            ported);
+            with a keep window (the runtime's store and directory
+            under ``init()``, else in process);
+  train   — ``train.py`` LoRATrainer: fine-tune one adapter over a
+            frozen base, in process or on the Train library's gang,
+            checkpointed and resumable; ``publish()`` into the registry;
   serve   — ``manager.py`` MultiLoraManager: engine-side LRU of
             resident slots, hot-swap without engine restart, in-flight
             requests pinned to their admitted version; the serving
             layer resolves adapter ids at admission and salts prefix-
             cache keys with (adapter_id, version).
-
-The reference's ``LoRATrainer`` (``multilora/train.py``) is not ported
-yet: it needs the port's train stack.
 """
 from .manager import MultiLoraManager, prefix_salt
 from .registry import AdapterRegistry
 from .slots import AdapterSlotTable
+from .train import LoRATrainConfig, LoRATrainer
 
-__all__ = ["AdapterSlotTable", "AdapterRegistry", "MultiLoraManager",
-           "prefix_salt"]
+__all__ = ["AdapterSlotTable", "AdapterRegistry", "LoRATrainConfig",
+           "LoRATrainer", "MultiLoraManager", "prefix_salt"]

@@ -81,7 +81,8 @@ class Checkpoint:
         """Write a nested dict of tensors and Python values (params,
         optimizer ``state_dict()``, step...) to a new checkpoint directory
         (local or URI) with ``torch.save``. Tensors on a device are
-        written from host copies; numpy arrays are stored as tensors."""
+        written from host copies; numpy arrays and numeric numpy
+        scalars are stored as tensors."""
         import torch
         ckpt = cls(path or tempfile.mkdtemp(prefix="rtpu_ckpt_"),
                    filesystem=filesystem)
@@ -244,7 +245,13 @@ def _to_host(x):
     if isinstance(x, torch.Tensor):
         return x.detach().cpu()
     if isinstance(x, np.ndarray):
-        return torch.from_numpy(np.ascontiguousarray(x))
+        if not (x.flags.c_contiguous and x.flags.writeable):
+            x = np.array(x, order="C")    # a copy torch may wrap
+        return torch.from_numpy(x)
+    if isinstance(x, np.generic) and x.dtype.kind in "biuf":
+        # numpy scalars (np.int32(step)) as 0-d tensors: torch.load's
+        # weights_only unpickler refuses numpy's scalar type
+        return torch.from_numpy(np.asarray(x))
     return x
 
 

@@ -120,7 +120,14 @@ def test_port_modules_load_no_jax_and_no_ray_tpu():
                  "ray_tpu_torch.util.chaos",
                  # tensor-parallel serving
                  "ray_tpu_torch.parallel", "ray_tpu_torch.parallel.mesh",
-                 "ray_tpu_torch.parallel.sharding"):
+                 "ray_tpu_torch.parallel.sharding",
+                 # the LoRA trainer and Tune
+                 "ray_tpu_torch.llm.multilora.train",
+                 "ray_tpu_torch.tune", "ray_tpu_torch.tune.search",
+                 "ray_tpu_torch.tune.schedulers",
+                 "ray_tpu_torch.tune.optuna_search",
+                 "ray_tpu_torch.tune.reporter",
+                 "ray_tpu_torch.tune.tuner"):
         assert want in modules, (want, sorted(modules))
     assert lines["BANNED"] == "", lines["BANNED"]
 
@@ -224,6 +231,63 @@ def test_trainer_workers_load_no_jax_and_no_ray_tpu(tmp_path):
                     storage_path=str(tmp_path))).fit()
             assert r.metrics == {"visible": want, "group": workers > 1,
                                  "banned": []}
+    finally:
+        ray_tpu_torch.shutdown()
+
+
+def test_lora_trainer_and_tune_workers_load_no_jax_and_no_ray_tpu(
+        tmp_path):
+    """A LoRATrainer's substrate worker (its closure unpickled there) and
+    a Tune trial actor holding a fake GPU run with neither JAX nor the
+    reference package in sys.modules, though the driver here has both."""
+    import jax  # noqa: F401 — loaded in the driver on purpose
+    import numpy as np
+    import ray_tpu  # noqa: F401
+    import ray_tpu_torch
+    from ray_tpu_torch import train, tune
+    from ray_tpu_torch.llm.multilora import LoRATrainConfig, LoRATrainer
+    from ray_tpu_torch.models import llama
+    if ray_tpu_torch.is_initialized():
+        ray_tpu_torch.shutdown()
+    ray_tpu_torch.init(num_cpus=2, num_gpus=1,
+                       object_store_memory=64 * 1024 * 1024)
+    try:
+        def banned():
+            import sys as _sys
+            return sorted(n for n in _sys.modules
+                          if any(n == p or n.startswith(p + ".")
+                                 for p in ("jax", "jaxlib", "ml_dtypes",
+                                           "ray_tpu")))
+
+        marker = str(tmp_path / "seen")
+
+        def data_fn(step):
+            # runs in the worker, after the trainer's closure unpickled
+            with open(marker, "w") as f:
+                f.write(",".join(banned()) or "none")
+            toks = np.random.RandomState(step).randint(1, 64, (2, 9))
+            return toks[:, :8], toks[:, 1:]
+
+        cfg = llama.llama_tiny(vocab_size=64, n_layers=1)
+        LoRATrainer(LoRATrainConfig(model=cfg, steps=1, checkpoint_every=1),
+                    "c", base_params=llama.init(cfg, 0, device="cpu"),
+                    data_fn=data_fn,
+                    scaling_config=train.ScalingConfig(num_workers=1),
+                    run_config=train.RunConfig(
+                        storage_path=str(tmp_path))).fit()
+        with open(marker) as f:
+            assert f.read() == "none"
+
+        def trial(config):
+            tune.report({"visible": os.environ["CUDA_VISIBLE_DEVICES"],
+                         "banned": banned()})
+
+        grid = tune.Tuner(trial, param_space={},
+                          run_config=train.RunConfig(
+                              name="contract", storage_path=str(tmp_path)),
+                          resources_per_trial={"CPU": 1, "GPU": 1}).fit()
+        assert grid[0].metrics["visible"] == "0"
+        assert grid[0].metrics["banned"] == []
     finally:
         ray_tpu_torch.shutdown()
 
@@ -419,6 +483,9 @@ def test_default_device_entry_points_raise_without_a_card():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         LLMServer(LLMConfig(engine=PagedEngineConfig(model=cfg)),
                   params_ref=params)
+    from ray_tpu_torch.llm.multilora import LoRATrainConfig, LoRATrainer
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LoRATrainer(LoRATrainConfig(model=cfg, steps=1), "a").fit()
     # device="cpu" runs the plain versions
     InferenceEngine(EngineConfig(model=cfg), params=params, device="cpu")
     LLMPredictor(EngineConfig(model=cfg), device="cpu")

@@ -65,6 +65,37 @@ def test_large_array_args_via_store(rt):
     assert rt.get(mean.remote(arr), timeout=60) == 1.0
 
 
+def test_large_bytes_args_via_store(rt):
+    """A pickled blob over the inline limit (a trainer's closure over
+    weights) goes to the store, as a large array does: the spec stays
+    small, the task and an actor method get the bytes back."""
+    from ray_tpu_torch.core import runtime
+    from ray_tpu_torch.core.remote_function import (INLINE_ARG_LIMIT,
+                                                    prepare_args)
+    blob = bytes(range(256)) * 8192            # 2 MiB
+    spec_blob, deps = prepare_args(runtime.get_runtime_if_exists(),
+                                   (blob,), {"b": bytearray(blob)})
+    assert len(deps) == 2 and len(spec_blob) < INLINE_ARG_LIMIT
+
+    @rt.remote
+    def size(x, b=None):
+        return len(x), bytes(b[:4]) if b is not None else None
+
+    @rt.remote
+    class Holder:
+        def tail(self, x):
+            return x[-3:]
+
+    assert rt.get(size.remote(blob, b=bytearray(blob)), timeout=60) == (
+        len(blob), blob[:4])
+    assert rt.get(Holder.remote().tail.remote(blob), timeout=60) == \
+        blob[-3:]
+    small = b"x" * 100
+    spec_blob, deps = prepare_args(runtime.get_runtime_if_exists(),
+                                   (small,), {})
+    assert deps == []                          # inline, as before
+
+
 def test_error_propagation(rt):
     @rt.remote(max_retries=0)
     def boom():
