@@ -105,7 +105,17 @@ and prints no result line):
    first; removed at the end), CheckpointConfig(num_to_keep=1), then
    raises once (a marker file); FailureConfig(max_failures=1) starts a
    new worker, which restores from train.get_checkpoint() and runs steps
-   3-5. Held: the 6 losses equal phase 6's bit for bit; in the worker,
+   3-5. The step's tokens come from a ray_tpu_torch.data Dataset given
+   as TorchTrainer(datasets={"train": ds}): 2,048 rows in 16 blocks,
+   an int64 `id` and an int32 `tokens` column 4,097 wide (~33.6 MB),
+   rows 0 and 1 phase 6's batch (RandomState(seed)), the rest from
+   RandomState(seed + 1). Each attempt reads its whole shard
+   (get_dataset_shard("train").iter_device_batches(batch_size=2,
+   drop_last=False): pinned host batches copied onto the card) before
+   its first step, and steps on rows 0 and 1 cast to int64 on the card.
+   Held: every id 0-2,047 once in each attempt, each row's checksum
+   equal to the driver's, the tokens on the card; the 6 losses equal
+   phase 6's bit for bit; in the worker,
    each step (counts set to 0 just before, read just after) launches the
    forward, dq and dkv kernels once per layer and the serve kernels
    never; the restored params' and moments' checksums equal the saved
@@ -114,9 +124,11 @@ and prints no result line):
    ray_tpu), the checkpoint's step 2; the GPU reads 0 while the gang
    holds it and 1 after fit returns, and no worker is left. Prints one
    trainer: line: worker start s per attempt (fit start, or the crash,
-   to the loop's first line), first-step s, the worker's step ms median
-   beside phase 6's, checkpoint GiB, save and restore s, crash to the
-   first resumed step's end, phase s, with the card and its power limit.
+   to the loop's first line), each attempt's shard pass (s, rows/s, MB/s
+   onto the card, the first batch's wait), first-step s, the worker's
+   step ms median beside phase 6's, checkpoint GiB, save and restore s,
+   crash to the first resumed step's end, phase s, whether pyarrow and
+   pandas are installed, with the card and its power limit.
 6c. lora_tune: the LoRA trainer (ray_tpu_torch.llm.multilora) and Tune
    (ray_tpu_torch.tune) in 6b's runtime before it shuts down, over phase
    6's seed-0 base at Llama-3-8B widths and 8 of 32 layers, bf16,
@@ -4981,9 +4993,81 @@ def _state_sums(params, opt) -> dict:
                for m in ("exp_avg", "exp_avg_sq")}}
 
 
+#: phase 6b's dataset: rows, blocks, and the token row width (seq + 1)
+INGEST_ROWS = 2048
+INGEST_BLOCKS = 16
+
+
+def _ingest_rows(vocab: int, width: int, seed: int,
+                 batch: int) -> np.ndarray:
+    """6b's token rows: the first ``batch`` rows are phase 6's batch
+    (phase 6's ``randint`` from ``RandomState(seed)``), the rest from
+    ``RandomState(seed + 1)``; int32."""
+    head = np.random.RandomState(seed).randint(0, vocab, (batch, width))
+    rest = np.random.RandomState(seed + 1).randint(
+        0, vocab, (INGEST_ROWS - batch, width))
+    return np.concatenate([head, rest]).astype(np.int32)
+
+
+def _row_sums(tokens):
+    """Each row's checksum: sum over j of tokens[j] * (j + 1), in int64
+    (numpy rows or a torch tensor on any device)."""
+    if isinstance(tokens, np.ndarray):
+        w = np.arange(1, tokens.shape[1] + 1, dtype=np.int64)
+        return tokens.astype(np.int64) @ w
+    w = torch.arange(1, tokens.shape[1] + 1, dtype=torch.int64,
+                     device=tokens.device)
+    return (tokens.to(torch.int64) * w).sum(1)
+
+
+def _ingest_dataset(vocab: int, width: int, seed: int, batch: int):
+    """6b's Dataset (built in the driver before fit) and each row's
+    checksum, indexed by id."""
+    from ray_tpu_torch import data as rdata
+    rows = _ingest_rows(vocab, width, seed, batch)
+    ds = rdata.from_items([{"id": i, "tokens": rows[i]}
+                           for i in range(INGEST_ROWS)],
+                          override_num_blocks=INGEST_BLOCKS)
+    return ds, _row_sums(rows)
+
+
+def _read_shard(device: str, batch: int) -> tuple:
+    """One pass over this worker's ``get_dataset_shard("train")`` with
+    ``iter_device_batches`` onto ``device``: the rows with ids
+    0..batch-1 as the step's int64 tokens, and the pass's figures (every
+    id and row checksum, read back once the pass has synced)."""
+    from ray_tpu_torch import train as rtrain
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    shard = rtrain.get_dataset_shard("train")
+    t0 = time.perf_counter()
+    wait = None
+    ids, toks = [], []
+    for b in shard.iter_device_batches(batch_size=2, drop_last=False,
+                                       device=device):
+        if wait is None:
+            wait = time.perf_counter() - t0
+        ids.append(b["id"])
+        toks.append(b["tokens"])
+    sync()
+    pass_s = time.perf_counter() - t0
+    ids, toks = torch.cat(ids), torch.cat(toks)
+    nbytes = ids.numel() * ids.element_size() + \
+        toks.numel() * toks.element_size()
+    order = torch.argsort(ids)
+    tokens = toks[order[:batch]].to(torch.int64)
+    fig = {"rows": int(ids.numel()), "pass_s": pass_s,
+           "rows_per_s": ids.numel() / pass_s,
+           "mb_per_s": nbytes / pass_s / 1e6, "mb": nbytes / 1e6,
+           "first_batch_wait_s": wait, "tokens_device": str(tokens.device),
+           "ids": ids.cpu().tolist(), "sums": _row_sums(toks).cpu().tolist()}
+    return tokens, fig
+
+
 def _trainer_loop(config):
     """Phase 6b's train loop, run by the TorchTrainer's worker: phase 6's
-    weights (seed), batch and step for ``config["steps"]`` steps, each
+    weights (seed) and step for ``config["steps"]`` steps on phase 6's
+    batch, read from the worker's Dataset shard (``_read_shard``, once
+    per attempt, its figures in the attempt's first report), each
     step's loss and kernel launches (counts set to 0 just before the
     step, read just after) reported through train.report. On the first
     attempt (no marker file in the storage dir) rank 0 reports a
@@ -4996,14 +5080,11 @@ def _trainer_loop(config):
     cfg, device = config["cfg"], config["device"]
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     params = llama.init(cfg, seed=config["seed"], device=device)
-    rng = np.random.RandomState(config["seed"])
-    tokens = torch.as_tensor(rng.randint(0, cfg.vocab_size,
-                                         (config["batch"], config["seq"] + 1)),
-                             dtype=torch.int64, device=device)
+    tokens, ingest = _read_shard(device, config["batch"])
     step = _train_step_fn(params, cfg, tokens)
     info = {"t_enter": t_enter, "pid": os.getpid(),
             "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
-            "banned": _banned_modules()}
+            "banned": _banned_modules(), "ingest": ingest}
     start = 0
     ckpt = rtrain.get_checkpoint()
     if ckpt is not None:
@@ -5081,7 +5162,8 @@ def trainer(model_cfg, phase6: dict, device="cuda", batch: int = 2,
            "crash_after_step": TRAINER_CRASH_STEP,
            "disk": {"path": storage, "total_gib": du.total / 2 ** 30,
                     "free_gib": du.free / 2 ** 30},
-           "pyarrow": importlib.util.find_spec("pyarrow") is not None}
+           "pyarrow": importlib.util.find_spec("pyarrow") is not None,
+           "pandas": importlib.util.find_spec("pandas") is not None}
     print(f"trainer: df {storage}: {fig['disk']}", flush=True)
     try:
         rt.init(num_cpus=2, num_gpus=1)
@@ -5093,6 +5175,10 @@ def trainer(model_cfg, phase6: dict, device="cuda", batch: int = 2,
                     held.append(rt.available_resources().get("GPU"))
                     stop.wait(0.2)
 
+            t0 = time.perf_counter()
+            ds, row_sums = _ingest_dataset(model_cfg.vocab_size, seq + 1,
+                                           seed, batch)
+            fig["dataset_build_s"] = time.perf_counter() - t0
             watcher = threading.Thread(target=watch, daemon=True)
             watcher.start()
             t_fit = time.time()
@@ -5110,7 +5196,8 @@ def trainer(model_cfg, phase6: dict, device="cuda", batch: int = 2,
                         name="trainer", storage_path=storage,
                         failure_config=rtrain.FailureConfig(max_failures=1),
                         checkpoint_config=rtrain.CheckpointConfig(
-                            num_to_keep=1))).fit()
+                            num_to_keep=1)),
+                    datasets={"train": ds}).fit()
             finally:
                 stop.set()
                 watcher.join()
@@ -5142,6 +5229,22 @@ def trainer(model_cfg, phase6: dict, device="cuda", batch: int = 2,
                     raise AssertionError(f"6b: worker saw CUDA_VISIBLE_"
                                          f"DEVICES {m['visible']!r}, loaded "
                                          f"{m['banned']}")
+            want_ids = list(range(INGEST_ROWS))
+            for m in starts:
+                got = m["ingest"]
+                if sorted(got["ids"]) != want_ids or got["rows"] != \
+                        INGEST_ROWS:
+                    raise AssertionError(f"6b: attempt read {got['rows']} "
+                                         f"rows, not ids 0-{INGEST_ROWS - 1}"
+                                         f" once each")
+                bad = [i for i, c in zip(got["ids"], got["sums"])
+                       if c != int(row_sums[i])]
+                if bad:
+                    raise AssertionError(f"6b: row checksums differ from "
+                                         f"the driver's at ids {bad[:8]}")
+                if got["tokens_device"].split(":")[0] != device:
+                    raise AssertionError(f"6b: step tokens on "
+                                         f"{got['tokens_device']}")
             saved = next(m for m in hist if "saved_sums" in m)
             if starts[1]["restored_sums"] != saved["saved_sums"]:
                 raise AssertionError(f"6b: restored {starts[1]['restored_sums']}"
@@ -5168,6 +5271,8 @@ def trainer(model_cfg, phase6: dict, device="cuda", batch: int = 2,
                          + 1)["t"] - saved["t_crash"]),
                 "launches": {n: sum(m["launches"][n] for m in hist)
                              for n in want},
+                "ingest": [{k: v for k, v in m["ingest"].items()
+                            if k not in ("ids", "sums")} for m in starts],
                 "losses_equal_phase6": True})
             if then is not None:
                 gc.collect()

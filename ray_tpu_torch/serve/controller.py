@@ -24,6 +24,10 @@ from typing import Any, Optional
 from ..core import flight as _fl
 from .api import AutoscalingConfig, DeploymentSpec
 
+#: update_user_config waits this long at a time for a routed replica's
+#: reconfigure(), at most ten times, before it fails the update
+RECONFIGURE_WAIT_S = 30.0
+
 
 class ReplicaActor:
     """Hosts one replica of a deployment's callable (reference:
@@ -456,9 +460,14 @@ class ServeController:
             resources=opts.get("resources"),
             max_concurrency=max(st.spec.max_ongoing_requests, 1),
         ).remote(self._replica_blob(st.spec))
-        if st.spec.user_config is not None:
-            # configured BEFORE the replica enters routing (async-aware)
-            await actor.reconfigure.remote(st.spec.user_config)
+        # configured BEFORE the replica enters routing (async-aware), and
+        # again while an update_user_config persisted a newer config
+        # during the await: that update's replica snapshot missed this
+        # replica, which would otherwise route with the old config
+        sent = None
+        while st.spec.user_config is not sent:
+            sent = st.spec.user_config
+            await actor.reconfigure.remote(sent)
         # hand the replica its own handle (prefix-directory ownership);
         # fire-and-forget: replicas without the hook ignore it
         try:
@@ -572,23 +581,44 @@ class ServeController:
         concurrently, then persist for future replicas. Application
         errors SURFACE (and the old config stays for future replicas);
         only dying-replica errors are ignored — the reconcile loop
-        replaces those."""
+        replaces those. It returns once every replica in routing holds
+        the new config: a replica whose reconfigure() outlasts
+        ``RECONFIGURE_WAIT_S`` is waited for again while the
+        reconcile loop keeps it in routing (ten waits at most, then the
+        update fails naming it), and a replica that entered routing
+        while the update ran, configured with the old config, is sent
+        the new one."""
         import dataclasses
 
         from ..exceptions import ActorDiedError, WorkerCrashedError
         st = self._apps.get(app, {}).get(deployment)
         if st is None:
             raise ValueError(f"no deployment {deployment!r} in app {app!r}")
-        refs = [r.reconfigure.remote(user_config) for r in st.replicas]
+        done: list = []
         app_error = None
-        for ref in refs:
-            try:
-                await asyncio.wait_for(ref, timeout=30)
-            except (ActorDiedError, WorkerCrashedError,
-                    asyncio.TimeoutError):
-                continue  # dying replica: reconcile will replace it
-            except Exception as e:  # noqa: BLE001 — user reconfigure bug
-                app_error = e
+        pending = list(st.replicas)
+        while pending and app_error is None:
+            refs = [(r, r.reconfigure.remote(user_config)) for r in pending]
+            done += pending
+            for r, ref in refs:
+                for _ in range(10):
+                    try:
+                        await asyncio.wait_for(ref,
+                                               timeout=RECONFIGURE_WAIT_S)
+                    except asyncio.TimeoutError:
+                        if any(r is x for x in st.replicas):
+                            continue  # slow but routed: wait again
+                    except (ActorDiedError, WorkerCrashedError):
+                        pass  # dying replica: reconcile will replace it
+                    except Exception as e:  # noqa: BLE001 — user bug
+                        app_error = e
+                    break
+                else:
+                    raise RuntimeError(
+                        f"reconfigure({user_config!r}) did not return on "
+                        f"replica {r!r} in routing; config NOT persisted")
+            pending = [r for r in st.replicas
+                       if not any(r is d for d in done)]
         if app_error is not None:
             raise RuntimeError(
                 f"reconfigure({user_config!r}) raised on a replica; "

@@ -264,6 +264,7 @@ def _listen_loop_weak(handle_ref):
         if version != h._version:
             # atomic installs: readers snapshot these attributes
             h._inflight = {i: 0 for i in range(len(replicas))}
+            h._sent = {}
             h._replicas = replicas
             h._version = version
         h._last_refresh = time.monotonic()
@@ -285,6 +286,9 @@ class DeploymentHandle:
         self._replicas: list = []
         self._version = -1
         self._inflight: dict[int, int] = {}
+        # requests this handle sent to each replica (index): the
+        # tie-break between equally loaded choices
+        self._sent: dict[int, int] = {}
         self._last_refresh = 0.0
         self._listener_started = False
 
@@ -355,6 +359,7 @@ class DeploymentHandle:
             self._version = version
             self._replicas = replicas
             self._inflight = {i: 0 for i in range(len(replicas))}
+            self._sent = {}
         self._last_refresh = now
 
     @staticmethod
@@ -381,9 +386,11 @@ class DeploymentHandle:
 
     def _pick(self, replicas: list, affinity: Optional[str] = None) -> int:
         """Power-of-two-choices over local in-flight counts
-        (reference: pow_2_router.py:27). With a multiplexed model id,
-        rendezvous hashing over stable replica (actor) ids instead: same
-        model → same replica while it lives, so its weights stay
+        (reference: pow_2_router.py:27); a tie goes to the choice this
+        handle sent fewer requests, where the reference's is random.
+        With a multiplexed model id, rendezvous hashing over stable
+        replica (actor) ids instead: same model → same replica while it
+        lives, so its weights stay
         cache-hot (multiplex.py routing note). An affinity key (shared
         prompt prefix / session) rendezvous-hashes the same way — same
         prefix → same replica → warm prefix cache — but yields to the
@@ -410,8 +417,13 @@ class DeploymentHandle:
                 return pref
             return loads.index(min(loads))
         i, j = random.sample(range(n), 2)
-        return i if self._inflight.get(i, 0) <= self._inflight.get(j, 0) \
-            else j
+        li, lj = self._inflight.get(i, 0), self._inflight.get(j, 0)
+        if li == lj:
+            # equally loaded: the one this handle sent fewer requests,
+            # so a sequential caller's requests spread evenly instead of
+            # landing on one replica by chance
+            return i if self._sent.get(i, 0) <= self._sent.get(j, 0) else j
+        return i if li < lj else j
 
     @staticmethod
     def _make_chan_spec():
@@ -457,6 +469,7 @@ class DeploymentHandle:
             idx = self._pick(replicas, self._affinity_key(args, kwargs))
         replica = replicas[idx]
         self._inflight[idx] = self._inflight.get(idx, 0) + 1
+        self._sent[idx] = self._sent.get(idx, 0) + 1
         _fl.evt(_fl.SRV_DISPATCH, idx, int(self._stream))
 
         def done(i=idx):

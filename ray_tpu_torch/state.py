@@ -196,8 +196,15 @@ def summary() -> dict:
     }
     out["active_channels"] = sum(
         p["chan_open"] - p["chan_closed"] for p in procs)
-    # the reference adds the streaming data plane's rollup here ("data",
-    # when that plane ran this session); the port has no data/ yet
+    # streaming data plane rollup: per-path block/dispatch totals with
+    # the dispatches_per_block headline, backpressure waits, sink depth
+    try:
+        from .data.streaming import telemetry as _data_tm
+        data_summary = _data_tm.metrics_summary()
+        if data_summary:
+            out["data"] = data_summary
+    except Exception:
+        pass  # data plane unused this session: no rollup to report
     # stall-doctor watchdog health (scan counters only — a summary poll
     # must never trigger a cluster-wide stack collection)
     out["watchdog"] = rt.watchdog_health()

@@ -7,8 +7,6 @@ train/_internal/session.py:405). The session is thread-local state
 installed by the TrainWorker actor before invoking the user's train
 function; report() ships metrics (and optionally a checkpoint directory)
 to the controller through the run's result-bus actor.
-``get_dataset_shard`` needs ``ray_tpu_torch.data``, which is not ported
-yet, and raises.
 """
 from __future__ import annotations
 
@@ -27,6 +25,7 @@ class TrainContext:
     node_rank: int = 0
     local_rank: int = 0
     restored_checkpoint: Optional[Checkpoint] = None
+    dataset_shards: Optional[dict] = None
     _bus: Any = None
     _seq: int = 0
     # Tune trials report decision-synchronously: report() parks until the
@@ -94,9 +93,10 @@ def get_checkpoint() -> Optional[Checkpoint]:
 
 
 def get_dataset_shard(name: str = "train"):
-    """This worker's shard of the trainer's datasets (reference:
-    train_fn_utils.py:150, sharded by Data's streaming_split). Raises:
-    the port has no Data library yet."""
-    raise NotImplementedError(
-        f"get_dataset_shard({name!r}) needs ray_tpu_torch.data, which is "
-        f"not ported yet (ROADMAP A19)")
+    """This worker's shard of the dataset passed to the Trainer
+    (reference: train_fn_utils.py:150, sharded by Data's
+    streaming_split)."""
+    shards = get_context().dataset_shards or {}
+    if name not in shards:
+        raise KeyError(f"no dataset {name!r} was passed to the trainer")
+    return shards[name]

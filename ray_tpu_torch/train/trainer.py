@@ -19,8 +19,10 @@ bundle :242,:364 —, failure_handling/failure_policy.py).
 * A worker that leases GPUs sees their indices in
   ``CUDA_VISIBLE_DEVICES`` (the runtime's lease, held by its bundle of
   the gang's placement group).
-* ``datasets=`` needs ``ray_tpu_torch.data``, which is not ported yet,
-  and raises.
+* ``datasets=`` takes ``ray_tpu_torch.data`` Datasets (split across the
+  gang by ``streaming_split``, again for each attempt) or plain iterables
+  (dealt round-robin); a worker reads its piece with
+  ``get_dataset_shard``.
 """
 from __future__ import annotations
 
@@ -120,7 +122,8 @@ class _TrainWorker:
         for k, v in env.items():
             os.environ[k] = v
 
-    def run(self, fn_and_cfg: bytes, restore_path: Optional[str]) -> str:
+    def run(self, fn_and_cfg: bytes, restore_path: Optional[str],
+            shards: Optional[dict]) -> str:
         import cloudpickle
         train_fn, train_cfg = cloudpickle.loads(fn_and_cfg)
         run_name, rank, world = self._ctx_args
@@ -129,7 +132,7 @@ class _TrainWorker:
             run_name=run_name, rank=rank, world_size=world,
             restored_checkpoint=(Checkpoint(restore_path)
                                  if restore_path else None),
-            _bus=self._bus)
+            dataset_shards=shards, _bus=self._bus)
         session_mod._set_context(ctx)
         try:
             if isinstance(train_cfg, str) and train_cfg == _NO_CONFIG:
@@ -211,8 +214,13 @@ def _fits(demand: dict, capacity: dict) -> bool:
 class DataParallelTrainer:
     """Gang-schedules `train_loop_per_worker` over a placement group and
     supervises it (reference: v2/api/data_parallel_trainer.py:55, fit
-    :103). ``datasets=`` raises: it needs ``ray_tpu_torch.data``, which
-    is not ported yet."""
+    :103).
+
+    With `datasets=`, leave CPU headroom outside the gang: placement
+    groups RESERVE their resources, and the streaming data tasks run
+    outside the PG (reference guidance is identical — data-loading CPUs
+    are provisioned beside the training gang).
+    """
 
     def __init__(self,
                  train_loop_per_worker: Callable,
@@ -222,14 +230,11 @@ class DataParallelTrainer:
                  run_config: Optional[RunConfig] = None,
                  datasets: Optional[dict] = None,
                  resume_from_checkpoint: Optional[Checkpoint] = None):
-        if datasets:
-            raise NotImplementedError(
-                "datasets= needs ray_tpu_torch.data, which is not ported "
-                "yet (ROADMAP A19)")
         self.train_fn = train_loop_per_worker
         self.train_cfg = train_loop_config
         self.scaling = scaling_config or ScalingConfig()
         self.run_config = run_config or RunConfig()
+        self.datasets = datasets or {}
         self.resume_from = resume_from_checkpoint
         self._start_count = 0
 
@@ -271,6 +276,7 @@ class DataParallelTrainer:
         import cloudpickle
         n, pg = self._reserve_gang(self.scaling.num_workers)
         WorkerCls = ray.remote(_TrainWorker)
+        shards = self._split_datasets(n)
         workers, run_refs = [], []
         blob = cloudpickle.dumps((self.train_fn, self.train_cfg))
         self._start_count += 1
@@ -284,9 +290,9 @@ class DataParallelTrainer:
                 placement_group_bundle_index=rank,
             ).remote(run_name, rank, n, bus, env)
             workers.append(w)
-        for w in workers:
+        for rank, w in enumerate(workers):
             run_refs.append(w.run.remote(
-                blob, restore.path if restore else None))
+                blob, restore.path if restore else None, shards[rank]))
         return pg, workers, run_refs
 
     def _worker_env(self, rank: int, world: int) -> dict:
@@ -295,6 +301,23 @@ class DataParallelTrainer:
             "RTPU_TRAIN_RANK": str(rank),
             "RTPU_TRAIN_WORLD": str(world),
         }
+
+    def _split_datasets(self, n: int) -> list[Optional[dict]]:
+        """Round-robin shard plain iterables; Dataset objects use
+        streaming_split (reference: dataset.py:1731)."""
+        shards: list[Optional[dict]] = [None] * n
+        if not self.datasets:
+            return shards
+        per_worker: list[dict] = [{} for _ in range(n)]
+        for name, ds in self.datasets.items():
+            if hasattr(ds, "streaming_split"):
+                for rank, piece in enumerate(ds.streaming_split(n)):
+                    per_worker[rank][name] = piece
+            else:
+                items = list(ds)
+                for rank in range(n):
+                    per_worker[rank][name] = items[rank::n]
+        return per_worker
 
     # -- fit ---------------------------------------------------------------
 

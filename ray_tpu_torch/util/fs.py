@@ -86,6 +86,17 @@ def is_local(fs_) -> bool:
     return pafs is not None and isinstance(fs_, pafs.LocalFileSystem)
 
 
+def to_arrow(fs_):
+    """A pyarrow filesystem for ``fs_``: ``LOCAL`` becomes pyarrow's
+    ``LocalFileSystem`` (what the reference resolves local paths to), any
+    other is returned as it is. For callers that hand the filesystem to
+    pyarrow's readers and writers (the data library)."""
+    if isinstance(fs_, LocalFS):
+        from pyarrow import fs as pafs
+        return pafs.LocalFileSystem()
+    return fs_
+
+
 def is_uri(path: str) -> bool:
     return bool(_parse_scheme(path))
 

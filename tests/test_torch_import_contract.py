@@ -127,7 +127,17 @@ def test_port_modules_load_no_jax_and_no_ray_tpu():
                  "ray_tpu_torch.tune.schedulers",
                  "ray_tpu_torch.tune.optuna_search",
                  "ray_tpu_torch.tune.reporter",
-                 "ray_tpu_torch.tune.tuner"):
+                 "ray_tpu_torch.tune.tuner",
+                 # Data
+                 "ray_tpu_torch.data", "ray_tpu_torch.data.block",
+                 "ray_tpu_torch.data.context", "ray_tpu_torch.data.dataset",
+                 "ray_tpu_torch.data.executor", "ray_tpu_torch.data.grouped",
+                 "ray_tpu_torch.data.read_api",
+                 "ray_tpu_torch.data.streaming",
+                 "ray_tpu_torch.data.streaming.channels",
+                 "ray_tpu_torch.data.streaming.executor",
+                 "ray_tpu_torch.data.streaming.stage",
+                 "ray_tpu_torch.data.streaming.telemetry"):
         assert want in modules, (want, sorted(modules))
     assert lines["BANNED"] == "", lines["BANNED"]
 
@@ -232,6 +242,84 @@ def test_trainer_workers_load_no_jax_and_no_ray_tpu(tmp_path):
             assert r.metrics == {"visible": want, "group": workers > 1,
                                  "banned": []}
     finally:
+        ray_tpu_torch.shutdown()
+
+
+def test_data_imports_no_jax_no_ray_tpu_no_torch_no_pandas():
+    """``ray_tpu_torch.data`` (with its streaming executor and grouped
+    aggregations), imported in a fresh process, loads neither JAX nor the
+    reference package, and leaves torch and pandas unloaded until
+    ``iter_torch_batches``/``iter_device_batches`` or a pandas format
+    needs them."""
+    probe = ("import sys, ray_tpu_torch.data, ray_tpu_torch.data.grouped, "
+             "ray_tpu_torch.data.streaming\n"
+             "print(sorted(n for n in sys.modules if n.split('.')[0] in "
+             "('jax', 'jaxlib', 'ml_dtypes', 'ray_tpu', 'torch', "
+             "'pandas')))")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_data_stage_and_shard_reading_trainer_workers_load_no_jax(tmp_path):
+    """A streaming stage worker (a source stage and an actor-pool stage)
+    and a ``TorchTrainer`` worker reading its ``get_dataset_shard`` run
+    with neither JAX nor the reference package in sys.modules, though the
+    driver here has both."""
+    import jax  # noqa: F401 — loaded in the driver on purpose
+    import ray_tpu  # noqa: F401
+    import ray_tpu_torch
+    from ray_tpu_torch import data, train
+    from ray_tpu_torch.data.context import DataContext
+    if ray_tpu_torch.is_initialized():
+        ray_tpu_torch.shutdown()
+    ray_tpu_torch.init(num_cpus=2, object_store_memory=64 * 1024 * 1024)
+    ctx = DataContext.get_current()
+    saved = ctx.streaming_executor
+    try:
+        def banned(batch):
+            import sys as _sys
+            import numpy as _np
+            names = sorted(n for n in _sys.modules
+                           if any(n == p or n.startswith(p + ".")
+                                  for p in ("jax", "jaxlib", "ml_dtypes",
+                                            "ray_tpu")))
+            return {"id": batch["id"],
+                    "banned": _np.array([",".join(names)] * len(batch["id"]))}
+
+        class Pool:
+            def __call__(self, batch):
+                return banned(batch)
+
+        ctx.streaming_executor = "force"
+        rows = (data.range(8, override_num_blocks=2).map_batches(banned)
+                .take_all())
+        rows += (data.range(8, override_num_blocks=2)
+                 .map_batches(Pool, concurrency=1).take_all())
+        ctx.streaming_executor = saved
+        assert len(rows) == 16 and {r["banned"] for r in rows} == {""}
+
+        def loop(config=None):
+            import sys as _sys
+            ids = [int(i) for b in train.get_dataset_shard("train")
+                   .iter_batches(batch_size=4) for i in b["id"]]
+            train.report({"ids": sorted(ids), "banned": sorted(
+                n for n in _sys.modules
+                if any(n == p or n.startswith(p + ".")
+                       for p in ("jax", "jaxlib", "ml_dtypes",
+                                 "ray_tpu")))})
+
+        r = train.TorchTrainer(
+            loop, scaling_config=train.ScalingConfig(
+                num_workers=1, cpus_per_worker=0.5),
+            run_config=train.RunConfig(name="contract-data",
+                                       storage_path=str(tmp_path)),
+            datasets={"train": data.range(12, override_num_blocks=3)}).fit()
+        assert r.metrics == {"ids": list(range(12)), "banned": []}
+    finally:
+        ctx.streaming_executor = saved
         ray_tpu_torch.shutdown()
 
 
@@ -486,6 +574,13 @@ def test_default_device_entry_points_raise_without_a_card():
     from ray_tpu_torch.llm.multilora import LoRATrainConfig, LoRATrainer
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         LoRATrainer(LoRATrainConfig(model=cfg, steps=1), "a").fit()
+    from ray_tpu_torch.data.dataset import DataIterator
+    it = DataIterator([])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        next(it.iter_device_batches())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        next(it.iter_device_batches(device="cuda:0", batch_size=2))
+    assert list(it.iter_device_batches(device="cpu")) == []
     # device="cpu" runs the plain versions
     InferenceEngine(EngineConfig(model=cfg), params=params, device="cpu")
     LLMPredictor(EngineConfig(model=cfg), device="cpu")

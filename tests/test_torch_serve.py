@@ -155,6 +155,30 @@ def test_replica_requests_spread(ray):
     assert len(pids) == 2  # both replicas saw traffic
 
 
+def test_sequential_requests_alternate_between_idle_replicas(ray,
+                                                            monkeypatch):
+    """The port's own case: two idle replicas tie on in-flight requests
+    at every call of a sequential caller, and a tie goes to the replica
+    the handle sent fewer requests, so six calls split three and three
+    even when the two random choices always come in the same order."""
+    import collections
+    import types
+
+    from ray_tpu_torch.serve import handle as handle_mod
+
+    @serve.deployment(num_replicas=2)
+    class Who:
+        def __call__(self, _):
+            import os
+            return os.getpid()
+
+    handle = serve.run(Who.bind(), name="alternate")
+    monkeypatch.setattr(handle_mod, "random", types.SimpleNamespace(
+        sample=lambda population, k: list(population)[:k]))
+    pids = [handle.remote(None).result(timeout_s=60) for _ in range(6)]
+    assert sorted(collections.Counter(pids).values()) == [3, 3]
+
+
 def test_autoscaling_up(ray):
     @serve.deployment(autoscaling_config={
         "min_replicas": 1, "max_replicas": 3,
@@ -332,6 +356,117 @@ def test_user_config_and_reconfigure(ray):
         time.sleep(0.5)
     assert all(o["over"] is False for o in outs)   # new threshold live
     assert any(o["pid"] == pid0 for o in outs)     # same replicas (no restart)
+
+
+class _FakeRef:
+    """An actor call's result: awaitable any number of times, and a
+    timed-out await does not cancel the call (as an ObjectRef's)."""
+
+    def __init__(self, fut):
+        self._fut = fut
+
+    def __await__(self):
+        return asyncio.shield(self._fut).__await__()
+
+
+class _FakeReplica:
+    """A replica actor whose reconfigure() takes ``delay`` seconds and
+    then holds the config it was given."""
+
+    def __init__(self, delay=0.0):
+        import types
+        self.delay = delay
+        self.config = None
+        self.reconfigure = types.SimpleNamespace(remote=self._reconfigure)
+        self.set_self = types.SimpleNamespace(remote=lambda h: None)
+
+    def _reconfigure(self, config):
+        loop = asyncio.get_running_loop()
+        fut = loop.create_future()
+
+        async def apply():
+            await asyncio.sleep(self.delay)
+            self.config = config
+            fut.set_result(None)
+        loop.create_task(apply())
+        return _FakeRef(fut)
+
+
+def _controller_with(replicas, user_config, monkeypatch, new_delay=0.0):
+    """A ServeController in this process holding one deployment served by
+    ``replicas`` (fakes); replicas it starts are fakes with
+    ``new_delay``; reconfigure waits last 0.05 s at a time."""
+    import types
+
+    from ray_tpu_torch.serve import controller
+    from ray_tpu_torch.serve.api import DeploymentSpec
+    from ray_tpu_torch.serve.controller import (ServeController,
+                                                _DeploymentState)
+    ctrl = ServeController()
+    st = _DeploymentState(DeploymentSpec(
+        name="D", func_or_class=_FakeReplica, num_replicas=len(replicas),
+        user_config=user_config), "app", ctrl._version_counter)
+    st.replicas = list(replicas)
+    ctrl._apps["app"] = {"D": st}
+    factory = types.SimpleNamespace(
+        options=lambda **kw: types.SimpleNamespace(
+            remote=lambda blob: _FakeReplica(new_delay)))
+    monkeypatch.setattr(rt, "remote", lambda cls: factory)
+    monkeypatch.setattr(controller, "RECONFIGURE_WAIT_S", 0.05)
+    return ctrl, st
+
+
+@pytest.mark.parametrize("case", ["slow_replica", "started_during",
+                                  "joined_during"])
+def test_update_user_config_reaches_every_routed_replica(case,
+                                                          monkeypatch):
+    """When update_user_config returns, every replica in routing holds the
+    new config and the spec is persisted: a live replica whose
+    reconfigure() outlasts the wait is waited for (not skipped as dying);
+    a replica whose start-up reconfigure (old config) spans the update is
+    configured again before it enters routing; a replica that entered
+    routing, with the old config, while the update waited on another is
+    sent the new one."""
+    old, new = {"threshold": 5}, {"threshold": 100}
+    first = _FakeReplica(0.3 if case != "started_during" else 0.0)
+    ctrl, st = _controller_with([first], old, monkeypatch,
+                                new_delay=0.2 if case == "started_during"
+                                else 0.0)
+
+    async def go():
+        first.config = old
+        if case == "slow_replica":
+            await ctrl.update_user_config("app", "D", new)
+            return
+        if case == "started_during":
+            start = asyncio.ensure_future(ctrl._start_replica(st))
+            await asyncio.sleep(0.05)      # its reconfigure(old) in flight
+            await ctrl.update_user_config("app", "D", new)
+            await start
+            return
+        update = asyncio.ensure_future(
+            ctrl.update_user_config("app", "D", new))
+        await asyncio.sleep(0.05)          # the update waits on `first`
+        await ctrl._start_replica(st)      # old config, enters routing
+        await update
+
+    asyncio.run(go())
+    assert st.spec.user_config == new
+    assert len(st.replicas) == (1 if case == "slow_replica" else 2)
+    assert [r.config for r in st.replicas] == [new] * len(st.replicas)
+
+
+def test_update_user_config_fails_naming_a_replica_that_never_answers(
+        monkeypatch):
+    """A routed replica whose reconfigure() never returns fails the
+    update after ten waits, naming it, and the old config stays."""
+    old = {"threshold": 5}
+    stuck = _FakeReplica(3600.0)
+    ctrl, st = _controller_with([stuck], old, monkeypatch)
+    with pytest.raises(RuntimeError, match="did not return on replica"):
+        asyncio.run(asyncio.wait_for(ctrl.update_user_config(
+            "app", "D", {"threshold": 100}), timeout=30))
+    assert st.spec.user_config == old
 
 
 def test_update_user_config_surfaces_errors(ray):

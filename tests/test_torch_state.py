@@ -4,8 +4,8 @@ rpcs.
 The cases of ``tests/test_state.py`` run on the port with the
 reference's assertions: the task lifecycle, the actor, object, worker
 and node lists, the Prometheus endpoint, the event export and
-``memory_summary`` (its ``iter_torch_batches`` case belongs to the data
-library, which the port does not have yet). Then the same calls from a
+``memory_summary`` and ``iter_torch_batches`` (``slow``, as in the
+reference). Then the same calls from a
 driver client (a script of its own that attaches with
 ``init(address=...)`` and loads neither JAX nor the reference) and from
 inside a task; ``autoscaler_status`` raising until the autoscaler is
@@ -15,7 +15,8 @@ ported; one program under both packages whose row keys (every
 (``tests/test_stall_doctor.py``); and a compiled DAG seen through the
 state API: its channels counted in ``summary()``, its loops parked on a
 channel in ``stack_report()``, and a seal-to-wake flow for every edge in
-``timeline(flight=True)``.
+``timeline(flight=True)``; and ``summary()["data"]``, the streaming data
+plane's rollup, after a streaming run.
 
 The remote functions and classes are defined inside the tests, so they
 pickle by value: a worker never imports this module."""
@@ -192,7 +193,45 @@ def test_memory_summary(rt):
     del ref, small
 
 
+@pytest.mark.slow
+def test_iter_torch_batches(rt):
+    from ray_tpu_torch import data
+    ds = data.range(10)
+    batches = list(ds.iter_torch_batches(batch_size=4))
+    import torch
+    assert all(isinstance(b["id"], torch.Tensor) for b in batches)
+    total = torch.cat([b["id"] for b in batches])
+    assert sorted(total.tolist()) == list(range(10))
+
+
 # -- the port's own cases ----------------------------------------------------
+
+def test_summary_holds_the_data_rollup_after_a_streaming_run(rt):
+    """``summary()["data"]`` (the reference's ``state.py:208-216``): a
+    pipeline forced through the streaming executor shows its blocks and
+    its one dispatch per stage worker on the ``chan`` path."""
+    from ray_tpu_torch import data, state
+    from ray_tpu_torch.data.context import DataContext
+
+    def chan():
+        return state.summary().get("data", {}).get("path", {}).get(
+            "chan", {"blocks": 0.0, "dispatches": 0.0})
+
+    before = chan()
+    ctx = DataContext.get_current()
+    saved = ctx.streaming_executor
+    ctx.streaming_executor = "force"
+    try:
+        ds = data.range(40, override_num_blocks=8).map_batches(
+            lambda b: {"id": b["id"] + 1})
+        assert [r["id"] for r in ds.iter_rows()] == list(range(1, 41))
+    finally:
+        ctx.streaming_executor = saved
+    after = chan()
+    assert after["blocks"] - before["blocks"] == 8
+    assert 0 < after["dispatches"] - before["dispatches"] <= 2
+    assert after["dispatches_per_block"] < 1
+
 
 def test_state_calls_from_inside_a_task(rt):
     """A worker reaches the head's tables through the state rpcs: the
